@@ -1,0 +1,95 @@
+"""Serving launcher: real AR-DiT execution through the unified
+``serve.session.StreamingSession`` on the card.
+
+The batched paged executor serves a workload from the
+``sched_sim.workloads`` generators under the paper's control plane and
+the run prints the same one-line ``Summary.row()`` as the reference
+launcher's ``--real --batched`` mode::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
+        --workload burst --streams 6 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
+        --streams 4 --pool-streams 2        # oversubscribed page pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
+        --device cpu --streams 2 --chunks 2  # plain versions, on the host
+
+The model is the reduced ``ardit-self-forcing`` config unless ``--arch``
+names a registry config (``--arch ardit-self-forcing`` is full width).
+The simulator (``--sim``), the sequential executor, multiple lanes,
+co-served models, the step cache and calibration wait for their slices
+(ROADMAP: port queue).
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--real", action="store_true", required=True,
+                    help="real model execution (the simulator waits for "
+                         "its slice)")
+    ap.add_argument("--batched", action="store_true", required=True,
+                    help="credit-ordered micro-batch executor (the "
+                         "sequential executor waits for its slice)")
+    ap.add_argument("--workload", default="steady")
+    ap.add_argument("--streams", type=int, default=6)
+    ap.add_argument("--rate", type=float, default=1.0)
+    ap.add_argument("--chunks", type=int, default=4,
+                    help="per-stream chunk cap")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--budget-factor", type=float, default=4.0,
+                    help="playout seconds per chunk as a multiple of "
+                         "the measured top-fidelity latency")
+    ap.add_argument("--arrival-scale", type=float, default=1.0,
+                    help="multiply workload event times (< 1 compresses "
+                         "Poisson gaps / trace idles)")
+    ap.add_argument("--pool-streams", type=int, default=0,
+                    help="co-resident stream cap of the paged KV pool "
+                         "(< --streams oversubscribes; 0 -> all fit)")
+    ap.add_argument("--front-door", action="store_true",
+                    help="SLO-aware admission control in front of the "
+                         "scheduler, with admission stats in the report")
+    ap.add_argument("--arch", default="",
+                    help="registry config to serve at full width "
+                         "(default: the reduced ardit-self-forcing)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the executor (default: the card)")
+    args = ap.parse_args()
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.sched_sim.metrics import summarize, transfer_stats
+    from repro_torch.sched_sim.workloads import WORKLOADS
+    from repro_torch.serve.session import (SessionConfig, StreamingSession,
+                                           cap_specs)
+
+    specs = cap_specs(WORKLOADS[args.workload](
+        n=args.streams, rate=args.rate, seed=args.seed), args.chunks)
+    fd_cfg = None
+    if args.front_door:
+        from repro_torch.sched_sim.frontdoor import FrontDoorConfig
+        fd_cfg = FrontDoorConfig()        # autoscale forced off live
+    session = StreamingSession(SessionConfig(
+        executor="batched",
+        max_batch=args.max_batch,
+        budget_factor=args.budget_factor,
+        pool_streams=args.pool_streams or args.streams + 1,
+        arrival_scale=args.arrival_scale,
+        front_door=fd_cfg,
+        model_cfg=get_config(args.arch) if args.arch else None,
+        device=args.device,
+        verbose=True))
+    for spec in specs:
+        session.submit(spec)
+    res = session.run()
+    s = summarize(res)
+    print(f"real-batched on {args.workload}: {s.row()}")
+    print(f"  rehomings={s.n_rehomings} elastic_sp={s.n_sp_events} "
+          f"transfers={transfer_stats(res)}")
+    if args.front_door:
+        print(f"  admission: {res.admission}")
+
+
+if __name__ == "__main__":
+    main()

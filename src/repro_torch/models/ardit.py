@@ -1,0 +1,351 @@
+"""AR-DiT: chunk-wise autoregressive video diffusion transformer
+(serving surface of the JAX reference's ``models/ardit.py``).
+
+Video is generated one *chunk* (``chunk_frames`` latent frames =
+``chunk_tokens`` tokens) at a time; each chunk is denoised over ``S``
+steps with bidirectional in-chunk attention, and every token also
+attends to the rolling KV cache of earlier chunks (sink + local window,
+SS2.1).  The conditioning embeddings occupy the sink.  All four
+fidelity knobs are live (S steps, rho sparsity, W window, Q fp8 KV).
+
+This module ports the page-table-native path the batched serving
+executor runs: ``denoise_step_paged`` reads the cached context in place
+from the paged KV pool through ``attention.paged_mha``.  The stacked
+``[L, ...]`` layer parameters are consumed by a Python loop (the
+reference's ``lax.scan``).  The gathered-context forward, the
+sequential ``serve_chunk`` path, the SP2 head-split siblings and
+training wait for their slices (ROADMAP).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import paged_mha, sparse_keep_list
+
+Params = Dict[str, Any]
+
+LATENT_CH = 16          # latent channels out of the (stubbed) video VAE
+COND_TOKENS = 77        # text-conditioning tokens (stub encoder output)
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+class FidelityConfig(NamedTuple):
+    """A concrete assignment of the paper's four fidelity knobs (SS5),
+    plus the repo's fifth knob: the AdaCache-style step cache (its
+    executor side waits for the step-cache slice)."""
+    steps: int = 4              # S in {2,3,4}
+    sparsity: float = 0.0       # rho in {0,.6,.7,.8,.9}
+    window: int = 7             # W in {1,3,7} chunks
+    quant: str = "bf16"         # Q in {bf16,fp8}
+    cache: str = "off"          # step cache in {off,conservative,aggressive}
+
+    @property
+    def key(self) -> str:
+        # cache=off keys are unchanged from the 4-knob era so existing
+        # EMAs, calibration ratios, and parity baselines stay valid
+        base = f"S{self.steps}_r{self.sparsity}_W{self.window}_{self.quant}"
+        return base if self.cache == "off" else f"{base}_c{self.cache[0]}"
+
+
+HIGHEST_QUALITY = FidelityConfig(4, 0.0, 7, "bf16")
+
+
+def chunk_tokens(cfg: ModelConfig) -> int:
+    return cfg.ardit_chunk_frames * cfg.ardit_frame_tokens
+
+
+def cache_capacity(cfg: ModelConfig) -> int:
+    """KV capacity in tokens: cond sink + window chunks."""
+    return COND_TOKENS + cfg.ardit_window_chunks * chunk_tokens(cfg)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    d = cfg.d_model
+    return {
+        "attn": L.init_attn(cfg, gen, dtype),
+        "mlp": L.init_mlp(cfg, gen, dtype),
+        # adaLN-zero: 6 modulation vectors per layer
+        "mod": torch.zeros((d, 6 * d), dtype=dtype),
+        "mod_b": torch.zeros((6 * d,), dtype=dtype),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Params:
+    """Fresh parameters: the reference's shapes and scales
+    (``layers.dense_init``), adaLN gates zero.  Values are drawn on the
+    CPU from ``generator`` — so they do not depend on the device — one
+    layer at a time, then moved to ``device``.  Layer params keep the
+    stacked ``[L, ...]`` layout."""
+    dtype = DTYPES[cfg.param_dtype]
+    d = cfg.d_model
+
+    def dev(t):
+        return t.to(device)
+
+    p = {
+        "in_proj": dev(L.dense_init(generator, (LATENT_CH, d), dtype)),
+        "cond_proj": dev(L.dense_init(generator, (d, d), dtype)),
+        "t_mlp1": dev(L.dense_init(generator, (256, d), dtype)),
+        "t_mlp2": dev(L.dense_init(generator, (d, d), dtype)),
+    }
+    layers = [_map(dev, _init_layer(cfg, generator, dtype))
+              for _ in range(cfg.n_layers)]
+    p["layers"] = _stack(layers)
+    p["final_norm"] = dev(torch.ones((d,), dtype=dtype))
+    p["final_mod"] = dev(torch.zeros((d, 2 * d), dtype=dtype))
+    p["out_proj"] = dev(L.dense_init(generator, (d, LATENT_CH), dtype,
+                                     scale=0.02))
+    return p
+
+
+def open_gates(p: Params, generator: torch.Generator) -> Params:
+    """Open the adaLN-zero gates with small random modulation weights
+    (``mod`` ~ 0.2 N, ``mod_b`` ~ 0.5 + 0.2 N, ``final_mod`` ~ 0.2 N,
+    drawn on the CPU).  With fresh params every residual branch is
+    multiplied by 0 and the output ignores the KV context; smoke runs
+    with random weights open them so attention really matters."""
+    def rnd(t, scale, shift=0.0):
+        r = torch.randn(t.shape, generator=generator, dtype=torch.float32)
+        return (shift + scale * r).to(t.dtype).to(t.device)
+
+    p["layers"]["mod"] = rnd(p["layers"]["mod"], 0.2)
+    p["layers"]["mod_b"] = rnd(p["layers"]["mod_b"], 0.2, 0.5)
+    p["final_mod"] = rnd(p["final_mod"], 0.2)
+    return p
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(p: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked ``[L, ...]`` layer params."""
+    return _map(lambda t: t[i], p["layers"])
+
+
+def _time_embed(p: Params, t: torch.Tensor, d: int) -> torch.Tensor:
+    """t [B] in [0,1] -> [B, D] conditioning vector."""
+    half = 128
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None, :] * 1000.0
+    emb = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)   # [B,256]
+    h = F.silu(emb.to(p["t_mlp1"].dtype) @ p["t_mlp1"])
+    return h @ p["t_mlp2"]
+
+
+def _modulate(x, shift, scale):
+    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+
+
+def cache_sparse_index(cfg: ModelConfig, ctx_len: int,
+                       sparsity: float) -> Optional[np.ndarray]:
+    """Static token indices of the cached context kept under knob rho.
+
+    Sink (cond) tokens and the most recent chunk are always kept; a strided
+    ~(1-rho) fraction of the middle blocks survives (SS5, Light-Forcing
+    style block sparsity, 128-aligned).
+    """
+    if sparsity <= 0.0 or ctx_len <= COND_TOKENS:
+        return None
+    blk = 128
+    body = ctx_len - COND_TOKENS
+    n_blocks = max(1, body // blk)
+    keep = sparse_keep_list(1, [n_blocks], sparsity, sink_blocks=1)[0]
+    idx = [np.arange(COND_TOKENS)]
+    for j in keep:
+        lo = COND_TOKENS + j * blk
+        hi = min(COND_TOKENS + (j + 1) * blk, ctx_len)
+        idx.append(np.arange(lo, hi))
+    tail = COND_TOKENS + n_blocks * blk
+    if tail < ctx_len:
+        idx.append(np.arange(tail, ctx_len))
+    return np.unique(np.concatenate(idx))
+
+
+def sigma_schedule(steps: int) -> np.ndarray:
+    """Rectified-flow time grid 1 -> 0 (noise -> data)."""
+    return np.linspace(1.0, 0.0, steps + 1)
+
+
+# ---------------------------------------------------------------------------
+# page-table-native forward
+# ---------------------------------------------------------------------------
+
+def _chunk_forward_pages(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
+                         t: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, block_table: torch.Tensor,
+                         page_mask: Optional[torch.Tensor], *, q_offset,
+                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """DiT body of the page-table-native forward (the single-shard
+    branch of the reference; its elastic-SP2 head-split form waits for
+    the SP slice).  ``k_pages``/``v_pages`` are the whole [L, ...]
+    pools; layer ``i`` reads ``k_pages[i]`` in place."""
+    b, tc, _ = x_chunk.shape
+    d = cfg.d_model
+    h = x_chunk.to(p["in_proj"].dtype) @ p["in_proj"]
+    temb = _time_embed(p, t, d)                                   # [B,D]
+    q_off = torch.as_tensor(q_offset, device=h.device)
+    ar = torch.arange(tc, device=h.device)
+    positions = (q_off[:, None] + ar[None, :] if q_off.ndim
+                 else q_off + ar)                                 # [B,Tc]|[Tc]
+    ones = torch.ones((d,), dtype=h.dtype, device=h.device)
+    silu_t = F.silu(temb)
+
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        lp = layer_params(p, li)
+        mod = silu_t @ lp["mod"] + lp["mod_b"]                    # [B,6D]
+        sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+        a_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh1, sc1)
+        q, k, v = L.attn_qkv(cfg, lp["attn"], a_in, positions)
+        o = paged_mha(q, k_pages[li], v_pages[li], block_table, page_mask,
+                      k, v, n_kv_heads=cfg.n_kv_heads, sink=COND_TOKENS,
+                      chunk_tokens=tc)
+        o = o.reshape(b, tc, cfg.n_heads * cfg.head_dim)
+        h = h + g1[:, None, :] * (o @ lp["attn"]["wo"])
+        f_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh2, sc2)
+        h = h + g2[:, None, :] * L.mlp_block(cfg, lp["mlp"], f_in)
+        ks.append(k)
+        vs.append(v)
+
+    mod = silu_t @ p["final_mod"]
+    sh, sc = torch.chunk(mod, 2, dim=-1)
+    h = _modulate(L.rmsnorm(h, p["final_norm"], cfg.norm_eps), sh, sc)
+    return h @ p["out_proj"], {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def chunk_forward_paged(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
+                        t: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_table: torch.Tensor,
+                        page_mask: Optional[torch.Tensor], *, q_offset,
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One DiT pass over a chunk with the cached context consumed IN
+    PLACE from the paged KV pool.
+
+    x_chunk [B, T_c, LATENT_CH]; t [B]; k_pages/v_pages [L, n_pages,
+    page, Hkv, Dh] — the whole pool; block_table [B, n] per-stream page
+    tables (entry 0 = sink page, entry 1+r = ring slot r); page_mask
+    [B, n*page] visible context tokens in table order, or None when
+    every valid token is visible.  ``q_offset`` is an int or a
+    per-stream [B] tensor.  Returns (prediction [B, T_c, LATENT_CH],
+    {"k","v"} [L, B, T_c, Hkv, Dh] chunk KV).
+    """
+    return _chunk_forward_pages(cfg, p, x_chunk, t, k_pages, v_pages,
+                                block_table, page_mask, q_offset=q_offset)
+
+
+def denoise_step_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       t: torch.Tensor, dt: torch.Tensor,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       block_table: torch.Tensor,
+                       dn_mask: Optional[torch.Tensor],
+                       cl_mask: Optional[torch.Tensor],
+                       q_offset: torch.Tensor, is_denoise: torch.Tensor):
+    """Fused batched executor step over the paged pool: forward + Euler
+    update.  Rows in their denoise phase use ``dn_mask`` and a nonzero
+    ``dt``; rows in their clean-context phase use ``cl_mask`` and dt=0
+    (their chunk KV is what matters).  ``dn_mask=None`` is the
+    all-visible fast path (homogeneous fill, full window, no sparsity;
+    it implies cl all-visible, since the clean window is a superset);
+    ``cl_mask=None`` means the clean pass sees exactly the denoise
+    mask."""
+    mask = dn_mask if cl_mask is None else \
+        torch.where(is_denoise[:, None], dn_mask, cl_mask)
+    v_pred, new_kv = chunk_forward_paged(cfg, p, x, t, k_pages, v_pages,
+                                         block_table, mask,
+                                         q_offset=q_offset)
+    x_new = x - dt[:, None, None] * v_pred.to(x.dtype)
+    return x_new, new_kv
+
+
+# ---------------------------------------------------------------------------
+# batched serving: per-stream sink KV + ring visibility masks
+# ---------------------------------------------------------------------------
+
+def cond_kv(cfg: ModelConfig, p: Params, cond: torch.Tensor,
+            kv_dtype: Optional[str] = None):
+    """Sink (conditioning) KV of a batch of streams: cond [B,
+    COND_TOKENS, d_model] -> k, v [L, B, COND_TOKENS, Hkv, Dh] in the
+    KV dtype.  ``KVPool`` writes this into a stream's sink page."""
+    dt = DTYPES[kv_dtype or cfg.kv_dtype]
+    cond = cond.to(p["cond_proj"].dtype) @ p["cond_proj"]
+    positions = torch.arange(COND_TOKENS, device=cond.device)
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        _, k, v = L.attn_qkv(cfg, layer_params(p, li)["attn"], cond,
+                             positions)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks).to(dt), torch.stack(vs).to(dt)
+
+
+def init_batched_cache(cfg: ModelConfig, p: Params, cond: torch.Tensor,
+                       kv_dtype: Optional[str] = None) -> Dict[str, Any]:
+    """Fixed-capacity ring cache for a batch of streams: {"k","v"} of
+    [L, B, cap, Hkv, Dh] (sink KV, zero ring) plus host-side per-stream
+    chunk counts ``chunks`` [B]."""
+    k, v = cond_kv(cfg, p, cond, kv_dtype)
+    pad = (0, 0, 0, 0, 0, cache_capacity(cfg) - COND_TOKENS)
+    return {"k": F.pad(k, pad), "v": F.pad(v, pad),
+            "chunks": np.zeros(cond.shape[0], np.int64)}
+
+
+def batched_context_mask(cfg: ModelConfig, chunks: np.ndarray, window: int,
+                         sparsity: float = 0.0) -> np.ndarray:
+    """Per-stream context-visibility mask [B, cap] over the ring cache:
+    the sink tokens plus the tokens of each stream's last
+    ``min(window, resident)`` chunks that survive the rho sparsity drop,
+    mapped through the ring permutation."""
+    n = len(np.asarray(chunks, np.int64))
+    return batched_context_mask_multi(
+        cfg, chunks, np.full(n, window, np.int64),
+        np.full(n, sparsity, np.float64))
+
+
+def batched_context_mask_multi(cfg: ModelConfig, chunks: np.ndarray,
+                               windows: np.ndarray,
+                               sparsities: np.ndarray) -> np.ndarray:
+    """``batched_context_mask`` with PER-ROW window/sparsity knobs (the
+    fused heterogeneous-fidelity dispatch): row i is what its own
+    fidelity's uniform mask would be."""
+    tc = chunk_tokens(cfg)
+    w_max = cfg.ardit_window_chunks
+    mask = np.zeros((len(chunks), cache_capacity(cfg)), bool)
+    windows = np.asarray(windows, np.int64)
+    sparsities = np.asarray(sparsities, np.float64)
+    for i, n in enumerate(np.asarray(chunks, np.int64)):
+        w = min(int(windows[i]), int(n), w_max)
+        ctx_len = COND_TOKENS + w * tc
+        keep = cache_sparse_index(cfg, ctx_len, float(sparsities[i]))
+        idx = np.arange(ctx_len) if keep is None else keep
+        mask[i, idx[idx < COND_TOKENS]] = True
+        body = idx[idx >= COND_TOKENS] - COND_TOKENS
+        if w and body.size:
+            c_abs = (int(n) - w) + body // tc       # absolute chunk index
+            slot = COND_TOKENS + (c_abs % w_max) * tc + body % tc
+            mask[i, slot] = True
+    return mask

@@ -1,0 +1,82 @@
+"""Paged sink + ring KV cache helpers (paper SS2.1 "sink+local").
+
+The page-granular pool (``serve/batcher.py::KVPool``) keeps KV as
+[L, n_pages, page_tokens, Hkv, Dh] and each stream owns a page *table*:
+entry 0 = cond sink page, entry 1+r = ring slot r, chunk c in entry
+1 + c % window_chunks.  The helpers below are pure permutations of pool
+rows.  The gathered-context helpers of the reference (``gather_pages``,
+``write_block``) wait for the gather-backend slice (ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+# |x| above this rounds past e4m3fn's largest finite value (448): the
+# JAX reference's ``astype(float8_e4m3fn)`` gives NaN there, while
+# torch's cast saturates to +-448
+FP8_E4M3_NAN_ABOVE = 464.0
+
+
+def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """Cast to ``float8_e4m3fn`` with the JAX reference's overflow
+    semantics: |x| > 464 (and +-inf, NaN) become NaN instead of
+    saturating, so an fp8 stream whose KV overflows behaves as it does
+    in the reference."""
+    bad = ~(x.abs() <= FP8_E4M3_NAN_ABOVE)
+    return torch.where(bad, torch.nan, x).to(torch.float8_e4m3fn)
+
+
+def chunk_slot(chunk_idx, window_chunks: int, sink: int,
+               chunk_tokens: int):
+    """First-token slot of absolute chunk ``chunk_idx`` in the
+    chunk-granular ring: slots [0, sink) hold the attention sink and the
+    ring holds ``window_chunks`` chunks of ``chunk_tokens`` each.
+    ``chunk_idx`` may be an int or a per-stream integer array/tensor."""
+    return sink + (chunk_idx % window_chunks) * chunk_tokens
+
+
+def pages_per_stream(window_chunks: int) -> int:
+    """Pages a resident stream owns: one cond sink page + the ring."""
+    return 1 + window_chunks
+
+
+def page_of_chunk(chunk_idx: int, window_chunks: int) -> int:
+    """Page-table entry holding absolute chunk ``chunk_idx`` (the ring
+    slot of ``chunk_slot`` shifted past the sink entry)."""
+    return 1 + chunk_idx % window_chunks
+
+
+def mask_to_pages(mask: np.ndarray, n_ring: int, sink: int,
+                  chunk_tokens: int, page_tokens: int) -> np.ndarray:
+    """Contiguous sink+ring visibility mask [B, >= sink + n_ring*tc] ->
+    page-coordinate mask [B, (1+n_ring)*page_tokens] in TABLE order
+    (entry 0 = sink page, entry 1+r = ring slot r) for the paged
+    attention path.  Pages are ``page_tokens`` wide but only partially
+    valid — ``sink`` tokens on the sink page, ``chunk_tokens`` on ring
+    pages — so page tails come out False regardless of the input mask.
+    """
+    b = mask.shape[0]
+    out = np.zeros((b, (1 + n_ring) * page_tokens), bool)
+    out[:, :sink] = mask[:, :sink]
+    for r in range(n_ring):
+        lo = (1 + r) * page_tokens
+        out[:, lo:lo + chunk_tokens] = \
+            mask[:, sink + r * chunk_tokens:sink + (r + 1) * chunk_tokens]
+    return out
+
+
+def pool_write_pages(pool: torch.Tensor, new: torch.Tensor,
+                     pages: Sequence[int]) -> None:
+    """pool [L,n_pages,P,...]; new [L,b,T,...] (T <= P); pages [b].
+
+    Writes one T-token block per stream at token 0 of its destination
+    page, IN PLACE.  The JAX reference donates the pool buffer to a
+    jitted functional update for the same effect; here the pool tensor
+    is simply mutated (``copy_`` also casts to the pool dtype, which is
+    where an fp8-rounded block lands back in a bf16 pool)."""
+    t = new.shape[2]
+    for i, pg in enumerate(pages):
+        pool[:, int(pg), :t].copy_(new[:, i])
