@@ -6,24 +6,37 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit from nvidia-smi; build every CUDA kernel
-   of the main path from ``src/repro_torch/kernels/*/csrc`` with nvcc.
-2. Kernel vs plain version on the card at the main path's full-width
-   shapes (ardit-self-forcing: Sq = 2640, Hq = Hkv = 12, D = 128, page =
-   2640, 8-entry tables): all-visible, explicit mask with drops / a
-   hole row / a row that sees nothing, GQA, fp32 and fp8 pages.  Times
-   the kernel, the plain version and one PyTorch library call computing
-   the same attention, and computes the card's bound for the work.
-3. Integration: the reduced config's ``denoise_step_paged`` on the card
-   (through the kernel) against the same step on the CPU (plain).
-4. The main path at full width: a ``StreamingSession`` serving three
-   streams of three chunks of ``ardit-self-forcing`` (random weights
-   from a seed, adaLN gates opened), with the kernel launch count held
-   to ``n_layers x dispatch_count``.
+   of the served paths from ``src/repro_torch/kernels/*/csrc`` with nvcc
+   (one nvcc per source, started together).
+2. Paged kernel vs plain version on the card at the batched path's
+   full-width shapes (ardit-self-forcing: Sq = 2640, Hq = Hkv = 12, D =
+   128, page = 2640, 8-entry tables): all-visible, explicit mask with
+   drops / a hole row / a row that sees nothing, GQA, fp32 and fp8
+   pages.  Times the kernel, the plain version and one PyTorch library
+   call computing the same attention, and computes the card's bound.
+3. Flash kernel vs plain version on the card at the sequential path's
+   full-width shapes (B = 1, Sq = 2640, 12 heads of 128, bf16,
+   non-causal, Skv = sink + 0 / 3 / 7 chunks + the chunk) and in every
+   mode at modest shapes (causal with q_offset, sink + window, the rho
+   keep matrix, GQA, fp32, head dims 16 and 96); the same timings.
+4. Integration at the reduced config, card vs CPU: the batched paged
+   ``denoise_step_paged``, the sequential ``serve_chunk`` (fidelities
+   top / rho 0.5 / W 3 / fp8 over a warm cache) and the gather
+   backend's ``denoise_step``.
+5-7. The served paths at full width (random weights from a seed, adaLN
+   gates opened), each with both kernels' launch counts set to 0 just
+   before it and read just after: the batched paged session (3 streams
+   x 3 chunks; paged launches = n_layers x dispatches, no flash
+   launch), the sequential session (3 x 3; flash launches = n_layers x
+   (steps + 1) per chunk, warm-up included, no paged launch) and the
+   batched gather-backend session (2 x 2; flash launches = n_layers x
+   unmasked steps, no paged launch).
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
 it exits non-zero and prints no result.
 """
+import gc
 import json
 import os
 import re
@@ -49,12 +62,22 @@ TOL_M, TOL_L_REL, TOL_O = 1e-4, 1e-4, 1e-4
 # paged_mha (bf16 output) vs SDPA over the same keys: outputs reach
 # about 0.06, where a bf16 ulp is 2.4e-4; the limit is 8 ulps
 TOL_SDPA = 2e-3
+# flash kernel vs plain version: fp32 outputs within 1e-4; bf16 outputs
+# within 2 bf16 ulps at the output's largest magnitude (both round one
+# fp32 result that differs in summation order only)
+TOL_FLASH_F32 = 1e-4
+FLASH_BF16_ULPS = 2
+# reduced-config steps and chunks, card vs CPU (fp32, TF32 off)
+TOL_CARD_CPU = 1e-4
 
 DEV = "cuda"
 # the main path's attention shapes at full width (ardit-self-forcing):
 # chunk of 3 x 880 tokens, 12 heads of 128, one page per chunk, tables
 # of the sink page + a 7-chunk ring, a sink of 77 conditioning tokens
 KERNEL_SHAPES = dict(B=2, Sq=2640, H=12, D=128, page=2640, n=8, sink=77)
+# the sequential path's attention at full width: one stream, the chunk's
+# 2640 queries over sink + w chunks + the chunk itself
+FLASH_SKV = (77 + 2640, 77 + 3 * 2640 + 2640, 77 + 7 * 2640 + 2640)
 SESSION_ARCH = "ardit-self-forcing"
 
 
@@ -246,11 +269,132 @@ def phase_kernel(record):
                   library_ms=library_ms)
 
 
+def ulp_bf16(x):
+    """The bf16 spacing at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(max(x, 1e-30))) - 7)
+
+
+def compare_flash(name, got, want):
+    """Flash kernel output against the plain version's on the same
+    inputs, within TOL_FLASH_F32 (fp32) or FLASH_BF16_ULPS bf16 ulps at
+    the output's largest magnitude (bf16)."""
+    err = float((got.float() - want.float()).abs().max())
+    if want.dtype == torch.float32:
+        limit = TOL_FLASH_F32
+    else:
+        limit = FLASH_BF16_ULPS * ulp_bf16(float(want.float().abs().max()))
+    print(f"  {name}: |d| {err:.3g} (limit {limit:.3g})")
+    if not err <= limit or got.shape != want.shape \
+            or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: flash kernel disagrees with the "
+                             f"plain version ({err} > {limit})")
+    return err
+
+
+def phase_flash(record):
+    """Phase 3: the flash kernel against its plain version at the
+    sequential path's shapes and in every mode; timings and the bound of
+    the deepest shape."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    bf16 = torch.bfloat16
+
+    def qkv(B, Sq, Skv, Hq, Hkv, D, dtype):
+        return tuple(torch.randn(s, generator=gen, device=DEV).to(dtype)
+                     for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
+                               (B, Skv, Hkv, D)))
+
+    errs = []
+    B, Sq, H, D = 1, 2640, 12, 128
+    for skv in FLASH_SKV:
+        q, k, v = qkv(B, Sq, skv, H, H, D, bf16)
+
+        def kern():
+            return ops.flash_mha(q, k, v, n_kv_heads=H, causal=False)
+
+        def plain():
+            return ref.flash_mha_ref(q, k, v, n_kv_heads=H, causal=False)
+
+        out = kern()
+        errs.append(compare_flash(f"non-causal bf16 Skv={skv}", out,
+                                  plain()))
+        kernel_ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 3)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        library_ms = cuda_ms(library, 10)
+        lib_err = float((out.float() - library().transpose(1, 2).float())
+                        .abs().max())
+        lib_limit = 8 * ulp_bf16(float(out.float().abs().max()))
+        print(f"  kernel vs SDPA: |d| {lib_err:.3g} (limit {lib_limit:.3g})")
+        if not lib_err <= lib_limit:
+            raise AssertionError(f"flash kernel disagrees with SDPA "
+                                 f"({lib_err})")
+        # each input read once, the output written once; 4 * Sq * Skv *
+        # D operations per (b, head)
+        flops = 4.0 * B * H * Sq * skv * D
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * k.numel() * k.element_size()
+        t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  B={B} Sq={Sq} Skv={skv}: kernel {kernel_ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), achieved "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    # the record keeps the deepest shape's numbers
+    record.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=library_ms)
+
+    # every mode at a modest shape: (name, B, Sq, Skv, Hq, Hkv, D, dtype,
+    # keyword arguments); the rho blocks are not the kernel's 64-wide
+    # tiles
+    f32 = torch.float32
+    cases = [
+        ("causal q_offset bf16", 2, 512, 1536, 12, 12, 128, bf16,
+         dict(q_offset=1024)),
+        ("sink + window bf16", 1, 1024, 1024, 12, 12, 128, bf16,
+         dict(window=256, sink=77)),
+        ("rho 0.7 keep matrix 96 x 160 bf16", 1, 1920, 1920, 12, 12, 128,
+         bf16, dict(sparsity=0.7, block_q=96, block_kv=160)),
+        ("GQA G=4 non-causal bf16", 2, 700, 1800, 16, 4, 128, bf16,
+         dict(causal=False)),
+        ("non-causal fp32", 1, 640, 2717, 12, 12, 128, f32,
+         dict(causal=False)),
+        ("D=16 non-causal fp32 (reduced)", 2, 48, 269, 4, 4, 16, f32,
+         dict(causal=False)),
+        ("D=16 sink + window fp32", 1, 256, 256, 4, 4, 16, f32,
+         dict(window=64, sink=16)),
+        ("D=96 non-causal bf16 (causal-forcing)", 1, 660, 2057, 16, 16, 96,
+         bf16, dict(causal=False)),
+        ("D=96 causal rho 0.5 fp32", 1, 512, 512, 16, 16, 96, f32,
+         dict(sparsity=0.5, block_q=64, block_kv=128)),
+    ]
+    for name, b_, sq, skv, hq, hkv, d, dt, kw in cases:
+        q, k, v = qkv(b_, sq, skv, hq, hkv, d, dt)
+        kw = {**dict(block_q=128, block_kv=128), **kw}
+        errs.append(compare_flash(
+            name, ops.flash_mha(q, k, v, n_kv_heads=hkv, **kw),
+            ref.flash_mha_ref(q, k, v, n_kv_heads=hkv, **kw)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    record["max_abs_err"] = max(errs)
+
+
 def phase_integration():
-    """Phase 3: the reduced config's fused denoise step on the card
-    (kernel) and on the CPU (plain version), same params and inputs,
-    masks None / denoise / denoise + clean.  fp32 throughout, TF32 off:
-    agreement within 1e-4."""
+    """Phase 4: the reduced config on the card (kernels) and on the CPU
+    (plain versions), same params and inputs: the batched paged step
+    (masks None / denoise / denoise + clean), the gather backend's step
+    (the same masks) and the sequential ``serve_chunk`` at four
+    fidelities.  fp32 throughout, TF32 off: agreement within 1e-4."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -301,52 +445,115 @@ def phase_integration():
         worst = max(worst, err)
         print(f"  reduced denoise_step_paged [{name}] card vs CPU: "
               f"max |d| {err:.3g}")
-        if not err <= 1e-4:
+        if not err <= TOL_CARD_CPU:
             raise AssertionError(f"integration [{name}] disagrees ({err})")
+
+    # the gather backend's step over a contiguous context: masks none
+    # (the flash kernel on the card) / denoise / denoise + clean (the
+    # plain masked segment on both devices)
+    ctx = A.COND_TOKENS + 2 * tc
+    cshape = (cfg.n_layers, 2, ctx, cfg.n_kv_heads, cfg.head_dim)
+    ck = torch.randn(cshape, generator=gen)
+    cv = torch.randn(cshape, generator=gen)
+    dn = torch.rand((2, ctx), generator=gen) < 0.6
+    cl = torch.rand((2, ctx), generator=gen) < 0.8
+    for name, masks in (("none", (None, None)), ("dn", (dn, None)),
+                        ("dn+cl", (dn, cl))):
+        args = (x, t, dt, ck, cv, q_off, *masks, is_dn)
+        x0, kv0 = A.denoise_step(cfg, p_cpu, *args)
+        x1, kv1 = A.denoise_step(
+            cfg, p_gpu, *(None if a is None else a.to(DEV) for a in args))
+        sync()
+        err = max(float((x1.cpu() - x0).abs().max()),
+                  float((kv1["k"].cpu() - kv0["k"]).abs().max()))
+        worst = max(worst, err)
+        print(f"  reduced denoise_step (gather) [{name}] card vs CPU: "
+              f"max |d| {err:.3g} (limit {TOL_CARD_CPU:g})")
+        if not err <= TOL_CARD_CPU:
+            raise AssertionError(f"gather step [{name}] disagrees ({err})")
+
+    # the sequential path: a cache warmed by 8 chunks (a full window,
+    # long enough for rho to drop cached tokens), then one chunk at each
+    # fidelity, from the same cache on both devices
+    cfg8 = dataclasses.replace(cfg, ardit_window_chunks=8)
+    cond = torch.randn((1, A.COND_TOKENS, cfg.d_model), generator=gen) * .02
+    caches = {"cpu": A.init_cache(cfg8, p_cpu, cond),
+              DEV: A.init_cache(cfg8, p_gpu, cond.to(DEV))}
+    params = {"cpu": p_cpu, DEV: p_gpu}
+    warm = A.FidelityConfig(2, 0.0, 8, "bf16")
+    for _ in range(8):
+        noise = torch.randn((1, tc, A.LATENT_CH), generator=gen)
+        for d in caches:
+            _, caches[d] = A.serve_chunk(cfg8, params[d], caches[d],
+                                         noise.to(d), warm)
+    noise = torch.randn((1, tc, A.LATENT_CH), generator=gen)
+    for fid in (A.HIGHEST_QUALITY, A.FidelityConfig(2, 0.5, 8, "bf16"),
+                A.FidelityConfig(3, 0.0, 3, "bf16"),
+                A.FidelityConfig(2, 0.0, 8, "fp8")):
+        x0, c0 = A.serve_chunk(cfg8, p_cpu, caches["cpu"], noise, fid)
+        x1, c1 = A.serve_chunk(cfg8, p_gpu, caches[DEV], noise.to(DEV), fid)
+        sync()
+        err = float((x1.cpu() - x0).abs().max())
+        if fid.quant != "fp8":     # fp8 KV may round to a neighbour
+            err = max(err, float((c1["k"].cpu() - c0["k"]).abs().max()),
+                      float((c1["v"].cpu() - c0["v"]).abs().max()))
+        worst = max(worst, err)
+        print(f"  reduced serve_chunk [{fid.key}] card vs CPU: max |d| "
+              f"{err:.3g} (limit {TOL_CARD_CPU:g})")
+        if not err <= TOL_CARD_CPU:
+            raise AssertionError(f"serve_chunk [{fid.key}] disagrees "
+                                 f"({err})")
     return worst
 
 
-def phase_session(counter):
-    """Phase 4: the full-width main path through the public entry
-    points; returns the kernel launch count of this run."""
+def full_width_params():
+    """``ardit-self-forcing`` at full width: random weights from seed 0
+    with the adaLN gates opened, on the card (shared by phases 5-7)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import ardit as A
-    from repro_torch.sched_sim.metrics import summarize
-    from repro_torch.serve.batcher import BatchedChunkExecutor
-    from repro_torch.serve.session import (SessionConfig, StreamingSession,
-                                           uniform_specs)
 
     cfg = get_config(SESSION_ARCH)
-    n_streams, n_chunks = 3, 3
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     params = A.open_gates(A.init_params(cfg, gen, DEV), gen)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"  params: {n_params / 1e9:.3f} B ({cfg.param_dtype}), "
           f"init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def run_session(label, cfg, make_executor, config, n_streams, n_chunks,
+                counters):
+    """Serve ``n_streams`` x ``n_chunks`` at t = 0 through
+    ``StreamingSession`` with the executor ``make_executor()``; every
+    launch count in ``counters`` is set to 0 just before and read just
+    after.  Checks every stream's latents; returns (executor, session,
+    launch counts by kernel name)."""
+    from repro_torch.models import ardit as A
+    from repro_torch.sched_sim.metrics import summarize
+    from repro_torch.serve.session import StreamingSession, uniform_specs
+
+    # the previous session's executor and pool sit in reference cycles
+    # (session <-> handles): collect them so the peak is this path's own
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    config = SessionConfig(model_cfg=cfg, executor="batched", max_batch=4,
-                           pool_streams=n_streams + 1, device=DEV,
-                           verbose=True)
-    # the count starts here: everything below is the main path
-    counter.launches = 0
-    ex = BatchedChunkExecutor(cfg=cfg, params=params,
-                              max_streams=config.pool_streams,
-                              device=config.device)
+    for fn in counters.values():
+        fn.launches = 0
+    ex = make_executor()
     t0 = time.perf_counter()
     session = StreamingSession(config, executor=ex)
     handles = [session.submit(s) for s in uniform_specs(n_streams, n_chunks)]
     result = session.run()
     sync()
     wall = time.perf_counter() - t0
-    launches = counter.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
 
-    summary = summarize(result)
-    print(f"  real-batched full width: {summary.row()}")
+    print(f"  {label} full width: {summarize(result).row()}")
     print(f"  session wall {wall:.2f} s (warm-up chunk included), "
           f"top-fidelity warm-up chunk {session.top_latency:.3f} s, "
-          f"dispatches {ex.dispatch_count}, kernel launches {launches}, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"kernel launches {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for key, lat in sorted(ex.latency_ema.items()):
         print(f"  chunk latency EMA {key}: {lat:.3f} s")
     for h in handles:
@@ -362,11 +569,87 @@ def phase_session(counter):
             if tuple(c.shape) != (1, A.chunk_tokens(cfg), A.LATENT_CH) \
                     or not bool(torch.isfinite(c).all()):
                 raise AssertionError(f"stream {h.sid}: bad latents")
+    return ex, session, launches
+
+
+def phase_batched(cfg, params, counters):
+    """Phase 5: the batched paged path (3 streams x 3 chunks): paged
+    launches = n_layers x dispatches, no flash launch."""
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.session import SessionConfig
+
+    config = SessionConfig(model_cfg=cfg, executor="batched", max_batch=4,
+                           pool_streams=4, device=DEV, verbose=True)
+    ex, _, launches = run_session(
+        "real-batched (paged)", cfg,
+        lambda: BatchedChunkExecutor(cfg=cfg, params=params,
+                                     max_streams=config.pool_streams,
+                                     device=config.device),
+        config, 3, 3, counters)
     expected = cfg.n_layers * ex.dispatch_count
-    if launches != expected or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != n_layers x "
-                             f"dispatch_count = {expected}")
-    return launches
+    print(f"  dispatches {ex.dispatch_count}")
+    if launches["paged_chunk_attention"] != expected or expected == 0 \
+            or launches["flash_mha"] != 0:
+        raise AssertionError(f"launches {launches}: expected {expected} "
+                             f"paged (n_layers x dispatches), 0 flash")
+    return launches["paged_chunk_attention"]
+
+
+def phase_sequential(cfg, params, counters):
+    """Phase 6: the sequential path (3 streams x 3 chunks, whole chunks
+    one stream at a time): flash launches = n_layers x (steps + 1) per
+    chunk, warm-up included; no paged launch."""
+    from repro_torch.models import ardit as A
+    from repro_torch.serve.executor import SequentialChunkExecutor
+    from repro_torch.serve.session import SessionConfig
+
+    config = SessionConfig(model_cfg=cfg, executor="sequential", device=DEV,
+                           verbose=True)
+    ex, session, launches = run_session(
+        "real-sequential", cfg,
+        lambda: SequentialChunkExecutor(cfg=cfg, params=params,
+                                        device=DEV),
+        config, 3, 3, counters)
+    steps = {f"S{s}": s for s in (2, 3, 4)}
+    forwards = A.HIGHEST_QUALITY.steps + 1 + sum(
+        (steps[key.split("_")[0]] + 1) * n
+        for key, n in session.fidelity_counts.items())
+    expected = cfg.n_layers * forwards
+    print(f"  forwards {forwards} (warm-up chunk included)")
+    if launches["flash_mha"] != expected or launches[
+            "paged_chunk_attention"] != 0:
+        raise AssertionError(f"launches {launches}: expected {expected} "
+                             f"flash (n_layers x forwards), 0 paged")
+    return launches["flash_mha"]
+
+
+def phase_gather(cfg, params, counters):
+    """Phase 7: the batched gather backend (2 streams x 2 chunks,
+    max_batch 2): steps whose context is all visible take the flash
+    kernel (n_layers launches each), the others the plain masked
+    segment; no paged launch."""
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.session import SessionConfig
+
+    config = SessionConfig(model_cfg=cfg, executor="batched", max_batch=2,
+                           pool_streams=3, context_backend="gather",
+                           device=DEV, verbose=True)
+    ex, _, launches = run_session(
+        "real-batched (gather)", cfg,
+        lambda: BatchedChunkExecutor(cfg=cfg, params=params,
+                                     max_streams=config.pool_streams,
+                                     context_backend="gather", device=DEV),
+        config, 2, 2, counters)
+    flash = launches["flash_mha"]
+    kernel_steps, rest = divmod(flash, cfg.n_layers)
+    print(f"  dispatches {ex.dispatch_count}: {kernel_steps} through the "
+          f"flash kernel, {ex.dispatch_count - kernel_steps} through the "
+          f"masked direct path")
+    if rest or flash == 0 or kernel_steps > ex.dispatch_count \
+            or launches["paged_chunk_attention"] != 0:
+        raise AssertionError(f"launches {launches} for "
+                             f"{ex.dispatch_count} dispatches")
+    return flash
 
 
 def _leaves(tree):
@@ -385,7 +668,8 @@ def main():
     sys.path.insert(0, os.path.join(here, "src"))
     try:
         from repro_torch.kernels import build
-        from repro_torch.kernels.paged_attention import ops
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.paged_attention import ops as paged_ops
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -401,28 +685,49 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    sources = [paged_ops.SOURCE, flash_ops.SOURCE]
     t0 = time.perf_counter()
-    build.build([ops.SOURCE])
-    print(f"  built {ops.SOURCE.name} in {time.perf_counter() - t0:.1f} s")
-    log = build.BUILD_LOGS.get(str(ops.SOURCE), "")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-    if regs:
-        print(f"  ptxas: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-              f"registers per thread, {spills} bytes of spills")
+    build.build(sources)
+    print(f"  built {', '.join(s.name for s in sources)} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in sources:
+        log = build.BUILD_LOGS.get(str(src), "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
+        if regs:
+            print(f"  ptxas {src.name}: {len(regs)} instantiations, "
+                  f"{min(regs)}-{max(regs)} registers per thread, {spills} "
+                  f"bytes of spills")
 
-    record = {"name": "paged_chunk_attention", "route": "cuda",
-              "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                        "paged_chunk_attention.cu",
-              "replaces": "src/repro/kernels/paged_attention/kernel.py:197"}
-    print("== phase 2: kernel vs plain version at full-width shapes")
-    phase_kernel(record)
-    print("== phase 3: reduced denoise step, card vs CPU")
+    paged = {"name": "paged_chunk_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                       "paged_chunk_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention/kernel.py:197"}
+    flash = {"name": "flash_mha", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_mha.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:132"}
+    counters = {"paged_chunk_attention": paged_ops.paged_chunk_attention,
+                "flash_mha": flash_ops.flash_mha}
+    print("== phase 2: paged kernel vs plain version at full-width shapes")
+    phase_kernel(paged)
+    print("== phase 3: flash kernel vs plain version")
+    phase_flash(flash)
+    print("== phase 4: reduced config, card vs CPU")
     phase_integration()
-    print("== phase 4: full-width ardit-self-forcing session")
-    record["launches"] = phase_session(ops.paged_chunk_attention)
+    cfg, params = full_width_params()
+    print("== phase 5: full-width ardit-self-forcing, batched paged session")
+    paged["launches"] = phase_batched(cfg, params, counters)
+    print("== phase 6: full-width ardit-self-forcing, sequential session")
+    flash["launches"] = phase_sequential(cfg, params, counters)
+    print("== phase 7: full-width ardit-self-forcing, gather-backend session")
+    phase_gather(cfg, params, counters)
 
-    print(json.dumps({"kernels": [record]}))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in (paged, flash)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,4 +8,7 @@ use and loads it with ctypes.
 
     paged_attention   chunk-query attention partials over the paged KV
                       pool (the batched serving executor's hot path)
+    flash_attention   blocked attention with the fidelity knobs: every
+                      ``models.attention.mha`` call without a per-row
+                      mask (the sequential executor, the gather backend)
 """

@@ -1,23 +1,27 @@
 """Serving launcher: real AR-DiT execution through the unified
 ``serve.session.StreamingSession`` on the card.
 
-The batched paged executor serves a workload from the
-``sched_sim.workloads`` generators under the paper's control plane and
-the run prints the same one-line ``Summary.row()`` as the reference
-launcher's ``--real --batched`` mode::
+The sequential executor (the default, as in the reference launcher) or
+the batched executor (``--batched``, with ``--context-backend paged``
+or ``gather``) serves a workload from the ``sched_sim.workloads``
+generators under the paper's control plane, and the run prints the same
+one-line ``Summary.row()`` as the reference launcher's ``--real`` mode::
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --real \\
+        --streams 2 --chunks 2                   # sequential executor
     PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
         --workload burst --streams 6 --seed 0
     PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
-        --streams 4 --pool-streams 2        # oversubscribed page pool
+        --context-backend gather --streams 2     # gathered context
     PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
+        --streams 4 --pool-streams 2        # oversubscribed page pool
+    PYTHONPATH=src python -m repro_torch.launch.serve --real \\
         --device cpu --streams 2 --chunks 2  # plain versions, on the host
 
 The model is the reduced ``ardit-self-forcing`` config unless ``--arch``
 names a registry config (``--arch ardit-self-forcing`` is full width).
-The simulator (``--sim``), the sequential executor, multiple lanes,
-co-served models, the step cache and calibration wait for their slices
-(ROADMAP: port queue).
+The simulator (``--sim``), multiple lanes, co-served models, the step
+cache and calibration wait for their slices (ROADMAP: port queue).
 """
 from __future__ import annotations
 
@@ -29,9 +33,9 @@ def main() -> None:
     ap.add_argument("--real", action="store_true", required=True,
                     help="real model execution (the simulator waits for "
                          "its slice)")
-    ap.add_argument("--batched", action="store_true", required=True,
-                    help="credit-ordered micro-batch executor (the "
-                         "sequential executor waits for its slice)")
+    ap.add_argument("--batched", action="store_true",
+                    help="credit-ordered micro-batch executor (default: "
+                         "the sequential executor)")
     ap.add_argument("--workload", default="steady")
     ap.add_argument("--streams", type=int, default=6)
     ap.add_argument("--rate", type=float, default=1.0)
@@ -45,6 +49,11 @@ def main() -> None:
     ap.add_argument("--arrival-scale", type=float, default=1.0,
                     help="multiply workload event times (< 1 compresses "
                          "Poisson gaps / trace idles)")
+    ap.add_argument("--context-backend", default="paged",
+                    choices=("paged", "gather"),
+                    help="batched executor's context backend: attention "
+                         "over the page pool in place, or over a context "
+                         "gathered per chunk boundary")
     ap.add_argument("--pool-streams", type=int, default=0,
                     help="co-resident stream cap of the paged KV pool "
                          "(< --streams oversubscribes; 0 -> all fit)")
@@ -71,10 +80,11 @@ def main() -> None:
         from repro_torch.sched_sim.frontdoor import FrontDoorConfig
         fd_cfg = FrontDoorConfig()        # autoscale forced off live
     session = StreamingSession(SessionConfig(
-        executor="batched",
+        executor="batched" if args.batched else "sequential",
         max_batch=args.max_batch,
         budget_factor=args.budget_factor,
         pool_streams=args.pool_streams or args.streams + 1,
+        context_backend=args.context_backend,
         arrival_scale=args.arrival_scale,
         front_door=fd_cfg,
         model_cfg=get_config(args.arch) if args.arch else None,
@@ -84,7 +94,8 @@ def main() -> None:
         session.submit(spec)
     res = session.run()
     s = summarize(res)
-    print(f"real-batched on {args.workload}: {s.row()}")
+    label = "real-batched" if args.batched else "real-sequential"
+    print(f"{label} on {args.workload}: {s.row()}")
     print(f"  rehomings={s.n_rehomings} elastic_sp={s.n_sp_events} "
           f"transfers={transfer_stats(res)}")
     if args.front_door:

@@ -8,26 +8,33 @@ attends to the rolling KV cache of earlier chunks (sink + local window,
 SS2.1).  The conditioning embeddings occupy the sink.  All four
 fidelity knobs are live (S steps, rho sparsity, W window, Q fp8 KV).
 
-This module ports the page-table-native path the batched serving
-executor runs: ``denoise_step_paged`` reads the cached context in place
-from the paged KV pool through ``attention.paged_mha``.  The stacked
-``[L, ...]`` layer parameters are consumed by a Python loop (the
-reference's ``lax.scan``).  The gathered-context forward, the
-sequential ``serve_chunk`` path, the SP2 head-split siblings and
+Three forwards share one DiT body (``_dit_forward``) and differ in how
+attention sees the cached context:
+
+* ``chunk_forward`` / ``denoise_step`` / ``serve_chunk`` — a contiguous
+  context [L, B, ctx, Hkv, Dh] (the sequential cache, or the batched
+  executor's ``gather`` backend) concatenated with the chunk's own KV
+  through ``attention.mha`` (the flash-attention kernel on the card);
+* ``chunk_forward_paged`` / ``denoise_step_paged`` — the context read in
+  place from the paged KV pool through ``attention.paged_mha``.
+
+The stacked ``[L, ...]`` layer parameters are consumed by a Python loop
+(the reference's ``lax.scan``).  The SP2 head-split siblings and
 training wait for their slices (ROADMAP).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kvcache
 from repro_torch.models import layers as L
-from repro_torch.models.attention import paged_mha, sparse_keep_list
+from repro_torch.models.attention import mha, paged_mha, sparse_keep_list
 
 Params = Dict[str, Any]
 
@@ -192,18 +199,18 @@ def sigma_schedule(steps: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# page-table-native forward
+# the DiT body and the contiguous-context forward
 # ---------------------------------------------------------------------------
 
-def _chunk_forward_pages(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
-                         t: torch.Tensor, k_pages: torch.Tensor,
-                         v_pages: torch.Tensor, block_table: torch.Tensor,
-                         page_mask: Optional[torch.Tensor], *, q_offset,
-                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """DiT body of the page-table-native forward (the single-shard
-    branch of the reference; its elastic-SP2 head-split form waits for
-    the SP slice).  ``k_pages``/``v_pages`` are the whole [L, ...]
-    pools; layer ``i`` reads ``k_pages[i]`` in place."""
+def _dit_forward(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
+                 t: torch.Tensor, q_offset,
+                 attend: Callable[[int, torch.Tensor, torch.Tensor,
+                                   torch.Tensor], torch.Tensor],
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """DiT body shared by the forwards: ``attend(layer, q, k, v)`` gives
+    layer ``layer``'s attention output [B, T_c, Hq, Dh] for the chunk's
+    own q/k/v and whatever context the caller holds.  ``q_offset`` is an
+    int or a per-stream [B] tensor."""
     b, tc, _ = x_chunk.shape
     d = cfg.d_model
     h = x_chunk.to(p["in_proj"].dtype) @ p["in_proj"]
@@ -222,10 +229,7 @@ def _chunk_forward_pages(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
         sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
         a_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh1, sc1)
         q, k, v = L.attn_qkv(cfg, lp["attn"], a_in, positions)
-        o = paged_mha(q, k_pages[li], v_pages[li], block_table, page_mask,
-                      k, v, n_kv_heads=cfg.n_kv_heads, sink=COND_TOKENS,
-                      chunk_tokens=tc)
-        o = o.reshape(b, tc, cfg.n_heads * cfg.head_dim)
+        o = attend(li, q, k, v).reshape(b, tc, cfg.n_heads * cfg.head_dim)
         h = h + g1[:, None, :] * (o @ lp["attn"]["wo"])
         f_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh2, sc2)
         h = h + g2[:, None, :] * L.mlp_block(cfg, lp["mlp"], f_in)
@@ -237,6 +241,163 @@ def _chunk_forward_pages(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
     h = _modulate(L.rmsnorm(h, p["final_norm"], cfg.norm_eps), sh, sc)
     return h @ p["out_proj"], {"k": torch.stack(ks), "v": torch.stack(vs)}
 
+
+def chunk_forward(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
+                  t: torch.Tensor, ctx_k: Optional[torch.Tensor],
+                  ctx_v: Optional[torch.Tensor], *, q_offset,
+                  sparsity: float = 0.0,
+                  ctx_mask: Optional[torch.Tensor] = None,
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One DiT pass over a chunk.
+
+    x_chunk [B, T_c, LATENT_CH]; t [B] denoise time; ctx_k/v
+    [L, B, ctx_len, Hkv, Dh] visible context (or None).  Returns
+    (prediction [B, T_c, LATENT_CH], {"k","v"} [L, B, T_c, Hkv, Dh]
+    chunk KV).  ``q_offset`` is an int or a per-stream [B] tensor.
+    ``ctx_mask`` [B, ctx_len] marks the context tokens each stream may
+    attend to (the masked direct path of ``mha``); without it the
+    static rho ``sparsity`` gather drops context tokens on the host
+    side and attention runs unmasked (the flash kernel on the card).
+    """
+    b, tc, _ = x_chunk.shape
+    keep_idx = None
+    kv_mask = None
+    if ctx_k is not None:
+        if ctx_mask is not None:
+            kv_mask = torch.cat([ctx_mask, torch.ones(
+                (b, tc), dtype=torch.bool, device=ctx_mask.device)], dim=1)
+        else:
+            keep = cache_sparse_index(cfg, ctx_k.shape[2], sparsity)
+            if keep is not None:
+                keep_idx = torch.as_tensor(keep, device=ctx_k.device)
+
+    def attend(li, q, k, v):
+        if ctx_k is None:
+            k_all, v_all = k, v
+        else:
+            kc, vc = ctx_k[li], ctx_v[li]
+            if keep_idx is not None:
+                kc, vc = kc[:, keep_idx], vc[:, keep_idx]
+            k_all = torch.cat([kc.to(k.dtype), k], dim=1)
+            v_all = torch.cat([vc.to(v.dtype), v], dim=1)
+        return mha(q, k_all, v_all, n_kv_heads=cfg.n_kv_heads,
+                   causal=False, kv_mask=kv_mask)
+
+    return _dit_forward(cfg, p, x_chunk, t, q_offset, attend)
+
+
+def denoise_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 t: torch.Tensor, dt: torch.Tensor, ctx_k: torch.Tensor,
+                 ctx_v: torch.Tensor, q_offset: torch.Tensor,
+                 dn_mask: Optional[torch.Tensor],
+                 cl_mask: Optional[torch.Tensor], is_denoise: torch.Tensor):
+    """Fused batched executor step over a gathered context (the
+    ``gather`` context backend): forward + Euler update.  Rows in their
+    denoise phase use ``dn_mask`` and a nonzero ``dt``; rows in their
+    clean-context phase use ``cl_mask`` and dt=0 (their chunk KV is what
+    matters).  A mask of None means every context token is visible to
+    that phase; both None skips masking entirely."""
+    if dn_mask is None and cl_mask is None:
+        mask = None
+    else:
+        ones = torch.ones(ctx_k.shape[1:3], dtype=torch.bool,
+                          device=ctx_k.device)
+        mask = torch.where(is_denoise[:, None],
+                           ones if dn_mask is None else dn_mask,
+                           ones if cl_mask is None else cl_mask)
+    v_pred, new_kv = chunk_forward(cfg, p, x, t, ctx_k, ctx_v,
+                                   q_offset=q_offset, ctx_mask=mask)
+    x_new = x - dt[:, None, None] * v_pred.to(x.dtype)
+    return x_new, new_kv
+
+
+# ---------------------------------------------------------------------------
+# sequential serving: host-side cache bookkeeping + chunk generation
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, p: Params, cond: torch.Tensor,
+               kv_dtype: Optional[str] = None) -> Dict[str, Any]:
+    """Cache whose sink slot is the conditioning tokens.
+
+    cond: [B, COND_TOKENS, d_model] (stub text-encoder output).
+    ``len``/``chunks`` are host-side Python ints."""
+    k, v = cond_kv(cfg, p, cond, kv_dtype)
+    return {"k": k, "v": v, "len": COND_TOKENS, "chunks": 0}
+
+
+def visible_context(cfg: ModelConfig, cache: Dict[str, Any],
+                    window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sink + last ``window`` chunks of the cache (knob W)."""
+    tc = chunk_tokens(cfg)
+    ln = cache["len"]
+    resident = (ln - COND_TOKENS) // tc
+    w = min(window, resident)
+    k, v = cache["k"], cache["v"]
+    if w == resident:
+        return k[:, :, :ln], v[:, :, :ln]
+    lo = ln - w * tc
+    return (torch.cat([k[:, :, :COND_TOKENS], k[:, :, lo:ln]], dim=2),
+            torch.cat([v[:, :, :COND_TOKENS], v[:, :, lo:ln]], dim=2))
+
+
+def append_chunk_kv(cfg: ModelConfig, cache: Dict[str, Any],
+                    new_kv: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Append a chunk's KV; evict the oldest non-sink chunk when full."""
+    tc = chunk_tokens(cfg)
+    k, v = cache["k"], cache["v"]
+    ln, nch = cache["len"], cache["chunks"]
+    nk = new_kv["k"].to(k.dtype)    # [L,B,tc,H,Dh]
+    nv = new_kv["v"].to(v.dtype)
+    if ln + tc <= cache_capacity(cfg):
+        return {"k": torch.cat([k[:, :, :ln], nk], dim=2),
+                "v": torch.cat([v[:, :, :ln], nv], dim=2),
+                "len": ln + tc, "chunks": nch + 1}
+    sink = COND_TOKENS
+    return {"k": torch.cat([k[:, :, :sink], k[:, :, sink + tc:ln], nk], 2),
+            "v": torch.cat([v[:, :, :sink], v[:, :, sink + tc:ln], nv], 2),
+            "len": ln, "chunks": nch + 1}
+
+
+def serve_chunk(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
+                noise: torch.Tensor,
+                fidelity: FidelityConfig = HIGHEST_QUALITY,
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Generate one chunk under a fidelity configuration: ``steps``
+    Euler steps over the visible context, then one clean-context pass
+    whose KV (rounded through fp8-e4m3 under knob Q, with the
+    reference's overflow semantics) is appended to the cache.
+
+    noise: [B, T_c, LATENT_CH].  Returns (clean chunk latents, new cache).
+    """
+    tc = chunk_tokens(cfg)
+    ctx_k, ctx_v = visible_context(cfg, cache, fidelity.window)
+    q_offset = COND_TOKENS + cache["chunks"] * tc
+
+    grid = sigma_schedule(fidelity.steps)
+    x = noise
+    b = noise.shape[0]
+    for i in range(fidelity.steps):
+        t = torch.full((b,), float(grid[i]), dtype=torch.float32,
+                       device=noise.device)
+        v_pred, _ = chunk_forward(cfg, p, x, t, ctx_k, ctx_v,
+                                  q_offset=q_offset,
+                                  sparsity=fidelity.sparsity)
+        dt = float(grid[i] - grid[i + 1])
+        x = x - dt * v_pred.to(x.dtype)         # Euler step toward data
+
+    # context KV for future chunks comes from a clean-context pass
+    t0 = torch.zeros((b,), dtype=torch.float32, device=noise.device)
+    _, clean_kv = chunk_forward(cfg, p, x, t0, ctx_k, ctx_v,
+                                q_offset=q_offset)
+    if fidelity.quant == "fp8":
+        clean_kv = {k_: kvcache.to_fp8_e4m3(v_)
+                    for k_, v_ in clean_kv.items()}
+    return x, append_chunk_kv(cfg, cache, clean_kv)
+
+
+# ---------------------------------------------------------------------------
+# page-table-native forward
+# ---------------------------------------------------------------------------
 
 def chunk_forward_paged(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
                         t: torch.Tensor, k_pages: torch.Tensor,
@@ -254,8 +415,14 @@ def chunk_forward_paged(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
     per-stream [B] tensor.  Returns (prediction [B, T_c, LATENT_CH],
     {"k","v"} [L, B, T_c, Hkv, Dh] chunk KV).
     """
-    return _chunk_forward_pages(cfg, p, x_chunk, t, k_pages, v_pages,
-                                block_table, page_mask, q_offset=q_offset)
+    tc = x_chunk.shape[1]
+
+    def attend(li, q, k, v):
+        return paged_mha(q, k_pages[li], v_pages[li], block_table,
+                         page_mask, k, v, n_kv_heads=cfg.n_kv_heads,
+                         sink=COND_TOKENS, chunk_tokens=tc)
+
+    return _dit_forward(cfg, p, x_chunk, t, q_offset, attend)
 
 
 def denoise_step_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,

@@ -1,8 +1,13 @@
 """Attention substrate with the paper's fidelity knobs (the serving
 subset of the JAX reference's ``models/attention.py``).
 
-* ``mha`` — the direct path: one dense masked segment, with an optional
-  per-row ``kv_mask`` (the batched executor's visibility masks).
+* ``mha`` — multi-head attention with GQA and the reference's static
+  block schedules: the direct path (one dense masked segment, with an
+  optional per-row ``kv_mask``), the causal block-triangular schedule,
+  sink + sliding window (knob W) and the rho block keep list.  On a
+  CUDA tensor without ``kv_mask`` it runs the ``kernels/flash_attention``
+  CUDA kernel in exactly the mode it computes; the plain body
+  (``mha_plain``) is that kernel's plain version.
 * ``paged_mha`` — page-table-native chunk attention: online-softmax
   partials over the paged KV pool (the ``kernels/paged_attention``
   CUDA kernel on the card, its plain PyTorch version on the CPU) merged
@@ -12,13 +17,12 @@ Numerics: fp32 online-softmax accumulation regardless of input dtype.
 Two masking conventions coexist, as in the reference: the dense path
 masks with ``-inf`` and guards fully-masked rows with ``m_safe``; the
 paged partials mark rows that see nothing with ``m == NEG_INF = -1e30``
-(``_merge`` relies on it).  The blocked causal / window / sparse paths
-of the reference's ``mha`` wait for their slice (ROADMAP).
+(``_merge`` relies on it).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,38 +107,159 @@ def sparse_keep_list(n_q_blocks: int, n_kv_blocks_per_q: Sequence[int],
     return keep
 
 
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    return q_pos[:, None] >= k_pos[None, :]
+
+
+def _direct(sq: int, skv: int, causal: bool, sparsity: float,
+            block_q: int, block_kv: int) -> bool:
+    """Whether ``mha`` takes the direct path: decode, tiny shapes and
+    non-causal (chunk-bidirectional) attention.  rho block sparsity is
+    defined on the blocked causal schedule, so any sparsity > 0 request
+    takes the blocked path at the given block sizes."""
+    return ((sq * skv <= block_q * block_kv and sparsity == 0.0)
+            or sq == 1 or not causal)
+
+
+def flash_mode(sq: int, skv: int, *, causal: bool, window: int, sink: int,
+               sparsity: float, block_q: int, block_kv: int) -> dict:
+    """The flash-attention kernel's mode for an ``mha`` call: what
+    ``mha`` itself computes — the window (and its sink) only when
+    causal, rho only on the blocked causal schedule without a window,
+    the block sizes clipped to the lengths as the blocked paths clip
+    them."""
+    direct = _direct(sq, skv, causal, sparsity, block_q, block_kv)
+    if not direct:
+        assert sq % min(block_q, sq) == 0, (sq, block_q)
+    w = window if causal else 0
+    return dict(causal=causal, window=w, sink=sink if w else 0,
+                sparsity=0.0 if (direct or w) else sparsity,
+                block_q=min(block_q, sq), block_kv=min(block_kv, skv))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         n_kv_heads: int,
         causal: bool = True,
         q_offset: int = 0,
         window: int = 0,
         sink: int = 0,
-        kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention with GQA, direct path only.
+        sparsity: float = 0.0,
+        kv_mask: Optional[torch.Tensor] = None,
+        block_q: int = 512,
+        block_kv: int = 512) -> torch.Tensor:
+    """Multi-head attention with GQA + fidelity knobs.
 
     q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D].  Returns [B,Sq,Hq,D].
-    ``kv_mask``: optional [B,Skv] per-row KV validity — one launch
-    serves rows with different fidelity windows/sparsities.  The
-    reference's blocked schedules (long causal sequences, rho block
-    sparsity) wait for the flash-attention slice.
+    ``q_offset``: absolute position of q[0] relative to k[0] (chunk-wise
+    generation, where Skv > Sq).  ``kv_mask``: optional [B,Skv] per-row
+    KV validity (direct path only) — one launch serves rows with
+    different fidelity windows/sparsities.
+
+    A CUDA tensor without ``kv_mask`` runs the flash-attention kernel
+    in the mode this function computes (``flash_mode``).  With
+    ``kv_mask`` the direct masked segment stays plain torch on every
+    device: the reference runs that segment as jnp on the TPU too, so it
+    is not the plain version of a kernel.
     """
+    if kv_mask is None and q.device.type == "cuda":
+        from repro_torch.kernels.flash_attention.ops import flash_mha
+        return flash_mha(q, k, v, n_kv_heads=n_kv_heads, q_offset=q_offset,
+                         **flash_mode(q.shape[1], k.shape[1], causal=causal,
+                                      window=window, sink=sink,
+                                      sparsity=sparsity, block_q=block_q,
+                                      block_kv=block_kv))
+    return mha_plain(q, k, v, n_kv_heads=n_kv_heads, causal=causal,
+                     q_offset=q_offset, window=window, sink=sink,
+                     sparsity=sparsity, kv_mask=kv_mask, block_q=block_q,
+                     block_kv=block_kv)
+
+
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              n_kv_heads: int, causal: bool = True, q_offset: int = 0,
+              window: int = 0, sink: int = 0, sparsity: float = 0.0,
+              kv_mask: Optional[torch.Tensor] = None, block_q: int = 512,
+              block_kv: int = 512) -> torch.Tensor:
+    """``mha`` in plain PyTorch on any device (the reference's jnp
+    body): the direct path, or the static block schedules — the causal
+    block-triangular schedule with the optional rho keep list, and sink
+    + sliding window as per-q-block static KV segments."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
+    dtype = q.dtype
+    dev = q.device
     scale = 1.0 / math.sqrt(d)
     qg = _group(q, n_kv_heads)
-    mask = None
-    if causal:
-        q_pos = q_offset + torch.arange(sq, device=q.device)
-        k_pos = torch.arange(skv, device=q.device)
-        mask = q_pos[:, None] >= k_pos[None, :]
+
+    # ---- direct path: decode / tiny shapes / non-causal ------------------
+    if _direct(sq, skv, causal, sparsity, block_q, block_kv):
+        mask = None
+        if causal:
+            q_pos = q_offset + torch.arange(sq, device=dev)
+            k_pos = torch.arange(skv, device=dev)
+            mask = _causal_mask(q_pos, k_pos)
+            if window:
+                mask &= (k_pos[None, :] > q_pos[:, None] - window) | \
+                        (k_pos[None, :] < sink)
+        if kv_mask is not None:
+            km = kv_mask[:, None, :]                     # [B,1,Skv]
+            mask = km if mask is None else mask[None] & km
+        out = _finalize(_segment_attn(qg, k, v, mask, scale), dtype)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    assert kv_mask is None, "kv_mask is only supported on the direct path"
+
+    # ---- blocked paths -----------------------------------------------------
+    block_q = min(block_q, sq)
+    block_kv = min(block_kv, skv)
+    assert sq % block_q == 0, (sq, block_q)
+    n_q = sq // block_q
+    g = hq // n_kv_heads
+
+    outs = []
+    for i in range(n_q):
+        q_blk = qg[:, i * block_q:(i + 1) * block_q]
+        q_lo = q_offset + i * block_q
+        q_hi = q_lo + block_q
+        q_pos = q_lo + torch.arange(block_q, device=dev)
+        acc = _init_acc(b, n_kv_heads, g, block_q, d, device=dev)
+
         if window:
-            mask &= (k_pos[None, :] > q_pos[:, None] - window) | \
-                    (k_pos[None, :] < sink)
-    if kv_mask is not None:
-        km = kv_mask[:, None, :]                         # [B,1,Skv]
-        mask = km if mask is None else mask[None] & km
-    out = _finalize(_segment_attn(qg, k, v, mask, scale), q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+            # sink prefix + sliding window (static slices; exact FLOPs)
+            segs: List[Tuple[int, int]] = []
+            if sink:
+                segs.append((0, min(sink, skv)))
+            w_lo = max(sink, q_lo - window + 1)
+            # round down for block alignment, but never below the sink
+            # prefix (it has its own segment; overlap would double-count)
+            w_lo = max((w_lo // block_kv) * block_kv, sink)
+            segs.append((w_lo, min(q_hi, skv)))
+            for lo, hi in segs:
+                if lo >= hi:
+                    continue
+                k_pos = lo + torch.arange(hi - lo, device=dev)
+                msk = _causal_mask(q_pos, k_pos)
+                msk &= (k_pos[None, :] > q_pos[:, None] - window) | \
+                       (k_pos[None, :] < sink)
+                acc = _merge(acc, _segment_attn(q_blk, k[:, lo:hi],
+                                                v[:, lo:hi], msk, scale))
+        else:
+            # causal block-triangular schedule; optional rho block sparsity
+            n_kv_for_q = (q_hi + block_kv - 1) // block_kv
+            if sparsity > 0.0:
+                keep = sparse_keep_list(1, [n_kv_for_q], sparsity)[0]
+            else:
+                keep = list(range(n_kv_for_q))
+            for j in keep:
+                lo, hi = j * block_kv, min((j + 1) * block_kv, skv)
+                msk = None
+                if hi > q_lo:  # diagonal/edge segment: elementwise mask
+                    msk = _causal_mask(q_pos, lo + torch.arange(
+                        hi - lo, device=dev))
+                acc = _merge(acc, _segment_attn(q_blk, k[:, lo:hi],
+                                                v[:, lo:hi], msk, scale))
+
+        outs.append(_finalize(acc, dtype).permute(0, 3, 1, 2, 4).reshape(
+            b, block_q, hq, d))
+    return torch.cat(outs, dim=1)
 
 
 def shard_heads(x: torch.Tensor, n_kv_heads: int, lo: int,

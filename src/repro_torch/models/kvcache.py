@@ -4,8 +4,8 @@ The page-granular pool (``serve/batcher.py::KVPool``) keeps KV as
 [L, n_pages, page_tokens, Hkv, Dh] and each stream owns a page *table*:
 entry 0 = cond sink page, entry 1+r = ring slot r, chunk c in entry
 1 + c % window_chunks.  The helpers below are pure permutations of pool
-rows.  The gathered-context helpers of the reference (``gather_pages``,
-``write_block``) wait for the gather-backend slice (ROADMAP).
+rows; ``gather_pages`` reassembles the contiguous sink+ring context the
+``gather`` context backend hands to ``mha``.
 """
 from __future__ import annotations
 
@@ -47,6 +47,26 @@ def page_of_chunk(chunk_idx: int, window_chunks: int) -> int:
     """Page-table entry holding absolute chunk ``chunk_idx`` (the ring
     slot of ``chunk_slot`` shifted past the sink entry)."""
     return 1 + chunk_idx % window_chunks
+
+
+def gather_pages(pool: torch.Tensor, tables: torch.Tensor, sink: int,
+                 chunk_tokens: int, n_ring: int) -> torch.Tensor:
+    """pool [L,n_pages,P,...]; tables [b, 1+W] page ids ->
+    [L, b, sink + n_ring*chunk_tokens, ...].
+
+    Reassembles, per stream, the contiguous sink+ring context: tokens
+    [0, sink) from the sink page (table entry 0), ring slot r at
+    [sink + r*chunk_tokens, sink + (r+1)*chunk_tokens) from table entry
+    1+r, sliced to the first ``n_ring`` ring slots (the sub-batch's
+    resident extent).  A pure gather: bitwise-exact."""
+    tables = tables.long()
+    sink_part = pool[:, tables[:, 0], :sink]
+    if n_ring == 0:
+        return sink_part
+    ring = pool[:, tables[:, 1:1 + n_ring], :chunk_tokens]
+    l, b = ring.shape[:2]
+    ring = ring.reshape((l, b, n_ring * chunk_tokens) + ring.shape[4:])
+    return torch.cat([sink_part, ring], dim=2)
 
 
 def mask_to_pages(mask: np.ndarray, n_ring: int, sink: int,

@@ -16,9 +16,15 @@ restore) — or, with ``page_evict``, single ring pages first — instead
 of failing.  Measured whole-chunk wall time feeds the latency EMAs so
 BMPR budgets stay honest (re-profiling).
 
-Waiting for later slices (ROADMAP): the ``gather`` context backend,
-elastic-SP links and guests, cross-lane export/import, and the step
-cache (``FidelityConfig.cache != "off"``).
+``context_backend="gather"`` instead assembles each sub-batch's
+contiguous sink+ring context through the page tables once per chunk
+boundary (``KVPool.gather``) and steps with ``ardit.denoise_step``
+(``attention.mha``: the flash-attention kernel on the card when every
+context token is visible, the masked direct path otherwise).
+
+Waiting for later slices (ROADMAP): elastic-SP links and guests,
+cross-lane export/import, and the step cache
+(``FidelityConfig.cache != "off"``).
 """
 from __future__ import annotations
 
@@ -36,24 +42,9 @@ from repro_torch.core.state_plane import AsyncTransferEngine, PagedKVPool
 from repro_torch.core.types import Stream
 from repro_torch.models import ardit as A
 from repro_torch.models import kvcache
-from repro_torch.serve.executor import EMA_DECAY, ChunkExecutor, ServedStream
-
-
-def cond_noise(seed: int, d_model: int) -> torch.Tensor:
-    """A stream's stub text-encoder output [1, COND_TOKENS, d_model]:
-    N(0, 0.02^2) from a CPU generator seeded with ``1000 + seed`` (the
-    reference draws ``jax.random.normal(PRNGKey(1000 + seed)) * 0.02``)."""
-    g = torch.Generator().manual_seed((1000 + seed) & ((1 << 64) - 1))
-    return torch.randn((1, A.COND_TOKENS, d_model), generator=g) * 0.02
-
-
-def chunk_noise(chunk_seq: int, sid: int, tc: int) -> torch.Tensor:
-    """Initial latents [1, tc, LATENT_CH] of a stream's chunk: N(0, 1)
-    from a CPU generator seeded with ``chunk_seq * 7919 + sid`` (the
-    reference's ``PRNGKey(chunk_seq * 7919 + sid)``)."""
-    g = torch.Generator().manual_seed((chunk_seq * 7919 + sid)
-                                      & ((1 << 64) - 1))
-    return torch.randn((1, tc, A.LATENT_CH), generator=g)
+from repro_torch.serve.executor import (EMA_DECAY, ChunkExecutor,
+                                        ServedStream, chunk_noise,
+                                        cond_noise)
 
 
 def compose_batch(sids: Sequence[int],
@@ -376,6 +367,18 @@ class KVPool:
         """Stacked [b, 1 + W] block table of a sub-batch (device)."""
         return torch.stack([self.device_table(sid) for sid in sids])
 
+    def gather(self, sids: Sequence[int],
+               n_ring: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Contiguous [L, b, COND + n_ring*tc, Hkv, Dh] context for a
+        sub-batch, assembled through the page tables (the ``gather``
+        context backend — the paged backend never materializes this)."""
+        tables = self.tables_for(sids)
+        k = kvcache.gather_pages(self.k, tables, A.COND_TOKENS, self._tc,
+                                 n_ring)
+        v = kvcache.gather_pages(self.v, tables, A.COND_TOKENS, self._tc,
+                                 n_ring)
+        return k, v
+
     # ---- residency lifecycle -----------------------------------------------
     def admit(self, sid: int, cond: torch.Tensor) -> bool:
         """Admit one stream: write its cond (sink) KV into a fresh page
@@ -514,12 +517,20 @@ class BatchedChunkExecutor(ChunkExecutor):
 
     ``run_step`` advances one sub-batch by a single denoise step (or the
     clean-context pass that finishes a chunk), so the scheduler can
-    recompose the batch between any two steps.  The step is
-    page-table-native (``context_backend="paged"``, the only backend of
-    this port so far): ``ardit.denoise_step_paged`` receives the pool
-    itself plus per-stream block tables and page-coordinate visibility
-    masks.  ``device`` defaults to the card; ``device="cpu"`` runs the
-    plain PyTorch version of every kernel.
+    recompose the batch between any two steps.
+
+    ``context_backend`` selects how a sub-batch sees its cached KV:
+
+    * ``"paged"`` (default) — page-table-native: the step receives the
+      pool itself plus per-stream block tables and page-coordinate
+      visibility masks (``ardit.denoise_step_paged`` ->
+      ``attention.paged_mha`` -> ``kernels/paged_attention``).
+    * ``"gather"`` — the contiguous context gathered through the tables
+      once per chunk boundary (``ardit.denoise_step`` ->
+      ``attention.mha``).  The two backends agree numerically.
+
+    ``device`` defaults to the card; ``device="cpu"`` runs the plain
+    PyTorch version of every kernel.
     """
 
     def __init__(self, cfg: Optional[ModelConfig] = None,
@@ -529,10 +540,9 @@ class BatchedChunkExecutor(ChunkExecutor):
                  engine: Optional[AsyncTransferEngine] = None,
                  device: Any = "cuda",
                  page_evict: bool = False):
-        if context_backend != "paged":
-            raise NotImplementedError(
-                "the gather context backend waits for its slice "
-                "(ROADMAP: port queue)")
+        if context_backend not in ("gather", "paged"):
+            raise ValueError(f"context_backend {context_backend!r}: "
+                             "'paged' or 'gather'")
         super().__init__(cfg=cfg, params=params, seed=seed, device=device)
         self.context_backend = context_backend
         # partial-window residency: under pool pressure, evict single
@@ -714,9 +724,11 @@ class BatchedChunkExecutor(ChunkExecutor):
     def _boundary(self, sids: Sequence[int], chunk_idx: np.ndarray,
                   fids: Sequence[FidelityConfig]) -> Dict[str, Any]:
         """Per-chunk-boundary state of a sub-batch (constant across the
-        chunk's steps): positions, and the block tables + page-coordinate
-        denoise/clean masks the paged step reads the pool through (sliced
-        to the group's resident extent, so compute scales with fill).
+        chunk's steps): positions, denoise/clean visibility, and the
+        backend's context handle — a gathered [L, b, extent, ...] copy
+        for ``gather``, or the block tables + page-coordinate masks the
+        paged step reads the pool through (both sliced to the group's
+        resident extent, so compute scales with fill).
         ``fids`` is per-row: a fused group hands each row the
         window/sparsity mask its own fidelity dictates."""
         key = (tuple(sids), tuple(chunk_idx.tolist()),
@@ -741,23 +753,31 @@ class BatchedChunkExecutor(ChunkExecutor):
         dev = self.device
         bnd = {"q_offset": torch.as_tensor(A.COND_TOKENS + chunk_idx * tc,
                                            dtype=torch.int32).to(dev)}
-        # dn all-true (homogeneous fill, full window, no sparsity) drops
-        # BOTH masks — each page's static valid prefix is visible (cl is
-        # a superset of dn); an unsparsified fidelity's clean mask IS the
-        # denoise mask — cl=None then means "reuse dn"
-        tables = self.pool.tables_for(sids)[:, :1 + n_ring]
-        bnd["tables"] = tables
+        if self.context_backend == "paged":
+            # dn all-true (homogeneous fill, full window, no sparsity)
+            # drops BOTH masks — each page's static valid prefix is
+            # visible (cl is a superset of dn); an unsparsified
+            # fidelity's clean mask IS the denoise mask — cl=None then
+            # means "reuse dn"
+            bnd["tables"] = self.pool.tables_for(sids)[:, :1 + n_ring]
 
-        def pages(mask):
-            return torch.as_tensor(kvcache.mask_to_pages(
-                mask, n_ring, A.COND_TOKENS, tc,
-                self.pool.page_tokens)).to(dev)
+            def pages(mask):
+                return torch.as_tensor(kvcache.mask_to_pages(
+                    mask, n_ring, A.COND_TOKENS, tc,
+                    self.pool.page_tokens)).to(dev)
 
-        if dn.all():
-            bnd["dn"] = bnd["cl"] = None
+            if dn.all():
+                bnd["dn"] = bnd["cl"] = None
+            else:
+                bnd["dn"] = pages(dn)
+                bnd["cl"] = None if np.array_equal(dn, cl) else pages(cl)
         else:
-            bnd["dn"] = pages(dn)
-            bnd["cl"] = None if np.array_equal(dn, cl) else pages(cl)
+            # all-true masks (homogeneous fill, no sparsity, full window)
+            # are dropped so the step attends unmasked — through the
+            # flash-attention kernel on the card
+            bnd["ctx_k"], bnd["ctx_v"] = self.pool.gather(sids, n_ring)
+            bnd["dn"] = None if dn.all() else torch.as_tensor(dn).to(dev)
+            bnd["cl"] = None if cl.all() else torch.as_tensor(cl).to(dev)
         if len(self._boundary_cache) >= 8:
             self._boundary_cache.pop(next(iter(self._boundary_cache)))
         self._boundary_cache[key] = bnd
@@ -804,12 +824,6 @@ class BatchedChunkExecutor(ChunkExecutor):
             self._staging_cache[key] = st
         return st
 
-    def _sync(self) -> None:
-        """Wait for the device: the latency clock must measure compute,
-        not launch (the reference's ``block_until_ready``)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def run_step(self, sids: Sequence[int]) -> Tuple[List[int], float]:
         """Advance one sub-batch by one step — same-fidelity (split
         dispatch) or mixed-fidelity sharing one KV quantization dtype
@@ -845,13 +859,19 @@ class BatchedChunkExecutor(ChunkExecutor):
         t, dt_sig, is_dn = self._staging(
             fids, tuple(f.step for f in flights), denoising)
         self.dispatch_count += 1
-        # context stays IN the pool: the step reads the current device
-        # buffers through the cached block tables (appends only ever
-        # touch pages outside every in-flight window)
-        x_new, new_kv = A.denoise_step_paged(
-            self.cfg, self.params, x, t, dt_sig, self.pool.k,
-            self.pool.v, bnd["tables"], bnd["dn"], bnd["cl"],
-            bnd["q_offset"], is_dn)
+        if self.context_backend == "paged":
+            # context stays IN the pool: the step reads the current
+            # device buffers through the cached block tables (appends
+            # only ever touch pages outside every in-flight window)
+            x_new, new_kv = A.denoise_step_paged(
+                self.cfg, self.params, x, t, dt_sig, self.pool.k,
+                self.pool.v, bnd["tables"], bnd["dn"], bnd["cl"],
+                bnd["q_offset"], is_dn)
+        else:
+            x_new, new_kv = A.denoise_step(
+                self.cfg, self.params, x, t, dt_sig, bnd["ctx_k"],
+                bnd["ctx_v"], bnd["q_offset"], bnd["dn"], bnd["cl"],
+                is_dn)
 
         completed: List[int] = []
         clean_rows: List[int] = []
@@ -921,18 +941,21 @@ def serve_session_batched(n_streams: int = 4, chunks_per_stream: int = 4,
                           realtime_budget: Optional[float] = None,
                           fidelity_policy=None,
                           pool_streams: Optional[int] = None,
+                          context_backend: str = "paged",
                           verbose: bool = True,
                           device: Any = "cuda") -> List[ServedStream]:
     """Legacy batched entry point — a thin wrapper over
     ``serve.session.StreamingSession`` (all streams arrive at t=0,
     exact per-stream chunk counts).  ``pool_streams`` caps co-resident
     streams (oversubscription when < n_streams); defaults to
-    n_streams + 1, i.e. everyone resident."""
+    n_streams + 1, i.e. everyone resident.  ``context_backend``:
+    ``"paged"`` or ``"gather"``."""
     from repro_torch.serve.session import (SessionConfig, StreamingSession,
                                            uniform_specs)
     session = StreamingSession(
         SessionConfig(executor="batched", max_batch=max_batch,
                       pool_streams=pool_streams or (n_streams + 1),
+                      context_backend=context_backend,
                       realtime_budget=realtime_budget, verbose=verbose,
                       device=device),
         fidelity_policy=fidelity_policy)

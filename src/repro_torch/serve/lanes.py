@@ -2,8 +2,9 @@
 executors.
 
 A *lane* is one execution slot over a device — one
-``BatchedChunkExecutor`` with its own paged ``KVPool`` — standing in for
-one Worker of the paper's cluster (SS3.1).  This port serves ONE lane:
+``BatchedChunkExecutor`` with its own paged ``KVPool``, or one
+``SequentialChunkExecutor`` — standing in for one Worker of the paper's
+cluster (SS3.1).  This port serves ONE lane:
 the cross-lane mechanisms of the reference (real KV migrations, elastic
 SP2 head splits and batch-axis borrows, heterogeneous model bundles)
 wait for the multi-lane slice, and their apply methods raise
@@ -47,9 +48,12 @@ class LanePool:
     @classmethod
     def wrap(cls, executor: Any) -> "LanePool":
         """Single-lane pool around an existing executor (the session's
-        ``executor=`` injection)."""
+        ``executor=`` injection; also adapts the sequential whole-chunk
+        executor, which has no page pool)."""
         self = cls.__new__(cls)
-        self._init([executor], executor.pool.engine)
+        pool = getattr(executor, "pool", None)
+        self._init([executor],
+                   pool.engine if pool is not None else executor.engine)
         return self
 
     def _init(self, executors: List[Any], engine: AsyncTransferEngine):

@@ -8,7 +8,9 @@ surface over the real executor.
   (``submit() -> StreamHandle``, ``.chunks_ready``, ``.done``);
 * the scheduling loop is driven by ``ControlPlane.tick()`` (BMPR
   fidelity -> Eq. 1 service credit -> three-tier queue ordering) with
-  the batched paged executor as the apply layer;
+  the executor as the apply layer: the batched executor (micro-batches
+  over the paged KV pool, ``context_backend`` "paged" or "gather") or
+  the sequential one (whole chunks, one stream at a time);
 * every stream's playout timeline lives in ONE per-stream record
   (``core.types.Stream``), so ``sched_sim.metrics.summarize()`` gives
   the same CPR / TTFC / stall Summary as over a simulation.
@@ -21,9 +23,9 @@ top-fidelity warm-up chunk and scales Eq. 1 budgets by
 the scaled profile estimate once it exists (online re-profiling).
 
 This port serves one lane on one device (``SessionConfig.device``,
-default the card).  The sequential executor, multi-lane sessions,
-co-served model bundles and the step cache wait for their slices and
-raise ``NotImplementedError`` (ROADMAP: port queue).
+default the card).  Multi-lane sessions, co-served model bundles and the
+step cache wait for their slices and raise ``NotImplementedError``
+(ROADMAP: port queue).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from repro_torch.sched_sim import cost_model as cm
 from repro_torch.sched_sim.frontdoor import FrontDoor, FrontDoorConfig
 from repro_torch.sched_sim.workloads import StreamSpec
 from repro_torch.serve.batcher import compose_batch
-from repro_torch.serve.executor import ServedStream
+from repro_torch.serve.executor import SequentialChunkExecutor, ServedStream
 from repro_torch.serve.lanes import LanePool
 
 _WAITS = "waits for its slice (ROADMAP: port queue)"
@@ -54,6 +56,9 @@ _WAITS = "waits for its slice (ROADMAP: port queue)"
 class SessionConfig:
     """Knobs of a real-model serving session.
 
+    ``executor`` is ``"batched"`` (micro-batches over the paged KV pool;
+    ``context_backend`` ``"paged"`` or ``"gather"``) or ``"sequential"``
+    (whole chunks, one stream at a time; ``max_batch`` does not apply).
     ``device`` is where the executor's params, KV pool and kernels live
     (default the card; ``"cpu"`` runs the plain PyTorch versions).
     ``pool_streams`` caps co-resident streams in the page pool.
@@ -220,17 +225,19 @@ class StreamingSession:
     ``config.arrival_scale``).  Prompt switches reset playout slack to
     the initial TTFC, abort the in-flight chunk and re-encode a fresh
     conditioning; pauses extend the playout deadline by their duration.
-    ``executor=`` injects a ready ``BatchedChunkExecutor`` (its device
-    and params win over the config's).
+    ``executor=`` injects a ready ``BatchedChunkExecutor`` or
+    ``SequentialChunkExecutor`` (its device, model and params win over
+    the config's).  The sequential executor is single-lane and serves
+    one stream per step.
     """
 
     def __init__(self, config: Optional[SessionConfig] = None, *,
                  executor: Optional[Any] = None,
                  fidelity_policy: Optional[Any] = None):
         self.cfg = config or SessionConfig()
-        if self.cfg.executor != "batched":
-            raise NotImplementedError(f"the {self.cfg.executor} executor "
-                                      + _WAITS)
+        if self.cfg.executor not in ("batched", "sequential"):
+            raise ValueError(f"executor {self.cfg.executor!r}: 'batched' "
+                             "or 'sequential'")
         if self.cfg.lanes != 1:
             raise NotImplementedError("multi-lane sessions " + _WAITS)
         if self.cfg.models:
@@ -239,6 +246,10 @@ class StreamingSession:
             raise NotImplementedError("the step cache " + _WAITS)
         if executor is not None:
             self.lanes = LanePool.wrap(executor)
+        elif self.cfg.executor == "sequential":
+            self.lanes = LanePool.wrap(SequentialChunkExecutor(
+                cfg=self.cfg.model_cfg, seed=self.cfg.seed,
+                device=self.cfg.device))
         else:
             self.lanes = LanePool(
                 1, cfg=self.cfg.model_cfg, seed=self.cfg.seed,
@@ -265,7 +276,8 @@ class StreamingSession:
         step = self.top_latency / (HIGHEST_QUALITY.steps + 1)
         for lex in self.lanes.executors:
             lex.latency_ema[HIGHEST_QUALITY.key] = self.top_latency
-            lex.step_ema[HIGHEST_QUALITY.key] = step
+            if hasattr(lex, "step_ema"):
+                lex.step_ema[HIGHEST_QUALITY.key] = step
         self.chunk_seconds = (self.cfg.realtime_budget
                               or self.cfg.budget_factor * self.top_latency)
         time_scale = (self._profile.latency(HIGHEST_QUALITY)
@@ -495,13 +507,16 @@ class StreamingSession:
                 continue
             any_runnable = True
             ex = self.lanes.ex(w.wid)
+            # the sequential executor (no page pool) serves one stream
+            # per step
+            max_batch = self.cfg.max_batch if hasattr(ex, "pool") else 1
             # page-granular admission control: fill the micro-batch from
             # the credit-ordered runnable set with streams that are — or
             # can be made — page-resident (credit-aware eviction); a
             # stream that cannot displace anyone defers one iteration
             sids: List[int] = []
             for sid in runnable:
-                if len(sids) >= self.cfg.max_batch:
+                if len(sids) >= max_batch:
                     break
                 if ex.ensure_resident(sid, streams, protect=sids + [sid]):
                     sids.append(sid)
@@ -511,7 +526,7 @@ class StreamingSession:
                 self._begin_if_needed(ex, sid, now)
             groups = compose_batch(
                 sids, lambda sid: ex.inflight[sid].fidelity,
-                self.cfg.max_batch, fuse=self.cfg.fuse_fidelity)
+                max_batch, fuse=self.cfg.fuse_fidelity)
             for grp in groups:
                 flights = {sid: ex.inflight[sid] for sid in grp}
                 completed, _ = ex.run_step(grp)
@@ -586,7 +601,8 @@ class StreamingSession:
     def result(self) -> SessionResult:
         eff_w: Dict[int, List[int]] = {}
         for ex in self.lanes.all_executors:
-            for sid, log in ex.effective_window_log.items():
+            for sid, log in getattr(ex, "effective_window_log",
+                                    {}).items():
                 if sid >= 0 and log:
                     eff_w.setdefault(sid, []).extend(log)
         return SessionResult(
@@ -606,8 +622,11 @@ class StreamingSession:
         """Back-compat view assembled FROM the per-stream record."""
         r = self.view.streams.get(sid)
         spec = self.handles[sid].spec
+        # the sequential executor keeps each stream's cond and cache
+        base = getattr(self.lanes.executor_of(sid), "streams", {}).get(sid)
         return ServedStream(
-            sid=sid, cond=None, cache=None,
+            sid=sid, cond=getattr(base, "cond", None),
+            cache=getattr(base, "cache", None),
             target_chunks=r.target_chunks if r else spec.chunks,
             chunks=list(self.lanes.chunks_of(sid)),
             fidelity_log=list(r.fidelity_log) if r else [],

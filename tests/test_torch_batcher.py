@@ -176,9 +176,9 @@ def test_oversubscribed_page_evict_matches_jax(inject_jax_draws):
 
 def test_waiting_paths_raise():
     cfg = _cfgs(n_layers=2)[1]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TB.BatchedChunkExecutor(cfg=cfg, device="cpu",
-                                context_backend="gather")
+                                context_backend="gathered")
     ex = TB.BatchedChunkExecutor(cfg=cfg, device="cpu", max_streams=1)
     ex.admit(0, seed=0)
     with pytest.raises(NotImplementedError):

@@ -20,6 +20,7 @@ import sys
 import repro_torch
 import repro_torch.serve.session, repro_torch.launch.serve
 import repro_torch.kernels.paged_attention
+import repro_torch.kernels.flash_attention
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
 print('BAD', bad)

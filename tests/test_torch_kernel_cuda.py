@@ -1,5 +1,5 @@
-"""The CUDA paged chunk-attention kernel against its plain PyTorch
-version, on the card.
+"""The CUDA kernels of the port against their plain PyTorch versions, on
+the card.
 
 Marked ``cuda``: each test skips on a host without an NVIDIA GPU.  This
 file imports no JAX, so it also runs on a machine that has only the
@@ -7,19 +7,30 @@ port's dependencies::
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
-Same inputs through the kernel (CUDA tensors) and the plain version
-(the same CUDA tensors, ``ref.paged_chunk_attention_ref``); every head
-dim the kernel instantiates (16, 96, 128), query and page dtypes
-(fp32, bf16, fp8-e4m3 pages), the all-visible path, explicit masks with
-and without the extent hint, a hole row and a row that sees nothing.
-Tolerance: both accumulate in fp32 and differ in summation order only —
-m within 1e-4, l within 1e-4 relative, the finalized acc / l within
-1e-4; rows that see nothing are exactly (NEG_INF, 0, 0).
+Paged chunk attention: same inputs through the kernel (CUDA tensors) and
+the plain version (the same CUDA tensors, ``ref.paged_chunk_attention_ref``);
+every head dim the kernel instantiates (16, 96, 128), query and page
+dtypes (fp32, bf16, fp8-e4m3 pages), the all-visible path, explicit
+masks with and without the extent hint, a hole row and a row that sees
+nothing.  Tolerance: both accumulate in fp32 and differ in summation
+order only — m within 1e-4, l within 1e-4 relative, the finalized acc /
+l within 1e-4; rows that see nothing are exactly (NEG_INF, 0, 0).
+
+Flash attention: ``flash_mha`` against ``flash_mha_ref`` over head dims
+16/96/128 x fp32/bf16 x each mode (non-causal at ragged AR-DiT-like
+lengths, causal with ``q_offset``, sink + window, the rho keep matrix at
+blocks that are not the kernel's 64-wide tiles, GQA, rows that see
+nothing), ``mha``'s dispatch, and the inputs the wrapper refuses.
+Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at the output's largest
+magnitude for bf16 outputs (both round the same fp32 result once).
 """
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops, ref
+from repro_torch.models.attention import mha, mha_plain
 from repro_torch.models.kvcache import to_fp8_e4m3
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +116,93 @@ def test_kernel_rejects_what_it_cannot_run(card):
         ops.paged_chunk_attention(q, kp.cpu(), vp, table, mask)
     with pytest.raises(ValueError, match="layout hint"):
         ops.paged_chunk_attention(q, kp, vp, table, None)
+
+
+FLASH_MODES = {  # Sq, Skv, Hq, Hkv, keyword arguments
+    "noncausal-ragged": (130, 77 + 2 * 130, 4, 4, dict(causal=False)),
+    "causal-offset": (96, 256, 4, 4, dict(q_offset=160)),
+    "sink-window": (200, 200, 2, 2, dict(window=48, sink=16, block_q=40,
+                                         block_kv=64)),
+    "rho-keep": (384, 384, 4, 2, dict(sparsity=0.7, block_q=96,
+                                      block_kv=128)),
+    "gqa-4": (70, 150, 8, 2, dict(causal=False)),
+    "rows-see-nothing": (32, 32, 2, 2, dict(q_offset=-8)),
+}
+
+
+def flash_limit(want):
+    """fp32: 1e-4; bf16: 2 ulps at the output's largest magnitude."""
+    if want.dtype == torch.float32:
+        return 1e-4
+    top = float(want.float().abs().max())
+    return 2.0 * 2.0 ** (torch.tensor(top).log2().floor().item() - 7)
+
+
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+@pytest.mark.parametrize("D", [16, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(card, mode, D, dtype):
+    Sq, Skv, Hq, Hkv, kw = FLASH_MODES[mode]
+    g = torch.Generator(device=card).manual_seed(Sq + D)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device=card).to(dtype)
+    k = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
+    v = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
+    before = fops.flash_mha.launches
+    got = fops.flash_mha(q, k, v, n_kv_heads=Hkv, **kw)
+    torch.cuda.synchronize()
+    assert fops.flash_mha.launches == before + 1
+    want = fref.flash_mha_ref(q, k, v, n_kv_heads=Hkv,
+                              **{**dict(block_q=128, block_kv=128), **kw})
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= flash_limit(want), (mode, D, dtype, err)
+    if mode == "rows-see-nothing":
+        assert float(got[:, :8].float().abs().max()) == 0.0
+
+
+def test_mha_dispatches_to_the_flash_kernel(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn((1, 96, 4, 16), generator=g, device=card)
+    k = torch.randn((1, 269, 4, 16), generator=g, device=card)
+    v = torch.randn((1, 269, 4, 16), generator=g, device=card)
+    before = fops.flash_mha.launches
+    out = mha(q, k, v, n_kv_heads=4, causal=False)
+    assert fops.flash_mha.launches == before + 1
+    torch.testing.assert_close(out, mha_plain(q, k, v, n_kv_heads=4,
+                                              causal=False),
+                               rtol=0, atol=1e-4)
+    # a per-row mask keeps the plain masked segment: no launch
+    mha(q, k, v, n_kv_heads=4, causal=False,
+        kv_mask=torch.ones((1, 269), dtype=torch.bool, device=card))
+    assert fops.flash_mha.launches == before + 1
+
+
+def test_flash_kernel_rejects_what_it_cannot_run(card):
+    g = torch.Generator(device=card).manual_seed(6)
+
+    def qkv(D=16, dtype=torch.float32, S=128):
+        return tuple(torch.randn((1, S, 2, D), generator=g,
+                                 device=card).to(dtype) for _ in range(3))
+
+    q, k, v = qkv(dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fops.flash_mha(q, k, v, n_kv_heads=2)
+    q, k, v = qkv()
+    with pytest.raises(TypeError):
+        fops.flash_mha(q, k.bfloat16(), v, n_kv_heads=2)
+    q, k, v = qkv(D=48)
+    with pytest.raises(ValueError, match="head dims"):
+        fops.flash_mha(q, k, v, n_kv_heads=2)
+    q, k, v = qkv(S=192)
+    with pytest.raises(ValueError, match="divide"):
+        fops.flash_mha(q, k, v, n_kv_heads=2, sparsity=0.7, block_q=128,
+                       block_kv=128)
+    with pytest.raises(ValueError, match="causal schedule"):
+        fops.flash_mha(q, k, v, n_kv_heads=2, causal=False, sparsity=0.7,
+                       block_q=64, block_kv=64)
+    with pytest.raises(ValueError):
+        fops.flash_mha(q, k.cpu(), v, n_kv_heads=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.flash_mha(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                       v, n_kv_heads=2)
