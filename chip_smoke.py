@@ -21,8 +21,9 @@ Phases (any failure raises and the script exits non-zero):
    keep matrix, GQA, fp32, head dims 16 and 96); the same timings.
 4. Integration at the reduced config, card vs CPU: the batched paged
    ``denoise_step_paged``, the sequential ``serve_chunk`` (fidelities
-   top / rho 0.5 / W 3 / fp8 over a warm cache) and the gather
-   backend's ``denoise_step``.
+   top / rho 0.5 / W 3 / fp8 over a warm cache), the gather backend's
+   ``denoise_step``, and the reduced ``mamba2-780m``'s ``prefill``
+   (logits, conv and SSM states) and three ``decode_step``s.
 5-7. The served paths at full width (random weights from a seed, adaLN
    gates opened), each with both kernels' launch counts set to 0 just
    before it and read just after: the batched paged session (3 streams
@@ -31,6 +32,20 @@ Phases (any failure raises and the script exits non-zero):
    (steps + 1) per chunk, warm-up included, no paged launch) and the
    batched gather-backend session (2 x 2; flash launches = n_layers x
    unmasked steps, no paged launch).
+8. SSD kernel vs plain version on the card at the full-width shape
+   (mamba2-780m: B = 2, S = 32,768, 48 heads of 64, state 128, chunk
+   128, bf16 x/B/C), a ragged S, S < chunk, an init_state, x/B/C as
+   strided views, the reduced shape in fp32 and the reference tests'
+   odd length and chunk (S = 33, chunk 8) at the reduced (P, N); the
+   same timings (no library call computes the scan).
+9. ``mamba2-780m`` at full width through the registry API (random bf16
+   weights from a seed): ``prefill`` of 2 x 32,768 tokens, 32 greedy
+   ``decode_step``s, a teacher-forced ``prefill`` over prompt +
+   generated tokens whose last logits must match the last decode
+   step's, and 16 ``decode_step``s at batch 128 from ``init_cache``;
+   then the same prefill / decode / teacher-forced check with the
+   weights widened to fp32 (2 x 8,192 tokens, 16 steps) at a limit for
+   fp32 rounding; ssd_scan launches = 48 per prefill, none from decode.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
@@ -69,6 +84,31 @@ TOL_FLASH_F32 = 1e-4
 FLASH_BF16_ULPS = 2
 # reduced-config steps and chunks, card vs CPU (fp32, TF32 off)
 TOL_CARD_CPU = 1e-4
+# SSD kernel vs plain version: y within SSD_BF16_ULPS bf16 ulps at its
+# largest magnitude (bf16), or within 1e-4 of that magnitude (fp32, at
+# least 1e-4 absolute; a scan's outputs grow with its inputs); the fp32
+# final state within 1e-4 of its largest magnitude.  Both accumulate in
+# fp32 and differ in summation order only.
+SSD_BF16_ULPS = 2
+TOL_SSD_F32 = 1e-4
+# full-width mamba2-780m: the last decode step's logits against a
+# teacher-forced prefill over the same tokens, as a relative L2 gap.  In
+# bf16 the two paths round activations at different places in each of
+# 48 layers (cuBLAS picks other kernels for 2 rows than for 65,536).
+# The same weights widened to fp32 (2 x 8,192 tokens, 16 steps) give
+# 1.4e-5 on an NVIDIA H100 80GB HBM3 (700 W), so the bf16 gap (4.5%
+# there) is rounding; a state carried wrongly gives a gap of the order
+# of the logits themselves (printed beside it: the gap to the logits of
+# another position).  The bf16 limit separates only that; the fp32
+# limit, 7x its reading, holds the two paths' arithmetic.
+TOL_CONSISTENCY = 0.1
+TOL_CONSISTENCY_F32 = 1e-4
+SSM_F32_PREFILL, SSM_F32_STEPS = 8192, 16
+SSM_ARCH = "mamba2-780m"
+# prefill_32k's length with its batch of 32 cut to 2; decode_32k's batch
+SSM_PREFILL = (2, 32768)
+SSM_DECODE_STEPS = 32
+SSM_WIDE_BATCH, SSM_WIDE_STEPS = 128, 16
 
 DEV = "cuda"
 # the main path's attention shapes at full width (ardit-self-forcing):
@@ -503,6 +543,46 @@ def phase_integration():
         if not err <= TOL_CARD_CPU:
             raise AssertionError(f"serve_chunk [{fid.key}] disagrees "
                                  f"({err})")
+    return max(worst, phase_integration_ssm())
+
+
+def phase_integration_ssm():
+    """The reduced ``mamba2-780m`` (fp32) through the registry API on
+    the card (the SSD kernel) and on the CPU (its plain version), with
+    weights from one CPU init: ``prefill`` over a ragged 100 tokens
+    (logits, conv and SSM states), then three ``decode_step``s fed the
+    CPU's greedy tokens on both devices."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry, ssm
+    from repro_torch.models.convert import params_to
+
+    cfg = get_config(SSM_ARCH).reduced()
+    api = registry.get_api(cfg)
+    gen = torch.Generator().manual_seed(11)
+    p_cpu = ssm.init_params(cfg, gen, "cpu")
+    p_gpu = params_to(p_cpu, DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen)
+    out = {"cpu": api.prefill(cfg, p_cpu, tokens),
+           DEV: api.prefill(cfg, p_gpu, tokens.to(DEV))}
+    worst = 0.0
+    for step in range(4):
+        (l0, s0, pos0), (l1, s1, pos1) = out["cpu"], out[DEV]
+        sync()
+        err = max(float((l1.cpu() - l0).abs().max()),
+                  float((s1["conv"].cpu() - s0["conv"]).abs().max()),
+                  float((s1["ssm"].cpu() - s0["ssm"]).abs().max()))
+        worst = max(worst, err)
+        name = "prefill" if step == 0 else f"decode_step {step}"
+        print(f"  reduced {SSM_ARCH} {name} card vs CPU (logits, conv and "
+              f"SSM states): max |d| {err:.3g} (limit {TOL_CARD_CPU:g})")
+        if not err <= TOL_CARD_CPU:
+            raise AssertionError(f"{SSM_ARCH} {name} disagrees ({err})")
+        if step == 3:
+            break
+        nxt = l0[:, :cfg.vocab_size].argmax(-1)[:, None]
+        l0, s0 = api.decode_step(cfg, p_cpu, s0, nxt, pos0)
+        l1, s1 = api.decode_step(cfg, p_gpu, s1, nxt.to(DEV), pos1)
+        out = {"cpu": (l0, s0, pos0 + 1), DEV: (l1, s1, pos1 + 1)}
     return worst
 
 
@@ -652,6 +732,272 @@ def phase_gather(cfg, params, counters):
     return flash
 
 
+def ssd_case(gen, B, S, H, P, N, dtype, init=False, view=False):
+    """SSD inputs on the card from the device generator ``gen``, scaled
+    like the model's: dt = softplus(normal - 3) (mostly 1e-3-0.3), A =
+    -(1..H) (``A_log`` = log(1..H) at init); with ``view``, x/B/C are
+    slices of one [B, S, H*P + 2N] tensor, as the model passes them."""
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen,
+                      device=DEV).to(dtype)
+    xi, Bp, Cp = torch.split(xbc, [H * P, N, N], dim=-1)
+    x, Bm, Cm = xi.reshape(B, S, H, P), Bp.reshape(B, S, 1, N), \
+        Cp.reshape(B, S, 1, N)
+    if not view:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=DEV) - 3.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=DEV)
+    s0 = torch.randn((B, H, P, N), generator=gen, device=DEV) if init \
+        else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def compare_ssd(name, got, want):
+    """SSD kernel (y, final state) against the plain version's: y within
+    SSD_BF16_ULPS bf16 ulps (bf16) or TOL_SSD_F32 relative (fp32) at its
+    largest magnitude, the final state within TOL_SSD_F32 relative."""
+    (y, f), (y0, f0) = got, want
+    top = float(y0.float().abs().max())
+    if y0.dtype == torch.float32:
+        limit = TOL_SSD_F32 * max(1.0, top)
+    else:
+        limit = SSD_BF16_ULPS * ulp_bf16(top)
+    f_limit = TOL_SSD_F32 * max(1.0, float(f0.abs().max()))
+    err = float((y.float() - y0.float()).abs().max())
+    f_err = float((f - f0).abs().max())
+    print(f"  {name}: y |d| {err:.3g} (limit {limit:.3g}, |y| <= {top:.3g})"
+          f"  state |d| {f_err:.3g} (limit {f_limit:.3g})")
+    if not (err <= limit and f_err <= f_limit) or y.shape != y0.shape \
+            or y.dtype != y0.dtype or f.shape != f0.shape \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{name}: ssd kernel disagrees with the plain "
+                             f"version (y {err}, state {f_err})")
+    return err
+
+
+def ssd_flops(B, S, H, P, N, chunk):
+    """Operations the SSD scan needs, chunk by chunk (a ragged last chunk
+    of l rows counts l): per (b, chunk) the lower triangle of C B^T,
+    l(l+1)N (B and C are shared by the heads, G = 1); per (b, h, chunk)
+    the triangle of W X, l(l+1)P, the inter-chunk output C @ state^T,
+    2lNP, and the chunk state B^T X, 2lNP.  The exps and the cumsum
+    (~l^2/2 per head) are left out: under 1% of these."""
+    q = min(chunk, S)
+    lengths = [q] * (S // q) + ([S % q] if S % q else [])
+    return float(B * sum(l * (l + 1) * N
+                         + H * (l * (l + 1) * P + 4 * l * N * P)
+                         for l in lengths))
+
+
+def phase_ssd(record):
+    """Phase 8: the SSD kernel against its plain version at the
+    full-width shape and the listed others; timings and the bound of the
+    full-width shape."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S = SSM_PREFILL
+    H, P, N, Q = 48, 64, 128, 128
+    x, dt, A, Bm, Cm, _ = ssd_case(gen, B, S, H, P, N, bf16)
+
+    def kern():
+        return ops.ssd(x, dt, A, Bm, Cm, chunk=Q)
+
+    def plain():
+        return ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+
+    errs = [compare_ssd(f"full width B={B} S={S} bf16", kern(), plain())]
+    kernel_ms = cuda_ms(kern, 10)
+    plain_ms = cuda_ms(plain, 2)
+    # each input read once (x, dt, A, B, C), y and the final state
+    # written once; the operations the function needs (ssd_flops)
+    flops = ssd_flops(B, S, H, P, N, Q)
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + H * 4
+              + 2 * Bm.numel() * Bm.element_size() + B * H * P * N * 4)
+    t_ops = flops / PEAK_FLOPS[str(x.dtype)] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  B={B} S={S} H={H} P={P} N={N} Q={Q}: kernel {kernel_ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+          f"achieved {flops / kernel_ms / 1e9:.2f} TFLOP/s")
+    print("  library: none (no single PyTorch call computes the SSD scan)")
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    record.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=None)
+
+    # (name, B, S, H, P, N, chunk, dtype, init_state, strided views)
+    cases = [
+        ("ragged S=1000 bf16", 2, 1000, H, P, N, Q, bf16, False, False),
+        ("S=100 < chunk bf16", 2, 100, H, P, N, Q, bf16, False, False),
+        ("init_state S=1000 bf16", 2, 1000, H, P, N, Q, bf16, True, False),
+        ("strided views S=1000 bf16", 2, 1000, H, P, N, Q, bf16, True,
+         True),
+        ("reduced S=1000 fp32 (P 16, N 16, chunk 16)", 2, 1000, 8, 16, 16,
+         16, f32, True, False),
+        ("odd B=2 S=33 H=3 chunk 8 fp32 (P 16, N 16)", 2, 33, 3, 16, 16,
+         8, f32, True, False),
+    ]
+    for name, b_, s_, h_, p_, n_, q_, dtype, init, view in cases:
+        x, dt, A, Bm, Cm, s0 = ssd_case(gen, b_, s_, h_, p_, n_, dtype,
+                                        init, view)
+        errs.append(compare_ssd(
+            name, ops.ssd(x, dt, A, Bm, Cm, chunk=q_, init_state=s0),
+            ref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                        Cm.contiguous(), chunk=q_, init_state=s0)))
+    record["max_abs_err"] = max(errs)
+
+
+def phase_ssm(counters):
+    """Phase 9: ``mamba2-780m`` at full width through the registry API.
+    Every launch count is set to 0 just before and read after each
+    step: ssd_scan launches = n_layers per prefill, none from decode,
+    no attention launch."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+
+    cfg = get_config(SSM_ARCH)
+    api = registry.get_api(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    params = api.init(cfg, gen, DEV)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  params: {n_params / 1e9:.3f} B ({cfg.param_dtype}), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, S = SSM_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    prefills = 0
+
+    def check(label):
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = {**{k: 0 for k in counters}, "ssd": prefills * cfg.n_layers}
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{want}")
+
+    def greedy(logits):
+        return logits[:, :cfg.vocab_size].argmax(-1)[:, None]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def consistency(label, cfg_, params_, prompt, steps, limit):
+        """prefill, ``steps`` greedy decode steps, then a teacher-forced
+        prefill over prompt + generated tokens: its last logits against
+        the last decode step's, as a relative L2 gap within ``limit``."""
+        nonlocal prefills
+        b, s = prompt.shape
+        sync()
+        t0 = time.perf_counter()
+        logits, state, pos = api.prefill(cfg_, params_, prompt)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefills += 1
+        check(f"{label} prefill")
+        if tuple(logits.shape) != (b, cfg.padded_vocab) \
+                or not bool(torch.isfinite(logits).all()) \
+                or not all(bool(torch.isfinite(v).all())
+                           for v in state.values()):
+            raise AssertionError(f"{label} prefill: bad logits or state")
+        print(f"  {label} prefill B={b} S={s}: {prefill_s:.3f} s "
+              f"({b * s / prefill_s:.0f} tokens/s), state conv "
+              f"{tuple(state['conv'].shape)} ssm {tuple(state['ssm'].shape)}")
+        first_logits = logits
+        generated = []
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = greedy(logits)
+            generated.append(tok)
+            logits, state = api.decode_step(cfg_, params_, state, tok, pos)
+            pos = pos + 1
+        sync()
+        decode_ms = (time.perf_counter() - t0) / steps * 1e3
+        check(f"{label} decode")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label} decode: non-finite logits")
+        print(f"  {label} decode B={b}: {steps} greedy steps, "
+              f"{decode_ms:.2f} ms per token (step)")
+        ext = torch.cat([prompt] + generated, 1)
+        sync()
+        t0 = time.perf_counter()
+        tf_logits, _, _ = api.prefill(cfg_, params_, ext)
+        sync()
+        tf_s = time.perf_counter() - t0
+        prefills += 1
+        check(f"{label} teacher-forced prefill")
+        gap = rel(logits, tf_logits)
+        max_d = float((logits.float() - tf_logits.float()).abs().max())
+        agree = float((greedy(logits) == greedy(tf_logits)).float().mean())
+        print(f"  {label} teacher-forced prefill S={ext.shape[1]} "
+              f"({tf_s:.3f} s): last decode logits vs it: relative L2 "
+              f"{gap:.4g} (limit {limit:g}), max |d| {max_d:.4g} at "
+              f"|logits| <= {float(tf_logits.float().abs().max()):.4g}, "
+              f"greedy token agrees for {agree:.0%} of rows; the prefill's "
+              f"own last logits (another position) vs it: relative L2 "
+              f"{rel(first_logits, tf_logits):.4g}")
+        if not gap <= limit:
+            raise AssertionError(f"full-width {label} prefill/decode gap "
+                                 f"{gap}")
+
+    consistency(cfg.param_dtype, cfg, params, tokens, SSM_DECODE_STEPS,
+                TOL_CONSISTENCY)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    wide = api.init_cache(cfg, SSM_WIDE_BATCH, S, device=DEV)
+    tok = torch.randint(0, cfg.vocab_size, (SSM_WIDE_BATCH, 1),
+                        generator=gen).to(DEV)
+    pos = torch.zeros((SSM_WIDE_BATCH,), dtype=torch.int32, device=DEV)
+    step_ms = []
+    for _ in range(SSM_WIDE_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        logits, wide = api.decode_step(cfg, params, wide, tok, pos)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tok, pos = greedy(logits), pos + 1
+    check("batch-128 decode")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("batch-128 decode: non-finite logits")
+    rest = step_ms[1:]
+    print(f"  decode B={SSM_WIDE_BATCH} from init_cache: {SSM_WIDE_STEPS} "
+          f"steps, first {step_ms[0]:.2f} ms, then {sum(rest) / len(rest):.2f}"
+          f" ms per token (step), state {wide['ssm'].numel() * 4 / 2**30:.2f}"
+          f" GiB fp32 SSM + conv")
+    wide_peak = torch.cuda.max_memory_allocated()
+    del wide, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same weights widened to fp32, a shorter prompt: both paths
+    # then differ in fp32 summation order only
+    consistency("float32", dataclasses.replace(cfg, param_dtype="float32"),
+                L.tree_map(lambda t: t.float(), params),
+                tokens[:, :SSM_F32_PREFILL], SSM_F32_STEPS,
+                TOL_CONSISTENCY_F32)
+    print(f"  ssd_scan launches {counters['ssd'].launches} = {cfg.n_layers} x "
+          f"{prefills} prefills, 0 from "
+          f"{SSM_DECODE_STEPS + SSM_WIDE_STEPS + SSM_F32_STEPS} decode steps;"
+          f" peak memory {prefill_peak / 2**30:.2f} GiB ({cfg.param_dtype} "
+          f"prefill and "
+          f"B={B} decode), {wide_peak / 2**30:.2f} GiB (B={SSM_WIDE_BATCH} "
+          f"decode)")
+    return counters["ssd"].launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -670,6 +1016,7 @@ def main():
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.paged_attention import ops as paged_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -685,7 +1032,7 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    sources = [paged_ops.SOURCE, flash_ops.SOURCE]
+    sources = [paged_ops.SOURCE, flash_ops.SOURCE, ssd_ops.SOURCE]
     t0 = time.perf_counter()
     build.build(sources)
     print(f"  built {', '.join(s.name for s in sources)} in "
@@ -707,6 +1054,9 @@ def main():
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_mha.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:132"}
+    ssd = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:81"}
     counters = {"paged_chunk_attention": paged_ops.paged_chunk_attention,
                 "flash_mha": flash_ops.flash_mha}
     print("== phase 2: paged kernel vs plain version at full-width shapes")
@@ -722,12 +1072,17 @@ def main():
     flash["launches"] = phase_sequential(cfg, params, counters)
     print("== phase 7: full-width ardit-self-forcing, gather-backend session")
     phase_gather(cfg, params, counters)
+    del cfg, params
+    print("== phase 8: SSD kernel vs plain version")
+    phase_ssd(ssd)
+    print(f"== phase 9: full-width {SSM_ARCH} prefill and decode")
+    ssd["launches"] = phase_ssm({**counters, "ssd": ssd_ops.ssd})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (paged, flash)]}))
+                                  for r in (paged, flash, ssd)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -196,9 +196,10 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     # Import every per-arch module for its registration side effect.
-    # The port serves the paper's own AR-DiT family; the other registry
-    # families wait for their slice (ROADMAP).
+    # The port serves the paper's own AR-DiT family and the Mamba-2
+    # (SSD) family; the other registry families wait for their slice
+    # (ROADMAP).
     from repro_torch.configs import (  # noqa: F401
-        ardit_self_forcing, ardit_causal_forcing,
+        ardit_self_forcing, ardit_causal_forcing, mamba2_780m,
     )
     _LOADED = True

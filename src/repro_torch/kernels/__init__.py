@@ -11,4 +11,6 @@ use and loads it with ctypes.
     flash_attention   blocked attention with the fidelity knobs: every
                       ``models.attention.mha`` call without a per-row
                       mask (the sequential executor, the gather backend)
+    ssd_scan          the Mamba-2 SSD chunked scan: every layer of the
+                      SSM family's ``prefill`` / ``forward``
 """

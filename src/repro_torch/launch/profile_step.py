@@ -81,6 +81,18 @@ def main() -> None:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
 
+    ctx = A.COND_TOKENS + args.fill * A.chunk_tokens(cfg)
+    report(prof, category, STEPS, wall,
+           f"{ARCH}: {STREAMS} rows, context {ctx} tokens, {STEPS} steps")
+
+
+def report(prof, category, steps: int, wall: float, title: str,
+           untraced: float = 0.0) -> None:
+    """Print the device time of a ``torch.profiler`` trace of ``steps``
+    steps by kernel and by ``category(name)``, per step, beside the
+    steps' host wall time ``wall`` (seconds, traced) and the device's
+    idle share; with ``untraced`` (seconds for the same steps run
+    without the profiler), the idle share against that time too."""
     by_cat: collections.Counter = collections.Counter()
     by_name = []
     for ev in prof.key_averages():
@@ -91,21 +103,25 @@ def main() -> None:
             continue
         by_name.append((us, ev.count, ev.key))
         by_cat[category(ev.key)] += us
-    busy_ms = sum(by_cat.values()) / 1e3 / STEPS
-    step_ms = wall * 1e3 / STEPS
-    ctx = A.COND_TOKENS + args.fill * A.chunk_tokens(cfg)
-    print(f"{ARCH}: {STREAMS} rows, context {ctx} tokens, {STEPS} steps: "
-          f"wall {step_ms:.1f} ms/step, device busy {busy_ms:.1f} ms/step "
-          f"({100 * busy_ms / step_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    busy_ms = sum(by_cat.values()) / 1e3 / steps
+    step_ms = wall * 1e3 / steps
+    launches = sum(count for _, count, _ in by_name) / steps
+    line = (f"{title}: wall {step_ms:.1f} ms/step, device busy "
+            f"{busy_ms:.1f} ms/step ({100 * busy_ms / step_ms:.1f}%), idle "
+            f"{100 * (1 - busy_ms / step_ms):.1f}%, {launches:.0f} kernels "
+            f"per step")
+    if untraced:
+        plain_ms = untraced * 1e3 / steps
+        line += (f"; untraced wall {plain_ms:.1f} ms/step, idle "
+                 f"{100 * max(0.0, 1 - busy_ms / plain_ms):.1f}%")
+    print(line)
     for label, us in by_cat.most_common():
-        print(f"  {label:40s} {us / 1e3 / STEPS:9.2f} ms/step "
-              f"{100 * us / 1e3 / STEPS / busy_ms:5.1f}%")
+        print(f"  {label:40s} {us / 1e3 / steps:9.2f} ms/step "
+              f"{100 * us / 1e3 / steps / busy_ms:5.1f}%")
     print("  top kernels (ms/step, calls/step):")
     for us, count, name in sorted(by_name, reverse=True)[:12]:
-        print(f"    {us / 1e3 / STEPS:9.2f}  {count / STEPS:6.1f}"
+        print(f"    {us / 1e3 / steps:9.2f}  {count / steps:6.1f}"
               f"  {name[:100]}")
-
 
 if __name__ == "__main__":
     main()

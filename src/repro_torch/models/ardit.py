@@ -35,14 +35,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models.attention import mha, paged_mha, sparse_keep_list
+from repro_torch.models.layers import DTYPES, layer_params
 
 Params = Dict[str, Any]
 
 LATENT_CH = 16          # latent channels out of the (stubbed) video VAE
 COND_TOKENS = 77        # text-conditioning tokens (stub encoder output)
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 class FidelityConfig(NamedTuple):
@@ -90,12 +88,6 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
     }
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Fresh parameters: the reference's shapes and scales
@@ -115,9 +107,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "t_mlp1": dev(L.dense_init(generator, (256, d), dtype)),
         "t_mlp2": dev(L.dense_init(generator, (d, d), dtype)),
     }
-    layers = [_map(dev, _init_layer(cfg, generator, dtype))
+    layers = [L.tree_map(dev, _init_layer(cfg, generator, dtype))
               for _ in range(cfg.n_layers)]
-    p["layers"] = _stack(layers)
+    p["layers"] = L.stack_trees(layers)
     p["final_norm"] = dev(torch.ones((d,), dtype=dtype))
     p["final_mod"] = dev(torch.zeros((d, 2 * d), dtype=dtype))
     p["out_proj"] = dev(L.dense_init(generator, (d, LATENT_CH), dtype,
@@ -139,17 +131,6 @@ def open_gates(p: Params, generator: torch.Generator) -> Params:
     p["layers"]["mod_b"] = rnd(p["layers"]["mod_b"], 0.2, 0.5)
     p["final_mod"] = rnd(p["final_mod"], 0.2)
     return p
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def layer_params(p: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked ``[L, ...]`` layer params."""
-    return _map(lambda t: t[i], p["layers"])
 
 
 def _time_embed(p: Params, t: torch.Tensor, d: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Shared layer substrate (dense subset): norms, RoPE, attention
-projections, MLP.
+"""Shared layer substrate (dense subset): param-tree helpers, norms,
+RoPE, attention projections, MLP.
 
 Params are nested dicts of tensors; every apply fn takes the config +
 params explicitly, like the JAX reference.  Stacked-layer params keep
@@ -16,6 +16,31 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, Any]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+# ---------------------------------------------------------------------------
+# param trees
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_trees(trees):
+    """Per-layer trees -> one tree of stacked ``[L, ...]`` tensors."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def layer_params(p: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked ``[L, ...]`` layer params."""
+    return tree_map(lambda t: t[i], p["layers"])
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,9 @@ import repro_torch
 import repro_torch.serve.session, repro_torch.launch.serve
 import repro_torch.kernels.paged_attention
 import repro_torch.kernels.flash_attention
+import repro_torch.kernels.ssd_scan
+import repro_torch.models.ssm, repro_torch.models.registry
+import repro_torch.launch.profile_step, repro_torch.launch.profile_ssm
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
 print('BAD', bad)
@@ -53,9 +56,10 @@ def test_no_kernel_built_at_import():
 
 
 def test_entry_points_default_to_the_card():
-    """``BatchedChunkExecutor(cfg)`` without ``device`` allocates on the
-    card; on a host without one it raises, as torch does — nothing
-    quietly falls back to the CPU."""
+    """``BatchedChunkExecutor(cfg)``, and the Mamba-2 family's
+    ``init_params`` and ``init_cache`` through the registry, without
+    ``device`` allocate on the card; on a host without one they raise,
+    as torch does — nothing quietly falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs.base import get_config
@@ -65,3 +69,10 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((AssertionError, RuntimeError)):
         BatchedChunkExecutor(cfg)
     assert SessionConfig().device == "cuda"
+    from repro_torch.models import registry
+    mcfg = get_config("mamba2-780m").reduced()
+    api = registry.get_api(mcfg)
+    with pytest.raises((AssertionError, RuntimeError)):
+        api.init(mcfg, torch.Generator().manual_seed(0))
+    with pytest.raises((AssertionError, RuntimeError)):
+        api.init_cache(mcfg, 2, 16)

@@ -23,15 +23,28 @@ blocks that are not the kernel's 64-wide tiles, GQA, rows that see
 nothing), ``mha``'s dispatch, and the inputs the wrapper refuses.
 Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at the output's largest
 magnitude for bf16 outputs (both round the same fp32 result once).
+
+SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
+instantiates x fp32/bf16 x/B/C, ragged S, S < chunk, ``init_state``,
+x/B/C as strided views of one wider tensor (as the model passes them),
+and the inputs the wrapper refuses.  Tolerance: y within 1e-4 of the
+output's largest magnitude (at least 1e-4 absolute) in fp32, within 2
+bf16 ulps at that magnitude in bf16; the fp32 final state within 1e-4
+of its largest magnitude.  A scan's outputs grow with its inputs (unlike
+attention's averages), so the fp32 limit is relative to them; both sides
+accumulate in fp32 and differ in summation order only.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops, ref
 from repro_torch.models.attention import mha, mha_plain
 from repro_torch.models.kvcache import to_fp8_e4m3
+from repro_torch.kernels.ssd_scan import ops as sops
+from repro_torch.kernels.ssd_scan import ref as sref
 
 pytestmark = pytest.mark.cuda
 
@@ -206,3 +219,103 @@ def test_flash_kernel_rejects_what_it_cannot_run(card):
     with pytest.raises(ValueError, match="contiguous"):
         fops.flash_mha(q.transpose(1, 2).contiguous().transpose(1, 2), k,
                        v, n_kv_heads=2)
+
+
+SSD_CASES = {  # B, S, H, P, N, chunk, init_state
+    "mamba2-780m-ragged": (2, 300, 4, 64, 128, 128, False),
+    "mamba2-780m-init": (1, 256, 3, 64, 128, 128, True),
+    "mamba2-780m-short": (2, 57, 2, 64, 128, 128, True),
+    "reduced-ragged": (2, 100, 8, 16, 16, 16, False),
+    "reduced-init": (2, 48, 8, 16, 16, 16, True),
+    "reduced-whole-chunks": (2, 64, 4, 16, 16, 16, False),
+    "reduced-chunk32-ragged": (1, 100, 2, 16, 16, 32, False),
+    "reduced-odd": (2, 33, 3, 16, 16, 8, True),
+}
+
+
+def ssd_inputs(dev, B, S, H, P, N, dtype, init, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(dtype)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev) - 1.0)
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    Bm = torch.randn((B, S, 1, N), generator=g, device=dev).to(dtype)
+    Cm = torch.randn((B, S, 1, N), generator=g, device=dev).to(dtype)
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev) if init \
+        else None
+    return x, dt, A, Bm, Cm, s0
+
+
+def ssd_limit(want):
+    """fp32: 1e-4 of the largest magnitude (at least 1e-4); bf16: 2
+    ulps at the largest magnitude."""
+    top = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        return 1e-4 * max(1.0, top)
+    return 2.0 * 2.0 ** (torch.tensor(top).log2().floor().item() - 7)
+
+
+def check_ssd(got, want):
+    (y, f), (y0, f0) = got, want
+    assert y.dtype == y0.dtype and y.shape == y0.shape
+    assert f.dtype == torch.float32 and f.shape == f0.shape
+    assert float((y.float() - y0.float()).abs().max()) <= ssd_limit(y0)
+    assert float((f - f0).abs().max()) <= ssd_limit(f0)
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_kernel_matches_plain_version(card, case, dtype):
+    B, S, H, P, N, chunk, init = SSD_CASES[case]
+    x, dt, A, Bm, Cm, s0 = ssd_inputs(card, B, S, H, P, N, dtype, init,
+                                      seed=S + P)
+    before = sops.ssd.launches
+    got = sops.ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert sops.ssd.launches == before + 1
+    check_ssd(got, sref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                                init_state=s0))
+
+
+def test_ssd_kernel_reads_strided_views(card):
+    """x, B and C as slices of one [B, S, H*P + 2N] tensor, as
+    ``ssm.mamba_block`` passes the conv output."""
+    B, S, H, P, N = 2, 200, 3, 64, 128
+    g = torch.Generator(device=card).manual_seed(9)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g,
+                      device=card).bfloat16()
+    xi, Bp, Cp = torch.split(xbc, [H * P, N, N], dim=-1)
+    x = xi.reshape(B, S, H, P)
+    Bm, Cm = Bp.reshape(B, S, 1, N), Cp.reshape(B, S, 1, N)
+    assert not x.is_contiguous()
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=card))
+    A = -torch.exp(torch.randn((H,), generator=g, device=card))
+    check_ssd(sops.ssd(x, dt, A, Bm, Cm, chunk=128),
+              sref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                           Cm.contiguous(), chunk=128))
+
+
+def test_ssd_kernel_rejects_what_it_cannot_run(card):
+    def inputs(P=16, N=16, G=1, dtype=torch.float32, S=40):
+        x, dt, A, Bm, Cm, _ = ssd_inputs(card, 2, S, 2, P, N, dtype, False,
+                                         seed=1)
+        return x, dt, A, Bm.repeat(1, 1, G, 1), Cm.repeat(1, 1, G, 1)
+
+    with pytest.raises(ValueError, match="n_groups"):
+        sops.ssd(*inputs(G=2), chunk=16)
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        sops.ssd(*inputs(P=32), chunk=16)
+    with pytest.raises(ValueError, match="chunk length"):
+        sops.ssd(*inputs(S=300), chunk=256)
+    with pytest.raises(TypeError):
+        sops.ssd(*inputs(dtype=torch.float16), chunk=16)
+    x, dt, A, Bm, Cm = inputs()
+    with pytest.raises(TypeError):
+        sops.ssd(x, dt, A, Bm.bfloat16(), Cm, chunk=16)
+    with pytest.raises(ValueError):
+        sops.ssd(x, dt, A, Bm.cpu(), Cm, chunk=16)
+    with pytest.raises(ValueError, match="init_state"):
+        sops.ssd(x, dt, A, Bm, Cm, chunk=16,
+                 init_state=torch.zeros((2, 2, 16, 8), device=card))
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        sops.ssd(*inputs(P=8, N=4), chunk=8)
