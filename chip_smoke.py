@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit from nvidia-smi; build every CUDA kernel
-   of the served paths from ``src/repro_torch/kernels/*/csrc`` with nvcc
-   (one nvcc per source, started together).
+   of the port from ``src/repro_torch/kernels/*/csrc`` with nvcc (five
+   sources, one nvcc per source, started together).
 2. Paged kernel vs plain version on the card at the batched path's
    full-width shapes (ardit-self-forcing: Sq = 2640, Hq = Hkv = 12, D =
    128, page = 2640, 8-entry tables): all-visible, explicit mask with
@@ -46,6 +46,30 @@ Phases (any failure raises and the script exits non-zero):
    then the same prefill / decode / teacher-forced check with the
    weights widened to fp32 (2 x 8,192 tokens, 16 steps) at a limit for
    fp32 rounding; ssd_scan launches = 48 per prefill, none from decode.
+10. Elastic SP and migration at full width (run right after phase 7, on
+   its weights): ``ardit-self-forcing`` in bf16 with two lanes on the
+   one card.  (i) Direct apply: a stream with 2 chunks of context takes
+   one SP2 step (``denoise_step_paged_sp``: home heads 0-5, donor heads
+   6-11, each through a head-range view of its pool) against the SP1
+   step on the same inputs; then batch-axis SP (the stream as a guest
+   row beside the donor's own stream) against SP1; then one ``migrate``,
+   whose pages must be bit-exact after the move.  (ii) Sessions: 2 lanes
+   against 1 lane, 2 streams x 3 chunks under a static fidelity, one
+   migration and one SP expand + release forced through the tick path;
+   chunks compared.  Outputs must be bit-identical or, where a library
+   GEMM's choice by batch size differs, within 1 bf16 ulp.
+11. Paged decode kernel vs plain version: the reference tests' shapes
+   (fp32) and minitron-8b's attention (Hq 32, Hkv 8, D 128, bf16) at
+   decode_32k (B = 128, 32,768 tokens in pages of 16 drawn from a
+   shuffled pool of 262,144), all lengths full and lengths drawn from
+   [1, 32768]; the entry point's launches; timings, the bound (visible
+   K/V bytes) and SDPA over the pre-gathered context.
+12. Scaled fp8 matmul kernel vs plain version: minitron-8b's FFN
+   up-projection over one prefill_32k prompt (M 32,768, K 4,096, N
+   16,384), the AR-DiT's FFN at 4 rows (M 10,560, K 1,536, N 8,960) and
+   the reference tests' shapes; ``quantize_fp8`` card vs CPU bit for
+   bit; the entry point's launches; timings, the bound and
+   ``torch._scaled_mm`` with row-wise scales.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
@@ -119,6 +143,22 @@ KERNEL_SHAPES = dict(B=2, Sq=2640, H=12, D=128, page=2640, n=8, sink=77)
 # 2640 queries over sink + w chunks + the chunk itself
 FLASH_SKV = (77 + 2640, 77 + 3 * 2640 + 2640, 77 + 7 * 2640 + 2640)
 SESSION_ARCH = "ardit-self-forcing"
+# the decode kernel at minitron-8b's decode_32k: batch, context, page,
+# pool pages
+DECODE_ARCH = "minitron-8b"
+DECODE_SHAPE = dict(B=128, S=32768, page=16, pool=262144)
+DECODE_PLAIN_ROWS = 16      # streams per plain-version call (memory)
+# decode kernel vs plain: 1e-5 in fp32 (order of summation only); bf16
+# outputs within 2 ulps at the largest magnitude (both round one fp32
+# result); SDPA within 8 ulps
+TOL_DECODE_F32 = 1e-5
+DECODE_BF16_ULPS = 2
+# fp8 kernel vs plain: products of e4m3 values are exact in fp32 and both
+# sum in fp32 in different orders: within 1e-5 of the output's largest
+# magnitude
+TOL_FP8_REL = 1e-5
+FP8_SHAPES = {"minitron-8b FFN up, prefill_32k prompt": (32768, 4096, 16384),
+              "ardit-self-forcing FFN, 4 rows": (10560, 1536, 8960)}
 
 
 def sync():
@@ -998,6 +1038,493 @@ def phase_ssm(counters):
     return counters["ssd"].launches
 
 
+def same_or_ulp(name, got, want):
+    """``got`` against ``want``: bit-identical, or within 1 bf16 ulp at
+    ``want``'s largest magnitude (a library GEMM may pick another kernel
+    for another batch size); returns |d|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if torch.equal(got, want):
+        print(f"  {name}: bit-identical")
+        return 0.0
+    err = float((got.float() - want.float()).abs().max())
+    limit = ulp_bf16(float(want.float().abs().max()))
+    print(f"  {name}: |d| {err:.3g} (not bit-identical; limit 1 bf16 ulp "
+          f"= {limit:.3g})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: {err} > {limit}")
+    return err
+
+
+def phase_lanes(cfg, params, counters):
+    """Phase 10: elastic SP and migration at full width, two lanes on
+    the one card; see the module docstring."""
+    from repro_torch.core.bmpr import StaticFidelity
+    from repro_torch.core.elastic_sp import SPDecision
+    from repro_torch.core.fidelity import FidelityConfig
+    from repro_torch.core.rehoming import Migration
+    from repro_torch.models import ardit as A
+    from repro_torch.serve.lanes import LanePool
+    from repro_torch.serve.session import (SessionConfig, StreamingSession,
+                                           uniform_specs)
+
+    paged = counters["paged_chunk_attention"]
+    fid = FidelityConfig(2, 0.0, 7, "bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        paged.view_launches = 0
+
+    def launches():
+        return {**{k: fn.launches for k, fn in counters.items()},
+                "paged_chunk_attention (head-range views)":
+                    paged.view_launches}
+
+    def chunks(ex, sid, n):
+        for _ in range(n):
+            ex.begin_chunk(sid, fid, 0.0)
+            while sid in ex.inflight:
+                ex.run_step([sid])
+
+    # ---- (i) direct apply -------------------------------------------------
+    lanes = LanePool(2, cfg=cfg, params=params, max_streams=2, device=DEV)
+    home, donor = lanes.ex(0), lanes.ex(1)
+    lanes.admit(0, 0, seed=0)
+    lanes.admit(1, 1, seed=1)
+    chunks(home, 0, 2)
+    chunks(donor, 1, 2)
+    tc, n_ring, L = A.chunk_tokens(cfg), 2, cfg.n_layers
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn((2, tc, A.LATENT_CH), generator=gen).to(DEV)
+    t = torch.full((2,), 0.5, device=DEV)
+    q_off = torch.full((2,), A.COND_TOKENS + n_ring * tc, dtype=torch.int32,
+                       device=DEV)
+    is_dn = torch.ones((2,), dtype=torch.bool, device=DEV)
+    tables = home.pool.tables_for([0])[:, :1 + n_ring]
+
+    def sp1():
+        return A.denoise_step_paged(cfg, params, x[:1], t[:1], t[:1],
+                                    home.pool.k, home.pool.v, tables, None,
+                                    None, q_off[:1], is_dn[:1])
+
+    if not lanes.sp_expand(0, 1):
+        raise AssertionError("solo SP expand was not applied")
+    tables_d = donor.pool.tables_for([0])[:, :1 + n_ring]
+
+    def sp2():
+        return A.denoise_step_paged_sp(
+            cfg, params, x[:1], t[:1], t[:1], home.pool.k, home.pool.v,
+            donor.pool.k, donor.pool.v, tables, tables_d, None, None,
+            q_off[:1], is_dn[:1])
+
+    reset()
+    x1, kv1 = sp1()
+    sync()
+    got1 = launches()
+    reset()
+    x2, kv2 = sp2()
+    sync()
+    got2 = launches()
+    print(f"  SP1 step launches {got1}\n  SP2 step launches {got2}")
+    if got1["paged_chunk_attention"] != L or \
+            got1["paged_chunk_attention (head-range views)"] != 0 or \
+            got2["paged_chunk_attention"] != 2 * L or \
+            got2["paged_chunk_attention (head-range views)"] != 2 * L:
+        raise AssertionError("SP1 / SP2 steps: unexpected kernel launches")
+    worst = max(same_or_ulp("SP2 vs SP1 step x_new", x2, x1),
+                same_or_ulp("SP2 vs SP1 step chunk K", kv2["k"], kv1["k"]),
+                same_or_ulp("SP2 vs SP1 step chunk V", kv2["v"], kv1["v"]))
+    sp1_ms, sp2_ms = cuda_ms(sp1, 3), cuda_ms(sp2, 3)
+    print(f"  step time at context {n_ring} chunks (1 row): SP1 "
+          f"{sp1_ms:.2f} ms, SP2 {sp2_ms:.2f} ms (two half-head launches "
+          f"per layer on one card)")
+
+    # batch-axis SP: full-head pages mirrored into the donor pool, the
+    # stream a guest row beside the donor's own stream 1
+    lanes.sp_release(0)
+    lanes.sp_mode = "batch"
+    if not lanes.sp_expand(0, 1) or lanes.sp_link(0).mode != "batch":
+        raise AssertionError("batch-axis SP expand was not applied")
+    gtab = donor.pool.tables_for([0, 1])[:, :1 + n_ring]
+    xb, kvb = A.denoise_step_paged(cfg, params, x, t, t, donor.pool.k,
+                                   donor.pool.v, gtab, None, None, q_off,
+                                   is_dn)
+    sync()
+    worst = max(worst,
+                same_or_ulp("batch-axis guest row (2 rows) vs SP1 x_new",
+                            xb[:1], x1),
+                same_or_ulp("batch-axis guest row vs SP1 chunk K",
+                            kvb["k"][:, :1], kv1["k"]))
+    lanes.sp_release(0)
+    lanes.sp_mode = "solo"
+
+    # one migration through the host-spill path: pages bit-exact
+    ctx = home.pool.gather([0], n_ring)
+    ctx = (ctx[0].clone(), ctx[1].clone())
+    in_before = donor.pool.transfer_bytes_in
+    sync()
+    t0 = time.perf_counter()
+    if not lanes.migrate(0, 0, 1):
+        raise AssertionError("migration was not applied")
+    sync()
+    mig_s = time.perf_counter() - t0
+    moved = donor.pool.gather([0], n_ring)
+    if not (torch.equal(moved[0], ctx[0]) and torch.equal(moved[1], ctx[1])):
+        raise AssertionError("migrated pages differ")
+    print(f"  migrate: pages bit-exact after the move, "
+          f"{(donor.pool.transfer_bytes_in - in_before) / 1e9:.2f} GB in "
+          f"{mig_s:.3f} s (host spill, then restore into the destination "
+          f"pool)")
+    print(f"  applied: migrations {lanes.n_migrations}, SP expands "
+          f"{lanes.n_sp_expands}, SP releases {lanes.n_sp_releases}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del lanes, home, donor, ctx, moved, x1, kv1, x2, kv2, xb, kvb
+
+    # ---- (ii) sessions: 2 lanes vs 1 lane ----------------------------------
+    def serve(n_lanes, force):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pool = LanePool(n_lanes, cfg=cfg, params=params, max_streams=3,
+                        device=DEV)
+        sess = StreamingSession(
+            SessionConfig(model_cfg=cfg, max_batch=1, device=DEV,
+                          verbose=False),
+            executor=pool, fidelity_policy=StaticFidelity(fid))
+        for spec in uniform_specs(2, 3):
+            sess.submit(spec)
+        if force:
+            state = {"mig": False, "sp": False, "rel": False}
+            orig_tick = sess.control.tick
+
+            def tick(view, now):
+                d = orig_tick(view, now)
+                s0, s1 = view.streams.get(0), view.streams.get(1)
+                if (not state["mig"] and s0 is not None
+                        and s0.chunks_done >= 1 and not s0.done
+                        and not pool.is_inflight(0)):
+                    src = pool.lane_of[0]
+                    d.migrations.append(Migration(0, src, 1 - src,
+                                                  cross_node=False))
+                    state["mig"] = True
+                if (not state["sp"] and s1 is not None
+                        and s1.chunks_done >= 1 and not s1.done
+                        and pool.ex(pool.lane_of[1]).pool.resident(1)):
+                    d.sp_decisions.append(
+                        SPDecision(1, 1 - pool.lane_of[1], "expand"))
+                    state["sp"] = True
+                elif (state["sp"] and not state["rel"] and s1 is not None
+                        and not s1.done and s1.sp_donor is not None
+                        and s1.chunks_done >= 2):
+                    d.sp_decisions.append(SPDecision(1, s1.sp_donor,
+                                                     "release"))
+                    state["rel"] = True
+                return d
+
+            sess.control.tick = tick
+        reset()
+        t0 = time.perf_counter()
+        res = sess.run()
+        sync()
+        wall = time.perf_counter() - t0
+        got = launches()
+        out = {sid: [c.clone() for c in sess.handles[sid].chunks]
+               for sid in (0, 1)}
+        print(f"  {n_lanes}-lane session: wall {wall:.2f} s (warm-up "
+              f"included), applied migrations {res.n_migrations_applied}, "
+              f"SP expands {res.n_sp_expands_applied}, releases "
+              f"{res.n_sp_releases_applied}; launches {got}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if got["paged_chunk_attention"] == 0 or any(
+                got[k] for k in counters if k != "paged_chunk_attention"):
+            raise AssertionError(f"{n_lanes}-lane session launches {got}")
+        for sid, cs in out.items():
+            if len(cs) != 3 or not all(bool(torch.isfinite(c).all())
+                                       for c in cs):
+                raise AssertionError(f"stream {sid}: bad chunks")
+        return res, out
+
+    _, ref = serve(1, False)
+    res, two = serve(2, True)
+    if (res.n_migrations_applied < 1 or res.n_sp_expands_applied < 1
+            or res.n_sp_releases_applied < 1):
+        raise AssertionError("the 2-lane session did not apply a migration "
+                             "and an SP expand and release")
+    for sid in (0, 1):
+        for c in range(3):
+            worst = max(worst, same_or_ulp(
+                f"2-lane vs 1-lane session, stream {sid} chunk {c}",
+                two[sid][c], ref[sid][c]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_decode(record, counters):
+    """Phase 11: the paged decode kernel against its plain version; the
+    entry point's launches at decode_32k; timings and the bound."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(97531)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = []
+
+    def compare(name, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        limit = (TOL_DECODE_F32 if want.dtype == f32 else DECODE_BF16_ULPS
+                 * ulp_bf16(float(want.float().abs().max())))
+        print(f"  {name}: |d| {err:.3g} (limit {limit:.3g})")
+        if not err <= limit or got.shape != want.shape \
+                or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: decode kernel disagrees ({err})")
+        errs.append(err)
+
+    # the reference tests' shapes, fp32, and length 1
+    for B, Hq, Hkv, D, page, npg, ptot, ln in (
+            (2, 4, 2, 16, 8, 4, 16, None), (3, 8, 8, 32, 16, 3, 12, None),
+            (1, 4, 1, 64, 8, 6, 8, None), (2, 4, 2, 16, 8, 2, 4, 1)):
+        q = torch.randn((B, Hq, D), generator=gen, device=DEV)
+        kp = torch.randn((ptot, page, Hkv, D), generator=gen, device=DEV)
+        vp = torch.randn((ptot, page, Hkv, D), generator=gen, device=DEV)
+        bt = torch.randint(0, ptot, (B, npg), generator=gen, device=DEV,
+                           dtype=torch.int32)
+        lengths = (torch.full((B,), ln, dtype=torch.int32, device=DEV)
+                   if ln else torch.randint(1, npg * page + 1, (B,),
+                                            generator=gen, device=DEV,
+                                            dtype=torch.int32))
+        compare(f"reference shape B={B} Hq={Hq} Hkv={Hkv} D={D} fp32",
+                ops.paged_decode_attention(q, kp, vp, bt, lengths),
+                ref.paged_decode_attention_ref(q, kp, vp, bt, lengths))
+
+    cfg = get_config(DECODE_ARCH)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S, page, P = (DECODE_SHAPE[k] for k in ("B", "S", "page", "pool"))
+    n = S // page
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kp = torch.randn((P, page, Hkv, D), generator=gen, device=DEV, dtype=bf16)
+    vp = torch.randn((P, page, Hkv, D), generator=gen, device=DEV, dtype=bf16)
+    table = torch.randperm(P, generator=gen, device=DEV)[:B * n] \
+        .view(B, n).to(torch.int32)
+    q = torch.randn((B, Hq, D), generator=gen, device=DEV, dtype=bf16)
+    full = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    drawn = torch.randint(1, S + 1, (B,),
+                          generator=torch.Generator().manual_seed(0),
+                          dtype=torch.int32).to(DEV)
+    print(f"  {DECODE_ARCH}: Hq {Hq}, Hkv {Hkv}, D {D}, B {B}, context {S}, "
+          f"pages of {page} from a pool of {P} ({kp.numel() * 2 / 1e9:.2f} "
+          f"GB each for K and V)")
+
+    # the main path: the entry point at decode_32k, counts read after
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"all lengths 32768": ops.paged_decode_attention(q, kp, vp, table,
+                                                           full),
+           "lengths drawn from [1, 32768]": ops.paged_decode_attention(
+               q, kp, vp, table, drawn)}
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != {**{k: 0 for k in counters}, "paged_decode_attention": 2}:
+        raise AssertionError(f"decode launches {launches}")
+    record["launches"] = launches["paged_decode_attention"]
+
+    def plain(lengths):
+        r = DECODE_PLAIN_ROWS
+        return torch.cat([ref.paged_decode_attention_ref(
+            q[i:i + r], kp, vp, table[i:i + r], lengths[i:i + r])
+            for i in range(0, B, r)])
+
+    for (name, got), lengths in zip(out.items(), (full, drawn)):
+        compare(f"decode_32k bf16, {name}", got, plain(lengths))
+    kernel_ms = cuda_ms(lambda: ops.paged_decode_attention(
+        q, kp, vp, table, full), 10)
+    drawn_ms = cuda_ms(lambda: ops.paged_decode_attention(
+        q, kp, vp, table, drawn), 10)
+    plain_ms = cuda_ms(lambda: plain(full), 2)
+
+    def bound(lengths):
+        """Visible K/V (and the table entries naming their pages, q, the
+        lengths, the output) over the memory rate; 4 x D operations per
+        query head and visible token over the bf16 peak."""
+        vis = int(lengths.sum())
+        pages = int(((lengths + page - 1) // page).sum())
+        nbytes = (2 * vis * Hkv * D * 2 + pages * 4 + B * 4
+                  + 2 * B * Hq * D * 2)
+        flops = 4.0 * vis * Hq * D
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations"), nbytes
+
+    bound_ms, bound_by, nbytes = bound(full)
+    drawn_bound, _, drawn_bytes = bound(drawn)
+    print(f"  all lengths 32768: kernel {kernel_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+          f"{nbytes / 1e9:.2f} GB), achieved "
+          f"{nbytes / kernel_ms / 1e6:.0f} GB/s")
+    print(f"  lengths drawn from [1, {S}] (seed 0): kernel {drawn_ms:.3f} "
+          f"ms, bound {drawn_bound:.3f} ms ({drawn_bytes / 1e9:.2f} GB), "
+          f"achieved {drawn_bytes / drawn_ms / 1e6:.0f} GB/s")
+
+    # the library yardstick: SDPA over the context gathered beforehand
+    # (the gather is not timed), one query row per head
+    def gathered(pool):
+        g = ref.gather_pages(pool, table)              # [B, S, Hkv, D]
+        out = g.transpose(1, 2).contiguous()
+        del g
+        return out
+
+    kt = gathered(kp)
+    vt = gathered(vp)
+    qt = q.view(B, Hq, 1, D)
+
+    def library():
+        # the flash backend only: the math backend would repeat the KV
+        # heads (68 GB at decode_32k)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+
+    library_ms = cuda_ms(library, 5)
+    lib_err = float((library().view(B, Hq, D).float()
+                     - out["all lengths 32768"].float()).abs().max())
+    lib_limit = 8 * ulp_bf16(float(out["all lengths 32768"].float()
+                                   .abs().max()))
+    print(f"  SDPA (flash backend, enable_gqa, context gathered beforehand): "
+          f"{library_ms:.3f} ms, vs the kernel |d| {lib_err:.3g} (limit "
+          f"{lib_limit:.3g}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not lib_err <= lib_limit:
+        raise AssertionError(f"decode kernel disagrees with SDPA ({lib_err})")
+    del kp, vp, kt, vt, q, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    record.update(max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  library_ms=library_ms)
+
+
+def phase_fp8(record, counters):
+    """Phase 12: the scaled fp8 matmul kernel against its plain version;
+    the entry point's launches at the two FFN shapes; timings, the
+    bound and ``torch._scaled_mm``."""
+    from repro_torch.kernels.fp8_matmul import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(8642)
+    bf16 = torch.bfloat16
+    errs = []
+
+    def compare(name, got, want):
+        top = float(want.abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        limit = TOL_FP8_REL * max(top, 1e-30)
+        print(f"  {name}: |d| {err:.3g} (limit {limit:.3g}, |out| <= "
+              f"{top:.3g})")
+        if not err <= limit or got.shape != want.shape:
+            raise AssertionError(f"{name}: fp8 kernel disagrees ({err})")
+        errs.append(err)
+
+    for M, K, N in ((64, 64, 64), (128, 256, 64), (32, 32, 32)):
+        x = torch.randn((M, K), generator=gen, device=DEV)
+        w = torch.randn((K, N), generator=gen, device=DEV)
+        xq, sx = ops.quantize_fp8(x, 1)
+        wq, sw = ops.quantize_fp8(w, 0)
+        compare(f"reference shape M={M} K={K} N={N}",
+                ops.fp8_scaled_matmul(xq, wq, sx, sw),
+                ref.fp8_matmul_ref(xq, wq, sx, sw))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = {name: (torch.randn((M, K), generator=gen, device=DEV,
+                                 dtype=bf16),
+                     torch.randn((K, N), generator=gen, device=DEV,
+                                 dtype=bf16) * 0.02)
+              for name, (M, K, N) in FP8_SHAPES.items()}
+    # the main path: the online-quantized entry point, counts read after
+    for fn in counters.values():
+        fn.launches = 0
+    outs = {name: ops.fp8_matmul(x, w) for name, (x, w) in inputs.items()}
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != {**{k: 0 for k in counters}, "fp8_matmul": 2}:
+        raise AssertionError(f"fp8 launches {launches}")
+    record["launches"] = launches["fp8_matmul"]
+
+    first = True
+    for name, (M, K, N) in FP8_SHAPES.items():
+        x, w = inputs[name]
+        xq, sx = ops.quantize_fp8(x, 1)
+        wq, sw = ops.quantize_fp8(w, 0)
+        compare(f"{name} (M {M}, K {K}, N {N})", outs.pop(name),
+                ref.fp8_matmul_ref(xq, wq, sx, sw))
+        if not first:
+            # quantize_fp8 on the card equals the CPU's bit for bit
+            for t, axis in ((x, 1), (w, 0)):
+                qg, sg = ops.quantize_fp8(t, axis)
+                qc, sc = ops.quantize_fp8(t.cpu(), axis)
+                bad_q = int((qg.cpu().view(torch.uint8)
+                             != qc.view(torch.uint8)).sum())
+                bad_s = int((sg.cpu() != sc).sum())
+                if bad_q or bad_s:
+                    raise AssertionError(f"quantize_fp8 card != CPU: {bad_q}"
+                                         f" fp8 bytes, {bad_s} scales")
+            print("  quantize_fp8 on the card == on the CPU, bit for bit "
+                  f"(x and w of {name})")
+        kernel_ms = cuda_ms(lambda: ops.fp8_scaled_matmul(xq, wq, sx, sw),
+                            3 if first else 10)
+        plain_ms = cuda_ms(lambda: ref.fp8_matmul_ref(xq, wq, sx, sw), 2)
+        flops = 2.0 * M * N * K
+        nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+        t_ops = flops / PEAK_FLOPS["torch.float8_e4m3fn"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        # the library yardstick: cuBLASLt's fp8 GEMM with row-wise scales
+        w_col = wq.t().contiguous().t()
+        library_ms, lib_dtype = None, None
+        for out_dtype in (bf16, torch.float32):
+            try:
+                lib = torch._scaled_mm(xq, w_col, scale_a=sx, scale_b=sw,
+                                       out_dtype=out_dtype)
+            except (RuntimeError, TypeError) as e:
+                print(f"  torch._scaled_mm, out {out_dtype}: refused "
+                      f"({str(e).splitlines()[0][:120]})")
+                continue
+            library_ms = cuda_ms(lambda: torch._scaled_mm(
+                xq, w_col, scale_a=sx, scale_b=sw, out_dtype=out_dtype),
+                10 if not first else 5)
+            lib_dtype = out_dtype
+            want = ref.fp8_matmul_ref(xq, wq, sx, sw)
+            rel = float((lib.float() - want).abs().max()
+                        / want.abs().max())
+            print(f"  torch._scaled_mm (row-wise scales, out "
+                  f"{out_dtype}): {library_ms:.3f} ms; vs the plain "
+                  f"version max |d| / max |out| {rel:.3g}")
+            del lib, want
+            break
+        print(f"  {name}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB), "
+              f"achieved {flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        if first:
+            record.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms,
+                          library_out_dtype=str(lib_dtype))
+        first = False
+        del xq, wq, sx, sw, w_col
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = max(errs)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1015,6 +1542,7 @@ def main():
     try:
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.fp8_matmul import ops as fp8_ops
         from repro_torch.kernels.paged_attention import ops as paged_ops
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
     except ImportError as e:
@@ -1023,6 +1551,7 @@ def main():
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     print("== phase 1: card and build")
     smi = subprocess.run(
@@ -1032,7 +1561,8 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    sources = [paged_ops.SOURCE, flash_ops.SOURCE, ssd_ops.SOURCE]
+    sources = [paged_ops.SOURCE, paged_ops.DECODE_SOURCE, flash_ops.SOURCE,
+               ssd_ops.SOURCE, fp8_ops.SOURCE]
     t0 = time.perf_counter()
     build.build(sources)
     print(f"  built {', '.join(s.name for s in sources)} in "
@@ -1057,8 +1587,17 @@ def main():
     ssd = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:81"}
+    decode = {"name": "paged_decode_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                        "paged_decode_attention.cu",
+              "replaces": "src/repro/kernels/paged_attention/kernel.py:84"}
+    fp8 = {"name": "fp8_matmul", "route": "cuda",
+           "source": "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu",
+           "replaces": "src/repro/kernels/fp8_matmul/kernel.py:42"}
     counters = {"paged_chunk_attention": paged_ops.paged_chunk_attention,
-                "flash_mha": flash_ops.flash_mha}
+                "flash_mha": flash_ops.flash_mha,
+                "paged_decode_attention": paged_ops.paged_decode_attention,
+                "fp8_matmul": fp8_ops.fp8_scaled_matmul}
     print("== phase 2: paged kernel vs plain version at full-width shapes")
     phase_kernel(paged)
     print("== phase 3: flash kernel vs plain version")
@@ -1072,17 +1611,27 @@ def main():
     flash["launches"] = phase_sequential(cfg, params, counters)
     print("== phase 7: full-width ardit-self-forcing, gather-backend session")
     phase_gather(cfg, params, counters)
+    print("== phase 10: full-width elastic SP and migration, two lanes")
+    phase_lanes(cfg, params, counters)
     del cfg, params
     print("== phase 8: SSD kernel vs plain version")
     phase_ssd(ssd)
     print(f"== phase 9: full-width {SSM_ARCH} prefill and decode")
     ssd["launches"] = phase_ssm({**counters, "ssd": ssd_ops.ssd})
+    print(f"== phase 11: paged decode kernel vs plain version ({DECODE_ARCH} "
+          f"decode_32k)")
+    phase_decode(decode, counters)
+    print("== phase 12: fp8 matmul kernel vs plain version")
+    phase_fp8(fp8, counters)
 
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s, build included")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (paged, flash, ssd)]}))
+                                  for r in (paged, decode, flash, ssd,
+                                            fp8)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

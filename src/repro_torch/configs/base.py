@@ -197,9 +197,10 @@ def _ensure_loaded() -> None:
         return
     # Import every per-arch module for its registration side effect.
     # The port serves the paper's own AR-DiT family and the Mamba-2
-    # (SSD) family; the other registry families wait for their slice
-    # (ROADMAP).
+    # (SSD) family; minitron-8b is registered for its attention shapes
+    # (the decode and fp8 kernels' phases), and the other registry
+    # families wait for their slice (ROADMAP).
     from repro_torch.configs import (  # noqa: F401
-        ardit_self_forcing, ardit_causal_forcing, mamba2_780m,
+        ardit_self_forcing, ardit_causal_forcing, mamba2_780m, minitron_8b,
     )
     _LOADED = True

@@ -30,7 +30,10 @@
 // converted on load), scores and P.V are fp32 FMAs on a 4x4 register
 // tile per thread, the row-wise online softmax is reduced across a
 // half-warp with shuffles, and the accumulator stays in registers.
-// Offsets into the pool are 64-bit.
+// Offsets into the pool are 64-bit, and the pool is read through its
+// page and token strides: a view pool[..., lo:hi, :] of a wider pool
+// (elastic SP2's half-head shards) is read in place, with no copy; only
+// the inner two dims (heads, D) must be dense.
 //
 // Bound at the main path's shapes (ardit-self-forcing, Sq = 2640,
 // Hq = Hkv = 12, D = 128, page = 2640, bf16 pool, 7-chunk window:
@@ -91,7 +94,9 @@ paged_chunk_attention_kernel(const QT* __restrict__ q,
                              float* __restrict__ l_out,
                              float* __restrict__ acc_out,
                              int Sq, int Hq, int Hkv, int page, int n,
-                             int sink, int chunk_tokens, float scale) {
+                             int sink, int chunk_tokens,
+                             int64_t kv_page_stride, int64_t kv_tok_stride,
+                             float scale) {
   constexpr int QS = D + 4;          // padded row strides (bank spread)
   constexpr int KS = D + 1;
   constexpr int PS = BLOCK_N + 1;
@@ -156,7 +161,8 @@ paged_chunk_attention_kernel(const QT* __restrict__ q,
         const int t = t0 + tok;
         float kv = 0.f, vv = 0.f;
         if (t < limit) {
-          const int64_t off = ((pid * page + t) * Hkv + h) * D + c;
+          const int64_t off = pid * kv_page_stride + t * kv_tok_stride
+                              + h * D + c;
           kv = to_f32(k_pages[off]);
           vv = to_f32(v_pages[off]);
         }
@@ -269,6 +275,7 @@ struct Args {
   const uint8_t* mask; const uint8_t* any;
   float* m; float* l; float* acc;
   int B, Sq, Hq, Hkv, page, n, sink, chunk_tokens;
+  int64_t page_stride, tok_stride;
   cudaStream_t stream;
 };
 
@@ -288,7 +295,7 @@ int launch(const Args& a) {
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
       static_cast<const KT*>(a.v), a.bt, a.mask, a.any, a.m, a.l, a.acc,
       a.Sq, a.Hq, a.Hkv, a.page, a.n, a.sink, a.chunk_tokens,
-      1.0f / sqrtf(static_cast<float>(D)));
+      a.page_stride, a.tok_stride, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,6 +321,8 @@ int launch_q(const Args& a, int q_dtype, int kv_dtype) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (KV only).
+// page_stride / tok_stride: the pools' strides (in elements) of their
+// page and token dims: page * Hkv * D and Hkv * D for a dense pool.
 // Returns 0, a cudaError_t code, or -1 / -2 / -3 for an unsupported head
 // dim / KV dtype / query dtype.  Launches on `stream`; never synchronises.
 extern "C" int paged_chunk_attention_launch(
@@ -321,12 +330,13 @@ extern "C" int paged_chunk_attention_launch(
     const void* block_table, const void* page_mask, const void* page_any,
     void* m, void* l, void* acc, int B, int Sq, int Hq, int Hkv, int D,
     int page, int n, int sink, int chunk_tokens, int q_dtype, int kv_dtype,
-    void* stream) {
+    long long page_stride, long long tok_stride, void* stream) {
   Args a{q, k_pages, v_pages, static_cast<const int32_t*>(block_table),
          static_cast<const uint8_t*>(page_mask),
          static_cast<const uint8_t*>(page_any), static_cast<float*>(m),
          static_cast<float*>(l), static_cast<float*>(acc), B, Sq, Hq, Hkv,
-         page, n, sink, chunk_tokens, static_cast<cudaStream_t>(stream)};
+         page, n, sink, chunk_tokens, page_stride, tok_stride,
+         static_cast<cudaStream_t>(stream)};
   if (B == 0 || Sq == 0) return 0;
   switch (D) {
     case 16: return launch_q<16>(a, q_dtype, kv_dtype);

@@ -1,10 +1,15 @@
-"""Wrapper of the chunk-query paged attention kernel.
+"""Wrappers of the two paged attention kernels.
 
-A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA
-tensor launches the hand-written CUDA kernel
-(``csrc/paged_chunk_attention.cu``, built with nvcc at first use) or
-raises.  There is no fallback between the two.
-``paged_chunk_attention.launches`` counts kernel launches.
+``paged_chunk_attention`` (chunk-query partials, the batched serving
+executor's hot path; ``csrc/paged_chunk_attention.cu``) and
+``paged_decode_attention`` (one-token decode with per-stream lengths;
+``csrc/paged_decode_attention.cu``).  A CPU tensor takes the plain
+PyTorch version (``ref.py``); a CUDA tensor launches the hand-written
+CUDA kernel (built with nvcc at first use) or raises.  There is no
+fallback between the two.  Each wrapper's ``launches`` counts its
+kernel launches; ``paged_chunk_attention.view_launches`` counts apart
+those of them that read a head-range view of a wider pool (elastic
+SP2's half-head shards).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 from repro_torch.kernels.paged_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_chunk_attention.cu"
+DECODE_SOURCE = SOURCE.parent / "paged_decode_attention.cu"
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -30,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.paged_chunk_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.paged_chunk_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_chunk_attention_error_string.restype = ctypes.c_char_p
@@ -55,9 +61,17 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         raise ValueError(f"head dims q {q.shape} vs pages {k_pages.shape}")
     if v_pages.shape != k_pages.shape or block_table.shape[0] != b:
         raise ValueError("pool / table shapes disagree")
-    if not (q.is_contiguous() and k_pages.is_contiguous()
-            and v_pages.is_contiguous()):
-        raise ValueError("q and the page pools must be contiguous")
+    # the pools may be head-range views pool[..., lo:hi, :] of a wider
+    # pool (elastic SP2's shards): the kernel reads them in place
+    # through their page and token strides; heads and D must be dense
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.stride(3) != 1 or t.stride(2) != d:
+            raise ValueError(f"{name}: the inner two dims (heads, D) must "
+                             f"be dense, strides {t.stride()}")
+    if v_pages.stride() != k_pages.stride():
+        raise ValueError("k_pages and v_pages strides differ")
     table = block_table.to(torch.int32).contiguous()
     if page_mask is None:
         if not (sink and chunk_tokens):
@@ -81,21 +95,25 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         table.data_ptr(), None if mask is None else mask.data_ptr(),
         page_any.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         b, sq, hq, hkv, d, page, n, int(sink), int(chunk_tokens),
-        _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], k_pages.stride(0),
+        k_pages.stride(1), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.paged_chunk_attention_error_string(err).decode()
         raise RuntimeError(f"paged_chunk_attention launch failed: {msg}")
     paged_chunk_attention.launches += 1
+    if k_pages.stride(1) != hkv * d:
+        paged_chunk_attention.view_launches += 1
     return m, l, acc
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
                           *, sink: int = 0, chunk_tokens: int = 0):
     """Chunk-query paged attention partials (the serving executor's
-    paged context backend).  q [B,Sq,Hq,D]; pages [P_total,page,Hkv,D];
-    block_table [B,n]; page_mask [B,n*page] bool, or None for the
-    all-visible path (then ``sink``/``chunk_tokens`` are required).
+    paged context backend).  q [B,Sq,Hq,D]; pages [P_total,page,Hkv,D]
+    — the whole pool, or a head-range view ``pool[..., lo:hi, :]`` of a
+    wider one, read in place (elastic SP2's shards); block_table [B,n];
+    page_mask [B,n*page] bool, or None for the all-visible path (then
+    ``sink``/``chunk_tokens`` are required).
     ``sink``/``chunk_tokens`` declare the valid prefix of the sink page
     / ring pages: both forms then read only that prefix.  ``page_mask``
     is per-ROW, so one launch serves rows of different fidelity windows
@@ -117,3 +135,81 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.view_launches = 0
+
+
+# the decode kernel: q, pools and output share one dtype; head dims of
+# the reference tests and the token configs (minitron-8b: 128)
+_DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DECODE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _decode_lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    lib = load(DECODE_SOURCE)
+    fn = lib.paged_decode_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.paged_decode_attention_error_string.argtypes = [ctypes.c_int]
+        lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_decode(q, k_pages, v_pages, block_table, lengths):
+    b, hq, d = q.shape
+    _, page, hkv, dk = k_pages.shape
+    n = block_table.shape[1]
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", block_table), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _DECODE_DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"dtypes q {q.dtype}, pages {k_pages.dtype}/"
+                        f"{v_pages.dtype}: one of float32 or bfloat16")
+    if d != dk or d not in _DECODE_HEAD_DIMS or hq % hkv:
+        raise ValueError(f"head dims q {q.shape} vs pages {k_pages.shape}")
+    if v_pages.shape != k_pages.shape or block_table.shape[0] != b \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError("pool / table / lengths shapes disagree")
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous()):
+        raise ValueError("q and the page pools must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("q and the page pools must be 16-byte aligned")
+    table = block_table.to(torch.int32).contiguous()
+    ln = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _decode_lib()
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq, hkv, d,
+        page, n, _DECODE_DTYPES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.paged_decode_attention_error_string(err).decode()
+        raise RuntimeError(f"paged_decode_attention launch failed: {msg}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lengths):
+    """One-token decode over the paged pool.  q [B,Hq,D]; pages
+    [P_total,page,Hkv,D]; block_table [B,n]; lengths [B] valid tokens
+    per stream -> [B,Hq,D] in q's dtype.  Tokens at or past
+    ``lengths[b]`` are masked and their pages never read.  A stream of
+    length 0 gives 0 from the kernel (as the TPU kernel does) and NaN
+    from the plain version (as the reference's oracle does)."""
+    if q.device.type == "cpu":
+        return _ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                               block_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{q.device}")
+    return _launch_decode(q, k_pages, v_pages, block_table, lengths)
+
+
+paged_decode_attention.launches = 0

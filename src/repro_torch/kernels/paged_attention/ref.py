@@ -1,17 +1,23 @@
-"""Plain PyTorch version of chunk-query paged attention.
+"""Plain PyTorch versions of the two paged attention kernels.
 
-``paged_chunk_attention_ref`` is what the CUDA kernel
+``paged_chunk_attention_ref`` is what the chunk kernel
 (``csrc/paged_chunk_attention.cu``) computes, written with gathers and
-einsums: the CPU tests run it, and ``chip_smoke.py`` holds the kernel
-against it on the card.  It returns ONLINE-SOFTMAX PARTIALS over the
-visible page set so the caller can merge them with the chunk's own
-fresh KV segment (``models.attention.paged_mha``).
+einsums: it returns ONLINE-SOFTMAX PARTIALS over the visible page set so
+the caller can merge them with the chunk's own fresh KV segment
+(``models.attention.paged_mha``).  ``paged_decode_attention_ref`` is the
+decode kernel's (``csrc/paged_decode_attention.cu``): it gathers the
+logical KV sequence through the block table and runs the dense
+``models.attention.decode_attention``.  The CPU tests run both, and
+``chip_smoke.py`` holds each kernel against its plain version on the
+card.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.models.attention import decode_attention
 
 NEG_INF = -1e30
 
@@ -22,6 +28,21 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     _, page, hkv, d = pages.shape
     out = pages[block_table.reshape(-1).long()]      # [B*n, page, Hkv, D]
     return out.reshape(b, n * page, hkv, d)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_table: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,D] -> [B,Hq,D]; lengths [B] = valid tokens per sequence.
+    A sequence of length 0 gives NaN (the oracle's softmax over no
+    visible token), where the kernel gives 0 as the TPU kernel does."""
+    hkv = k_pages.shape[2]
+    k = gather_pages(k_pages, block_table)
+    v = gather_pages(v_pages, block_table)
+    out = decode_attention(q[:, None], k, v, n_kv_heads=hkv,
+                           cache_len=lengths)
+    return out[:, 0]
 
 
 def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

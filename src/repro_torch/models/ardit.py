@@ -16,11 +16,13 @@ attention sees the cached context:
   executor's ``gather`` backend) concatenated with the chunk's own KV
   through ``attention.mha`` (the flash-attention kernel on the card);
 * ``chunk_forward_paged`` / ``denoise_step_paged`` — the context read in
-  place from the paged KV pool through ``attention.paged_mha``.
+  place from the paged KV pool through ``attention.paged_mha``;
+* ``chunk_forward_paged_sp`` / ``denoise_step_paged_sp`` — elastic SP2:
+  the same, with the KV heads split between a home and a donor pool,
+  each half read through a head-range view of its pool.
 
 The stacked ``[L, ...]`` layer parameters are consumed by a Python loop
-(the reference's ``lax.scan``).  The SP2 head-split siblings and
-training wait for their slices (ROADMAP).
+(the reference's ``lax.scan``).  Training waits for its slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
-from repro_torch.models.attention import mha, paged_mha, sparse_keep_list
+from repro_torch.models.attention import (mha, merge_head_shards, paged_mha,
+                                         shard_heads, sparse_keep_list)
 from repro_torch.models.layers import DTYPES, layer_params
 
 Params = Dict[str, Any]
@@ -380,6 +383,44 @@ def serve_chunk(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
 # page-table-native forward
 # ---------------------------------------------------------------------------
 
+def _chunk_forward_pages(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
+                         t: torch.Tensor, pools,
+                         page_mask: Optional[torch.Tensor], *, q_offset,
+                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Shared body of the page-table-native forwards.
+
+    ``pools`` is a tuple of ``(k_pages, v_pages, block_table, head_lo,
+    head_hi)`` KV-head shards covering ``[0, n_kv_heads)``: one shard is
+    the plain paged forward (no head slicing at all); two shards is
+    elastic SP2, each shard's attention reading its own pool and table
+    for its heads — the pool view ``pool[..., lo:hi, :]`` goes to the
+    paged kernel as it is, with no copy (Ulysses head partition:
+    per-head attention never mixes heads, so the sharded result equals
+    the single-shard one whenever the shards mirror the same KV).
+    """
+    tc = x_chunk.shape[1]
+    hkv = cfg.n_kv_heads
+    hint = dict(sink=COND_TOKENS, chunk_tokens=tc)
+
+    if len(pools) == 1:
+        (k_pages, v_pages, table, _, _), = pools
+
+        def attend(li, q, k, v):
+            return paged_mha(q, k_pages[li], v_pages[li], table, page_mask,
+                             k, v, n_kv_heads=hkv, **hint)
+    else:
+        def attend(li, q, k, v):
+            outs = [paged_mha(shard_heads(q, hkv, lo, hi).contiguous(),
+                              kp[li][..., lo:hi, :], vp[li][..., lo:hi, :],
+                              tbl, page_mask, shard_heads(k, hkv, lo, hi),
+                              shard_heads(v, hkv, lo, hi),
+                              n_kv_heads=hi - lo, **hint)
+                    for kp, vp, tbl, lo, hi in pools]
+            return merge_head_shards(outs, [hi - lo for *_, lo, hi in pools])
+
+    return _dit_forward(cfg, p, x_chunk, t, q_offset, attend)
+
+
 def chunk_forward_paged(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
                         t: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_table: torch.Tensor,
@@ -396,14 +437,10 @@ def chunk_forward_paged(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
     per-stream [B] tensor.  Returns (prediction [B, T_c, LATENT_CH],
     {"k","v"} [L, B, T_c, Hkv, Dh] chunk KV).
     """
-    tc = x_chunk.shape[1]
-
-    def attend(li, q, k, v):
-        return paged_mha(q, k_pages[li], v_pages[li], block_table,
-                         page_mask, k, v, n_kv_heads=cfg.n_kv_heads,
-                         sink=COND_TOKENS, chunk_tokens=tc)
-
-    return _dit_forward(cfg, p, x_chunk, t, q_offset, attend)
+    return _chunk_forward_pages(
+        cfg, p, x_chunk, t,
+        ((k_pages, v_pages, block_table, 0, cfg.n_kv_heads),),
+        page_mask, q_offset=q_offset)
 
 
 def denoise_step_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -426,6 +463,61 @@ def denoise_step_paged(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v_pred, new_kv = chunk_forward_paged(cfg, p, x, t, k_pages, v_pages,
                                          block_table, mask,
                                          q_offset=q_offset)
+    x_new = x - dt[:, None, None] * v_pred.to(x.dtype)
+    return x_new, new_kv
+
+
+def chunk_forward_paged_sp(cfg: ModelConfig, p: Params,
+                           x_chunk: torch.Tensor, t: torch.Tensor,
+                           k_home: torch.Tensor, v_home: torch.Tensor,
+                           k_donor: torch.Tensor, v_donor: torch.Tensor,
+                           table_home: torch.Tensor,
+                           table_donor: torch.Tensor,
+                           page_mask: Optional[torch.Tensor], *, q_offset,
+                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """SP2 sibling of ``chunk_forward_paged``: the stream's KV heads are
+    Ulysses-partitioned across two lanes (paper SS4.3 / App. C.4).
+
+    The home lane's pool ``k_home``/``v_home`` is the system of record
+    (full heads); the donor lane's pool ``k_donor``/``v_donor`` carries
+    the stream's UPPER half heads in its own page set (``table_donor``).
+    The home shard reads heads [0, H/2) from the home pool and the donor
+    shard heads [H/2, H) from the donor pool, each through a head-range
+    view of its pool, and the outputs concatenate back into full-head
+    order.  Per-head attention never mixes heads, so the result equals
+    the SP1 ``chunk_forward_paged`` whenever the donor's half mirrors
+    the home pool's upper half.
+    """
+    hkv = cfg.n_kv_heads
+    h2 = hkv // 2
+    if hkv % 2:
+        raise ValueError(f"SP2 head split needs even n_kv_heads ({hkv})")
+    return _chunk_forward_pages(
+        cfg, p, x_chunk, t,
+        ((k_home, v_home, table_home, 0, h2),
+         (k_donor, v_donor, table_donor, h2, hkv)),
+        page_mask, q_offset=q_offset)
+
+
+def denoise_step_paged_sp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                          t: torch.Tensor, dt: torch.Tensor,
+                          k_home: torch.Tensor, v_home: torch.Tensor,
+                          k_donor: torch.Tensor, v_donor: torch.Tensor,
+                          table_home: torch.Tensor,
+                          table_donor: torch.Tensor,
+                          dn_mask: Optional[torch.Tensor],
+                          cl_mask: Optional[torch.Tensor],
+                          q_offset: torch.Tensor, is_denoise: torch.Tensor):
+    """Elastic-SP2 sibling of ``denoise_step_paged``: one stream's
+    denoise step with its KV heads split across the home and donor
+    lanes' pools.  Mask semantics match ``denoise_step_paged``.  The
+    kernels are instantiated per head dim, not per head count, so the
+    half-head shards need no warm-up of their own."""
+    mask = dn_mask if cl_mask is None else \
+        torch.where(is_denoise[:, None], dn_mask, cl_mask)
+    v_pred, new_kv = chunk_forward_paged_sp(
+        cfg, p, x, t, k_home, v_home, k_donor, v_donor, table_home,
+        table_donor, mask, q_offset=q_offset)
     x_new = x - dt[:, None, None] * v_pred.to(x.dtype)
     return x_new, new_kv
 

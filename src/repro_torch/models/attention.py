@@ -12,6 +12,9 @@ subset of the JAX reference's ``models/attention.py``).
   partials over the paged KV pool (the ``kernels/paged_attention``
   CUDA kernel on the card, its plain PyTorch version on the CPU) merged
   with the chunk's own fresh KV before the softmax divide.
+* ``decode_attention`` — single-token decode over a dense KV cache with
+  per-stream valid lengths (and optional sink + window), plain PyTorch:
+  the oracle inside ``kernels/paged_attention``'s decode plain version.
 
 Numerics: fp32 online-softmax accumulation regardless of input dtype.
 Two masking conventions coexist, as in the reference: the dense path
@@ -318,3 +321,33 @@ def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                         scale)
     out = _finalize(_merge(ctx, own), q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, n_kv_heads: int,
+                     cache_len, window: int = 0,
+                     sink: int = 0) -> torch.Tensor:
+    """Single-token decode over a KV cache.
+
+    q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]; ``cache_len``: [B] or scalar
+    int count of valid cache entries (the new token's KV must already be
+    written).  With ``window``, only the last ``window`` valid entries
+    and the first ``sink`` stay visible.  A row with no valid entry
+    gives NaN, as the reference's softmax over all ``-inf`` does.
+    """
+    b, sq, hq, d = q.shape
+    smax = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qg = _group(q, n_kv_heads)
+    k_pos = torch.arange(smax, device=q.device)
+    ln = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = k_pos[None, :] < ln                                   # [B,S]
+    if window:
+        last = ln - 1
+        valid &= (k_pos[None, :] > last - window) | (k_pos[None, :] < sink)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_cache.float()) \
+        * scale
+    s = torch.where(valid[:, None, None, None], s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)

@@ -100,3 +100,18 @@ def pool_write_pages(pool: torch.Tensor, new: torch.Tensor,
     t = new.shape[2]
     for i, pg in enumerate(pages):
         pool[:, int(pg), :t].copy_(new[:, i])
+
+
+def pool_write_pages_heads(pool: torch.Tensor, new: torch.Tensor,
+                           pages: Sequence[int], head_offset: int) -> None:
+    """pool [L,n_pages,P,Hkv,D]; new [L,b,T,h_sub,D] (T <= P, h_sub <=
+    Hkv - head_offset); pages [b].
+
+    Head-sliced sibling of ``pool_write_pages``: writes each block at
+    token 0 of its destination page and KV-head offset ``head_offset``,
+    IN PLACE — the elastic-SP donor pool holds only its half of a
+    stream's KV heads (Ulysses head partition, paper App. C.4), so its
+    appends touch only that half."""
+    t, hs = new.shape[2], new.shape[3]
+    for i, pg in enumerate(pages):
+        pool[:, int(pg), :t, head_offset:head_offset + hs].copy_(new[:, i])

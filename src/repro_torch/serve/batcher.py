@@ -22,9 +22,13 @@ boundary (``KVPool.gather``) and steps with ``ardit.denoise_step``
 (``attention.mha``: the flash-attention kernel on the card when every
 context token is visible, the masked direct path otherwise).
 
-Waiting for later slices (ROADMAP): elastic-SP links and guests,
-cross-lane export/import, and the step cache
-(``FidelityConfig.cache != "off"``).
+Across lanes (``serve.lanes.LanePool``): a stream is detached and
+adopted whole for a migration (``export_stream`` / ``import_stream``),
+and an elastic-SP borrow is an ``SPLink`` on the home executor — solo
+mode runs the head-split ``ardit.denoise_step_paged_sp`` over both
+lanes' pools, batch mode serves the stream as an ``SPGuest`` row of the
+donor's own micro-batch.  The step cache (``FidelityConfig.cache !=
+"off"``) waits for its slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -466,6 +470,62 @@ class KVPool:
             self._charge_transfer(_nbytes(sp["k"]) + _nbytes(sp["v"]), "in")
         return True
 
+    def export_spill(self, sid: int, *,
+                     to_host: bool = True) -> Tuple[Dict[str, Any], int]:
+        """Detach one stream's KV as pages + chunk count (the migration
+        export half): a resident stream's pages are copied out and
+        freed — to host memory, or with ``to_host=False`` as tensors on
+        this pool's device — and a spilled stream hands over its
+        existing spill buffer verbatim.  No transfer is charged: the
+        caller owns the movement (``import_spill`` / ``import_pages`` on
+        the destination pool is where it is accounted)."""
+        n_chunks = self.ledger.chunks.get(sid, 0)
+        if self.ledger.resident(sid):
+            holes = np.flatnonzero(np.asarray(self.ledger.tables[sid]) < 0)
+            rows = torch.as_tensor(self.table_rows(sid), dtype=torch.long,
+                                   device=self.device)
+            pages = {"k": self.k[:, rows], "v": self.v[:, rows]}
+            if to_host:
+                pages = {n: t.cpu() for n, t in pages.items()}
+                if holes.size:
+                    for t in pages.values():
+                        t[:, holes] = 0
+            # on the device, hole rows hold the sink page: garbage, but
+            # the dropped-chunk masks travel with the stream and keep
+            # those slices invisible on the destination lane
+            self.ledger.drop(sid, spill=False)
+        else:
+            pages = self._spill.pop(sid)
+            self.ledger.spilled.discard(sid)
+            self.ledger.chunks.pop(sid, None)
+        self._dev_tables.pop(sid, None)
+        return pages, n_chunks
+
+    def import_spill(self, sid: int, pages: Dict[str, Any],
+                     n_chunks: int) -> None:
+        """Adopt an exported stream host-side (spilled, re-admittable):
+        the inverse of ``export_spill``.  The stream becomes resident
+        through the normal ``restore`` path, so the round trip is
+        bit-exact."""
+        assert not self.ledger.resident(sid) and sid not in self._spill, \
+            f"stream {sid} already present in destination pool"
+        self._spill[sid] = pages
+        self.ledger.spilled.add(sid)
+        self.ledger.chunks[sid] = n_chunks
+
+    def import_pages(self, sid: int, pages: Dict[str, Any],
+                     n_chunks: int) -> None:
+        """Adopt an exported page set directly into a fresh page table
+        (immediately resident, no host-side parking).  The caller checks
+        ``can_admit`` first."""
+        assert not self.ledger.resident(sid) and sid not in self._spill, \
+            f"stream {sid} already present in destination pool"
+        assert self.can_admit(), \
+            "direct import requires space (caller checks can_admit)"
+        table = self.ledger.take(sid, chunks=n_chunks)
+        self._dev_tables.pop(sid, None)
+        self._write(table, pages["k"], pages["v"])
+
     def release(self, sid: int) -> None:
         """Retire a stream entirely (resident or spilled).  Idempotent."""
         self.ledger.drop(sid, spill=False)
@@ -495,6 +555,37 @@ class KVPool:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass
+class SPLink:
+    """One stream's active elastic-SP2 borrow (SS4.3): the donor lane id
+    and the donor lane's KV pool.  Two serving modes:
+
+    * ``"solo"`` — the donor page set carries the stream's UPPER half KV
+      heads (Ulysses head partition, App. C.4) and the home lane runs
+      the head-split step ``ardit.denoise_step_paged_sp`` reading BOTH
+      pools, dispatched solo with the donor's step slot reserved.
+    * ``"batch"`` — the donor page set carries FULL heads and the stream
+      is served ON the donor lane as an ordinary extra row of the
+      donor's own micro-batch, bit-identical to the SP1 step.
+
+    Either way the home pool stays the full-head system of record
+    (batch mode ships each completed chunk's KV home), so releasing a
+    link frees the donor pages and nothing moves back."""
+    donor: int
+    pool: KVPool
+    mode: str = "solo"
+
+
+@dataclasses.dataclass
+class SPGuest:
+    """Donor-side view of one batch-axis SP borrow: the borrowed stream
+    runs HERE as a guest batch row over full-head donor pages, while
+    ``pool`` (the HOME lane's pool) stays the system of record — each
+    completed guest chunk's full-head KV is appended there too."""
+    home: int
+    pool: KVPool
 
 
 @dataclasses.dataclass
@@ -558,6 +649,16 @@ class BatchedChunkExecutor(ChunkExecutor):
         # but RESETS on a prompt switch, while ``chunks`` keeps the full
         # playout history
         self.chunk_seq: Dict[int, int] = {}
+        # active elastic-SP2 borrows of this lane's streams: sid ->
+        # SPLink (set / cleared by the LanePool apply layer); run_step
+        # takes the head-split path for a solo stream with a link
+        self.sp_links: Dict[int, SPLink] = {}
+        # sids whose pages in THIS pool are another lane's live SP
+        # mirror (the stream is inflight on its HOME lane, so the
+        # inflight filter alone would not protect them here)
+        self.sp_mirrors: set = set()
+        # batch-axis SP borrows served ON this lane: sid -> SPGuest
+        self.sp_guests: Dict[int, SPGuest] = {}
         self.step_ema: Dict[str, float] = {}      # per-step wall seconds
         self.evictions = 0
         self.restores = 0
@@ -616,12 +717,17 @@ class BatchedChunkExecutor(ChunkExecutor):
     def _evict_one(self, streams: Optional[Dict[int, Stream]],
                    protect: set) -> bool:
         """Free pages: credit-aware victim selection over the evictable
-        residents (in-flight streams are protected — their chunk is
-        mid-denoise and rejoins the batch at the next step)."""
+        residents.  In-flight streams are protected (their chunk is
+        mid-denoise and rejoins the batch at the next step); so are live
+        SP mirrors (``sp_mirrors``: the owning stream is inflight on its
+        HOME lane, invisible to this lane's inflight set), streams with
+        a live SP link and batch-axis guests — a borrow's pages on BOTH
+        lanes must survive it."""
         if streams is None:
             return False
         victims = [s for s in self.pool.resident_sids()
-                   if s not in self.inflight]
+                   if s not in self.inflight and s not in self.sp_mirrors
+                   and s not in self.sp_links and s not in self.sp_guests]
         if self.page_evict:
             # degradation ladder rung 1: free ONE ring page from the
             # highest-credit resident that still has one to give
@@ -675,6 +781,8 @@ class BatchedChunkExecutor(ChunkExecutor):
         """Retire a stream: free its pages and per-stream counters.
         ``drop_history=True`` also drops the generated-chunk and
         fidelity history (the warm-up calibration stream, sid -1)."""
+        assert sid not in self.sp_links, \
+            f"stream {sid} retired with a live SP link (release first)"
         self.pool.release(sid)
         self.inflight.pop(sid, None)
         self._pending_wait.pop(sid, None)
@@ -703,6 +811,62 @@ class BatchedChunkExecutor(ChunkExecutor):
         self._boundary_cache.clear()
         return ok
 
+    def export_stream(self, sid: int, *,
+                      to_host: bool = True) -> Dict[str, Any]:
+        """Detach a stream for cross-lane migration (KV pages, counters,
+        generated chunks).  Only legal at a chunk boundary with no live
+        SP link — exactly the streams ``rehoming.plan_rehoming`` deems
+        movable.  No transfer is charged here; ``import_stream`` on the
+        destination accounts the src->dst move."""
+        assert sid not in self.inflight, f"stream {sid} is mid-chunk"
+        assert sid not in self.sp_links, f"stream {sid} has a live SP link"
+        dropped = sorted(self.pool.ledger.dropped.get(sid, ()))
+        pages, n_chunks = self.pool.export_spill(sid, to_host=to_host)
+        self._boundary_cache.clear()
+        return {"pages": pages, "chunk_count": n_chunks,
+                "chunks": self.chunks.pop(sid),
+                "fidelity_log": self.fidelity_log.pop(sid),
+                "chunk_seq": self.chunk_seq.pop(sid, 0),
+                "pending_wait": self._pending_wait.pop(sid, 0.0),
+                "dropped": dropped,
+                "effective_window_log":
+                    self.effective_window_log.pop(sid, [])}
+
+    def import_stream(self, sid: int, state: Dict[str, Any], *,
+                      cross_node: bool = False,
+                      direct: bool = False) -> None:
+        """Adopt an exported stream (the re-homing apply half): ONE
+        src->dst transfer is charged on the shared engine (cross-node
+        bandwidth when the lanes' nodes differ) and the dispatcher wait
+        rides on the stream's next completed chunk.  ``direct=True``
+        writes ``state["pages"]`` straight into a fresh page table
+        (immediately resident); otherwise the KV arrives host-side and
+        the stream becomes resident through the normal restore path,
+        bit-exactly."""
+        self.chunks[sid] = state["chunks"]
+        self.fidelity_log[sid] = state["fidelity_log"]
+        self.chunk_seq[sid] = state["chunk_seq"]
+        self.effective_window_log[sid] = \
+            list(state.get("effective_window_log", []))
+        if state.get("dropped"):
+            # degradation history travels with the stream: the lost
+            # chunks' slices stay masked here too
+            self.pool.ledger.dropped[sid] = set(state["dropped"])
+        if direct:
+            self.pool.import_pages(sid, state["pages"],
+                                   state["chunk_count"])
+        else:
+            self.pool.import_spill(sid, state["pages"],
+                                   state["chunk_count"])
+        n_bytes = _nbytes(state["pages"]["k"]) + _nbytes(state["pages"]["v"])
+        self.pool.transfer_bytes_in += n_bytes
+        t = self.pool.engine.transfer(time.perf_counter(), n_bytes,
+                                      cross_node=cross_node)
+        w = state["pending_wait"] + t.residual_wait
+        self._pending_wait[sid] = self._pending_wait.get(sid, 0.0) + w
+        self.transfer_wait_s += t.residual_wait
+        self._boundary_cache.clear()
+
     def begin_chunk(self, sid: int, fidelity: FidelityConfig,
                     now: float) -> None:
         """Start a chunk at a step boundary (noise seeded per stream and
@@ -722,7 +886,8 @@ class BatchedChunkExecutor(ChunkExecutor):
 
     # ---- the batched step --------------------------------------------------
     def _boundary(self, sids: Sequence[int], chunk_idx: np.ndarray,
-                  fids: Sequence[FidelityConfig]) -> Dict[str, Any]:
+                  fids: Sequence[FidelityConfig],
+                  sp: Optional[SPLink] = None) -> Dict[str, Any]:
         """Per-chunk-boundary state of a sub-batch (constant across the
         chunk's steps): positions, denoise/clean visibility, and the
         backend's context handle — a gathered [L, b, extent, ...] copy
@@ -730,9 +895,12 @@ class BatchedChunkExecutor(ChunkExecutor):
         paged step reads the pool through (both sliced to the group's
         resident extent, so compute scales with fill).
         ``fids`` is per-row: a fused group hands each row the
-        window/sparsity mask its own fidelity dictates."""
+        window/sparsity mask its own fidelity dictates.  An active SP2
+        link adds the donor pool's block table — the head-split step
+        reads its upper half heads through it."""
         key = (tuple(sids), tuple(chunk_idx.tolist()),
-               tuple(f.key for f in fids))
+               tuple(f.key for f in fids),
+               sp.donor if sp is not None else None)
         bnd = self._boundary_cache.get(key)
         if bnd is not None:
             return bnd
@@ -760,6 +928,8 @@ class BatchedChunkExecutor(ChunkExecutor):
             # fidelity's clean mask IS the denoise mask — cl=None then
             # means "reuse dn"
             bnd["tables"] = self.pool.tables_for(sids)[:, :1 + n_ring]
+            if sp is not None:
+                bnd["tables_d"] = sp.pool.tables_for(sids)[:, :1 + n_ring]
 
             def pages(mask):
                 return torch.as_tensor(kvcache.mask_to_pages(
@@ -824,11 +994,19 @@ class BatchedChunkExecutor(ChunkExecutor):
             self._staging_cache[key] = st
         return st
 
-    def run_step(self, sids: Sequence[int]) -> Tuple[List[int], float]:
+    def run_step(self, sids: Sequence[int],
+                 sp_serve: bool = False) -> Tuple[List[int], float]:
         """Advance one sub-batch by one step — same-fidelity (split
         dispatch) or mixed-fidelity sharing one KV quantization dtype
         (fused dispatch): window, sparsity, sigma grid, and phase are
         per-row data.
+
+        ``sp_serve=True`` marks a dispatch that RESERVED the linked
+        stream's donor step slot (the scheduler's solo SP2 dispatch):
+        only then does a solo linked stream take the head-split path.
+        An unreserved dispatch — even of a lone linked stream — runs the
+        SP1 step (the home pool holds full heads), so donor compute is
+        never consumed twice, or zero times, in one round.
 
         Streams in their denoise phase take an Euler step; streams in
         their clean phase produce context KV, append it to the pool, and
@@ -850,16 +1028,34 @@ class BatchedChunkExecutor(ChunkExecutor):
             "sub-batch contains a non-resident (spilled) stream"
         chunk_idx = np.asarray([self.pool.chunks[sid] for sid in sids],
                                np.int64)
+        # a batch-mode link is served on the DONOR lane (the stream is a
+        # guest row there); its home lane must never also step it, or
+        # the two page sets would diverge
+        assert not any(s in self.sp_links
+                       and self.sp_links[s].mode == "batch"
+                       for s in sids), \
+            "batch-axis SP: linked stream must be served on its donor lane"
+        sp = (self.sp_links.get(sids[0])
+              if sp_serve and len(sids) == 1
+              and self.context_backend == "paged" else None)
+        if sp is not None and sp.mode != "solo":
+            sp = None
         denoising = tuple(f.phase == "denoise" for f in flights)
 
         t0 = time.perf_counter()
-        bnd = self._boundary(sids, chunk_idx, fids)
+        bnd = self._boundary(sids, chunk_idx, fids, sp=sp)
         x = (flights[0].x if len(flights) == 1
              else torch.cat([f.x for f in flights], dim=0))
         t, dt_sig, is_dn = self._staging(
             fids, tuple(f.step for f in flights), denoising)
         self.dispatch_count += 1
-        if self.context_backend == "paged":
+        if sp is not None:
+            x_new, new_kv = A.denoise_step_paged_sp(
+                self.cfg, self.params, x, t, dt_sig, self.pool.k,
+                self.pool.v, sp.pool.k, sp.pool.v, bnd["tables"],
+                bnd["tables_d"], bnd["dn"], bnd["cl"], bnd["q_offset"],
+                is_dn)
+        elif self.context_backend == "paged":
             # context stays IN the pool: the step reads the current
             # device buffers through the cached block tables (appends
             # only ever touch pages outside every in-flight window)
@@ -890,6 +1086,21 @@ class BatchedChunkExecutor(ChunkExecutor):
             self.pool.append([sids[i] for i in clean_rows],
                              {"k": new_kv["k"][:, rows],
                               "v": new_kv["v"][:, rows]}, quant)
+            for i in clean_rows:
+                row = {"k": new_kv["k"][:, i:i + 1],
+                       "v": new_kv["v"][:, i:i + 1]}
+                link = self.sp_links.get(sids[i])
+                if link is not None:
+                    # the donor's half-head mirror tracks the home pool:
+                    # ring-write this chunk's upper half into the donor
+                    # page set (solo mode: batch-linked streams never
+                    # step on this lane)
+                    self._append_sp_half(link, sids[i], row, quant)
+                guest = self.sp_guests.get(sids[i])
+                if guest is not None:
+                    # batch-axis SP: the guest's home pool is the system
+                    # of record — append the full-head chunk there too
+                    guest.pool.append([sids[i]], row, quant)
             now_wall = None
             for i in clean_rows:
                 sid = sids[i]
@@ -923,6 +1134,20 @@ class BatchedChunkExecutor(ChunkExecutor):
             if f is not None:               # still mid-chunk
                 f.active_s += dt
         return completed, dt
+
+    def _append_sp_half(self, link: SPLink, sid: int,
+                        new_kv: Dict[str, torch.Tensor], quant: str) -> None:
+        """Ring-write one chunk's UPPER half KV heads into the donor
+        pool's page set for ``sid`` (in lockstep with the home pool's
+        full-head append)."""
+        h2 = self.cfg.n_kv_heads // 2
+        nk, nv = new_kv["k"][..., h2:, :], new_kv["v"][..., h2:, :]
+        if quant == "fp8":
+            nk, nv = kvcache.to_fp8_e4m3(nk), kvcache.to_fp8_e4m3(nv)
+        page = [link.pool.ledger.append_page(sid)]
+        kvcache.pool_write_pages_heads(link.pool.k, nk, page, h2)
+        kvcache.pool_write_pages_heads(link.pool.v, nv, page, h2)
+        link.pool.ledger.chunks[sid] += 1
 
     def remaining_estimate(self, sid: int) -> float:
         """R_u from the measured step EMA (not the offline profile)."""

@@ -22,10 +22,16 @@ top-fidelity warm-up chunk and scales Eq. 1 budgets by
 (``_HostCalibratedPolicy``); a fidelity's measured-latency EMA replaces
 the scaled profile estimate once it exists (online re-profiling).
 
-This port serves one lane on one device (``SessionConfig.device``,
-default the card).  Multi-lane sessions, co-served model bundles and the
-step cache wait for their slices and raise ``NotImplementedError``
-(ROADMAP: port queue).
+Multi-lane sessions (``SessionConfig.lanes > 1``): the session owns a
+``serve.lanes.LanePool`` — one ``BatchedChunkExecutor`` (own paged KV
+pool) per lane, all on ``SessionConfig.device`` (default the card),
+lanes grouped into nodes via ``workers_per_node`` — and the cluster view
+grows one Worker per lane, which turns on the cross-worker mechanisms:
+``rehoming.Migration`` decisions become real cross-lane KV moves and
+``elastic_sp.SPDecision`` a real Ulysses head-split SP2 step over the
+donor lane's pool (released at the next safe boundary).  Co-served
+model bundles and the step cache wait for their slices and raise
+``NotImplementedError`` (ROADMAP: port queue).
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ import itertools
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.core import queues, slack
+from repro_torch.core import elastic_sp, queues, rehoming, slack
 from repro_torch.core.bmpr import BMPR, BMPRDecision
-from repro_torch.core.control_plane import ControlConfig, ControlPlane
+from repro_torch.core.control_plane import (ControlConfig, ControlPlane,
+                                            TickDecisions)
+from repro_torch.core.elastic_sp import SPDecision
 from repro_torch.core.fidelity import FidelityConfig, HIGHEST_QUALITY
 from repro_torch.core.state_plane import AsyncTransferEngine
 from repro_torch.core.types import ClusterView, Stream, Worker
@@ -59,6 +67,10 @@ class SessionConfig:
     ``executor`` is ``"batched"`` (micro-batches over the paged KV pool;
     ``context_backend`` ``"paged"`` or ``"gather"``) or ``"sequential"``
     (whole chunks, one stream at a time; ``max_batch`` does not apply).
+    ``lanes`` is the number of batched executors (one KV pool each; > 1
+    turns on re-homing and elastic SP), ``workers_per_node`` groups them
+    into nodes for Algorithm 1's and SS4.3's intra-node preferences (0 =
+    all lanes in one node).
     ``device`` is where the executor's params, KV pool and kernels live
     (default the card; ``"cpu"`` runs the plain PyTorch versions).
     ``pool_streams`` caps co-resident streams in the page pool.
@@ -227,8 +239,10 @@ class StreamingSession:
     conditioning; pauses extend the playout deadline by their duration.
     ``executor=`` injects a ready ``BatchedChunkExecutor`` or
     ``SequentialChunkExecutor`` (its device, model and params win over
-    the config's).  The sequential executor is single-lane and serves
-    one stream per step.
+    the config's), or a ready ``serve.lanes.LanePool`` (its lanes win
+    over ``lanes``).  The sequential executor is single-lane and serves
+    one stream per step.  With ``lanes > 1`` new streams are homed on
+    the least-loaded non-donating lane (``ControlPlane.choose_home``).
     """
 
     def __init__(self, config: Optional[SessionConfig] = None, *,
@@ -238,13 +252,19 @@ class StreamingSession:
         if self.cfg.executor not in ("batched", "sequential"):
             raise ValueError(f"executor {self.cfg.executor!r}: 'batched' "
                              "or 'sequential'")
-        if self.cfg.lanes != 1:
-            raise NotImplementedError("multi-lane sessions " + _WAITS)
+        n_lanes = max(1, self.cfg.lanes)
         if self.cfg.models:
             raise NotImplementedError("co-served model bundles " + _WAITS)
         if self.cfg.step_cache:
             raise NotImplementedError("the step cache " + _WAITS)
-        if executor is not None:
+        if n_lanes > 1 and not isinstance(executor, LanePool) and (
+                executor is not None or self.cfg.executor == "sequential"):
+            raise ValueError("multi-lane sessions take batched executors "
+                             "(lanes > 1 takes a LanePool as executor=, "
+                             "or none, and not the sequential executor)")
+        if isinstance(executor, LanePool):
+            self.lanes = executor
+        elif executor is not None:
             self.lanes = LanePool.wrap(executor)
         elif self.cfg.executor == "sequential":
             self.lanes = LanePool.wrap(SequentialChunkExecutor(
@@ -252,7 +272,7 @@ class StreamingSession:
                 device=self.cfg.device))
         else:
             self.lanes = LanePool(
-                1, cfg=self.cfg.model_cfg, seed=self.cfg.seed,
+                n_lanes, cfg=self.cfg.model_cfg, seed=self.cfg.seed,
                 max_streams=self.cfg.pool_streams or 16,
                 context_backend=self.cfg.context_backend,
                 page_evict=self.cfg.page_evict, device=self.cfg.device)
@@ -282,10 +302,11 @@ class StreamingSession:
                               or self.cfg.budget_factor * self.top_latency)
         time_scale = (self._profile.latency(HIGHEST_QUALITY)
                       / max(self.top_latency, 1e-9))
+        multi = self.lanes.n_lanes > 1
         self.control = ControlPlane(
             ControlConfig(tick_interval=self.cfg.tick_interval,
                           # cross-worker mechanisms need >1 lane
-                          use_rehoming=False, use_elastic_sp=False),
+                          use_rehoming=multi, use_elastic_sp=multi),
             fidelity_policy=_HostCalibratedPolicy(policy, self.lanes,
                                                   time_scale))
 
@@ -312,6 +333,7 @@ class StreamingSession:
         self._t0: Optional[float] = None
         self._next_tick = 0.0
         self._switches: Dict[int, int] = {}
+        self._pending_sp_release: Dict[int, int] = {}
         self.fidelity_counts: Dict[str, int] = {}
         self.worker_tier_samples: List[Tuple[int, int, int]] = []
 
@@ -391,6 +413,14 @@ class StreamingSession:
         s.step_done = 0
         s.remaining = 0.0
         self.lanes.abort_chunk(sid)
+        if s.sp_donor is not None:
+            # the donor's mirror holds the OLD prompt's KV: release the
+            # borrow before resetting (SP re-triggers if the stream is
+            # still behind under the new prompt)
+            self._pending_sp_release.pop(sid, None)
+            elastic_sp.apply_release(
+                self.view, SPDecision(sid, s.sp_donor, "release"))
+            self.lanes.sp_release(sid)
         # fresh conditioning: re-encode and rewrite the sink page
         self._switches[sid] = self._switches.get(sid, 0) + 1
         self.lanes.reset_condition(sid, seed=self.switch_seed(sid))
@@ -453,15 +483,16 @@ class StreamingSession:
             # times.
             for s in self.view.active_streams():
                 s.remaining = self.lanes.remaining_estimate(s.sid)
-                s.running_on = ((self.lanes.lane_of.get(s.sid, 0),)
-                                if self.lanes.is_inflight(s.sid) else None)
+                if self.lanes.is_inflight(s.sid):
+                    lane = self.lanes.lane_of.get(s.sid, 0)
+                    link = self.lanes.sp_link(s.sid)
+                    s.running_on = ((lane, link.donor) if link is not None
+                                    else (lane,))
+                else:
+                    s.running_on = None
             if now >= self._next_tick:
                 decisions = self.control.tick(self.view, now)
-                # one lane: re-homing and elastic SP are off, so the tick
-                # plans no cross-worker moves (the multi-lane slice
-                # applies them through the lane pool)
-                assert not decisions.migrations \
-                    and not decisions.sp_decisions
+                self._apply_decisions(decisions)
                 self._sample_tiers()
                 self._next_tick = now + self.cfg.tick_interval
             else:
@@ -495,28 +526,86 @@ class StreamingSession:
         return self.result()
 
     def _dispatch_round(self, now: float) -> Tuple[bool, bool]:
-        """One step round: each lane advances at most one micro-batch by
-        one denoise step.  Returns (any step ran, any lane had runnable
-        streams)."""
+        """One step round over every lane: each lane advances at most
+        one micro-batch (or one solo SP2 stream, which also consumes its
+        donor lane's slot) by one denoise step.  Returns (any step ran,
+        any lane had runnable streams)."""
         streams = self.view.streams
+        runnables = {w.wid: queues.next_dispatch_set(w, streams, now)
+                     for w in self.view.workers}
+
+        # batch-axis SP rerouting: a stream whose link is mode "batch" is
+        # served ON ITS DONOR lane as an extra row of the donor's own
+        # micro-batch — it leaves its home lane's runnable list and never
+        # consumes a solo dispatch slot
+        guests: Dict[int, List[int]] = {}
+        for w in self.view.workers:
+            kept: List[int] = []
+            for sid in runnables[w.wid]:
+                link = self.lanes.sp_link(sid)
+                if link is not None and link.mode == "batch":
+                    guests.setdefault(link.donor, []).append(sid)
+                else:
+                    kept.append(sid)
+            runnables[w.wid] = kept
+
+        # elastic SP2 reservation happens BEFORE any lane serves, so a
+        # donor's step slot is genuinely consumed whatever the lane
+        # order.  Only a linked stream at the HEAD of its lane's credit
+        # order that can run NOW reserves; linked streams deeper in the
+        # queue — or whose donor is already committed — fold into the
+        # normal micro-batch on the SP1 step (the home pool holds full
+        # heads, so SP is an acceleration, never a correctness
+        # dependency; the donor mirror keeps appending either way)
+        sp_homes: Dict[int, int] = {}      # home wid -> linked sid
+        lent: set = set()                  # donor wids, slot lent out
+        for w in self.view.workers:
+            r = runnables[w.wid]
+            if not r or w.wid in lent:
+                continue
+            link = self.lanes.sp_link(r[0])
+            if (link is not None and link.donor != w.wid
+                    and link.donor not in lent
+                    and link.donor not in sp_homes
+                    and self.lanes.ex(w.wid).ensure_resident(
+                        r[0], streams, protect=[r[0]])):
+                sp_homes[w.wid] = r[0]
+                lent.add(link.donor)
+
         any_ran = False
         any_runnable = False
         for w in self.view.workers:
-            runnable = queues.next_dispatch_set(w, streams, now)
-            if not runnable:
+            runnable = runnables[w.wid]
+            glist = guests.get(w.wid, [])
+            if not runnable and not glist:
                 continue
             any_runnable = True
+            if w.wid in lent:
+                continue       # step slot lent to another lane's SP2
             ex = self.lanes.ex(w.wid)
+            sp_sid = sp_homes.get(w.wid)
+            if sp_sid is not None:       # reserved (and already resident)
+                self._begin_if_needed(ex, sp_sid, now)
+                flights = {sp_sid: ex.inflight[sp_sid]}
+                completed, _ = ex.run_step([sp_sid], sp_serve=True)
+                any_ran = True
+                now = self._now()
+                for sid in completed:
+                    self._complete_chunk(sid, flights[sid].fidelity,
+                                         flights[sid].started, now)
+                continue
             # the sequential executor (no page pool) serves one stream
             # per step
             max_batch = self.cfg.max_batch if hasattr(ex, "pool") else 1
             # page-granular admission control: fill the micro-batch from
             # the credit-ordered runnable set with streams that are — or
             # can be made — page-resident (credit-aware eviction); a
-            # stream that cannot displace anyone defers one iteration
-            sids: List[int] = []
+            # stream that cannot displace anyone defers one iteration.
+            # Batch-axis guests ride ON TOP of max_batch (their donor
+            # pages are resident and eviction-protected)
+            sids: List[int] = list(glist)
             for sid in runnable:
-                if len(sids) >= max_batch:
+                if len(sids) >= max_batch + len(glist):
                     break
                 if ex.ensure_resident(sid, streams, protect=sids + [sid]):
                     sids.append(sid)
@@ -526,7 +615,7 @@ class StreamingSession:
                 self._begin_if_needed(ex, sid, now)
             groups = compose_batch(
                 sids, lambda sid: ex.inflight[sid].fidelity,
-                max_batch, fuse=self.cfg.fuse_fidelity)
+                max_batch + len(glist), fuse=self.cfg.fuse_fidelity)
             for grp in groups:
                 flights = {sid: ex.inflight[sid] for sid in grp}
                 completed, _ = ex.run_step(grp)
@@ -553,6 +642,40 @@ class StreamingSession:
         s.step_done = 0
         ex.begin_chunk(sid, dec.fidelity, now)
 
+    # ---- decision apply (the simulator's policy.on_tick equivalent) --------
+    def _apply_decisions(self, decisions: TickDecisions) -> None:
+        """Execute the tick's cross-worker decisions against the lane
+        pool.  An apply can fail (state moved since planning — e.g. a
+        full donor pool with nothing evictable); the decision is then
+        dropped and the planner re-evaluates next tick."""
+        for mig in decisions.migrations:
+            if self.lanes.migrate(mig.sid, mig.src, mig.dst,
+                                  cross_node=mig.cross_node):
+                rehoming.apply_migration(self.view, mig)
+        # a donor whose release had to be DEFERRED (its stream is
+        # mid-chunk) is still physically borrowed until that boundary —
+        # the planner's same-tick rejoin must not re-grant it, or the
+        # deferred apply_release would later clear the NEW borrower's
+        # donated_to mark (releases precede expands in the plan, so one
+        # pass suffices)
+        deferred_donors: set = set()
+        for dec in decisions.sp_decisions:
+            if dec.kind == "expand":
+                if dec.donor in deferred_donors:
+                    continue
+                if self.lanes.sp_expand(dec.sid, dec.donor,
+                                        self.view.streams):
+                    elastic_sp.apply_expand(self.view, dec)
+            elif self.lanes.is_inflight(dec.sid):
+                # released at the next safe boundary (chunk completion):
+                # the in-flight chunk's head-split step still reads the
+                # donor pool
+                self._pending_sp_release[dec.sid] = dec.donor
+                deferred_donors.add(dec.donor)
+            else:
+                elastic_sp.apply_release(self.view, dec)
+                self.lanes.sp_release(dec.sid)
+
     # ---- playout bookkeeping (the single per-stream record) ----------------
     def _complete_chunk(self, sid: int, fid: FidelityConfig,
                         started: float, now: float) -> None:
@@ -578,11 +701,20 @@ class StreamingSession:
         if self.front_door is not None:
             self.front_door.observe_chunk(now - started,
                                           fidelity=fid.key, model=s.model)
+        donor = self._pending_sp_release.pop(sid, None)
+        if donor is not None and not s.finished:
+            # the promised safe boundary: drop the borrow now
+            elastic_sp.apply_release(
+                self.view, SPDecision(sid, donor, "release"))
+            self.lanes.sp_release(sid)
         if s.finished:
             # free the pages NOW: a finished stream's KV would otherwise
             # pin residency (generated chunks survive retire)
             s.done = True
-            self.lanes.retire(sid)
+            if s.sp_donor is not None:
+                elastic_sp.apply_release(
+                    self.view, SPDecision(sid, s.sp_donor, "release"))
+            self.lanes.retire(sid)               # releases any SP link
             wq = self.workers[s.home].queue
             if sid in wq:
                 wq.remove(sid)

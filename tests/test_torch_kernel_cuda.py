@@ -24,6 +24,29 @@ nothing), ``mha``'s dispatch, and the inputs the wrapper refuses.
 Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at the output's largest
 magnitude for bf16 outputs (both round the same fp32 result once).
 
+Paged chunk attention on head-range views ``pool[..., lo:hi, :]`` (the
+elastic SP2 shards): the kernel reads the view in place and gives
+exactly the partials it gives on a contiguous copy of the view, and the
+plain version's within the limits above.
+
+Paged decode attention: ``paged_decode_attention`` against
+``paged_decode_attention_ref`` at the reference tests' shapes, a GQA
+group of 12 (two row groups per block) and minitron-8b's attention at a
+modest context, fp32 and bf16, ragged lengths; a stream of length 0
+gives 0 from the kernel (the TPU kernel's rule) where the plain version
+gives NaN, and table entries past a stream's length are never read.
+Tolerance: 1e-5 in fp32 (both sum in fp32; they differ in order only),
+2 bf16 ulps at the output's largest magnitude in bf16.
+
+Scaled fp8 matmul: ``fp8_scaled_matmul`` against ``fp8_matmul_ref`` at
+the reference tests' shapes and ragged M, N, K (including K and N that
+are not multiples of 16), fp32 and bf16 out; ``quantize_fp8`` on the
+card equals the CPU's bit for bit.  Tolerance: every product of two
+e4m3 values is exact in fp32 and both sides sum in fp32, in different
+orders: |d| <= 1e-5 of the output's largest magnitude in fp32 (about
+ten times the order difference of a 4,096-term sum); in bf16 one bf16
+ulp at each element's magnitude on top of that.
+
 SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
 instantiates x fp32/bf16 x/B/C, ragged S, S < chunk, ``init_state``,
 x/B/C as strided views of one wider tensor (as the model passes them),
@@ -34,14 +57,18 @@ of its largest magnitude.  A scan's outputs grow with its inputs (unlike
 attention's averages), so the fp32 limit is relative to them; both sides
 accumulate in fp32 and differ in summation order only.
 """
+import math
+
 import pytest
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.fp8_matmul import ops as f8ops
+from repro_torch.kernels.fp8_matmul import ref as f8ref
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops, ref
-from repro_torch.models.attention import mha, mha_plain
+from repro_torch.models.attention import mha, mha_plain, shard_heads
 from repro_torch.models.kvcache import to_fp8_e4m3
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan import ref as sref
@@ -319,3 +346,193 @@ def test_ssd_kernel_rejects_what_it_cannot_run(card):
                  init_state=torch.zeros((2, 2, 16, 8), device=card))
     with pytest.raises(ValueError, match=r"\(P, N\)"):
         sops.ssd(*inputs(P=8, N=4), chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# paged chunk attention on head-range views (elastic SP2 shards)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 70, 8, 4, 16, 77, 3),
+                                   (2, 64, 12, 12, 128, 200, 3)],
+                         ids=["reduced-gqa", "self-forcing"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16", "fp8"])
+def test_kernel_reads_a_head_range_view_in_place(card, shape, dtypes):
+    B, Sq, Hq, Hkv, D, page, n = shape
+    q, kp, vp, table, mask = _inputs(card, *shape, *dtypes, seed=D + Hkv)
+    hint = dict(sink=page - 5, chunk_tokens=page - 11)
+    h2 = Hkv // 2
+    for lo, hi in ((0, h2), (h2, Hkv)):
+        kv_view, vv_view = kp[..., lo:hi, :], vp[..., lo:hi, :]
+        assert not kv_view.is_contiguous()
+        qs = shard_heads(q, Hkv, lo, hi).contiguous()
+        for m in (None, mask):
+            got = ops.paged_chunk_attention(qs, kv_view, vv_view, table, m,
+                                            **hint)
+            copy = ops.paged_chunk_attention(qs, kv_view.contiguous(),
+                                             vv_view.contiguous(), table,
+                                             m, **hint)
+            for g, c in zip(got, copy):
+                assert torch.equal(g, c)
+            _check(got, ref.paged_chunk_attention_ref(
+                qs, kv_view, vv_view, table, m, **hint))
+    with pytest.raises(ValueError, match="dense"):          # every 2nd head
+        ops.paged_chunk_attention(shard_heads(q, Hkv, 0, h2).contiguous(),
+                                  kp[:, :, ::2], vp[:, :, ::2], table, mask)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [  # B, Hq, Hkv, D, page, n, P_total
+    (2, 4, 2, 16, 8, 4, 16),        # the reference tests' shapes
+    (3, 8, 8, 32, 16, 3, 12),
+    (1, 4, 1, 64, 8, 6, 8),
+    (3, 12, 1, 128, 16, 5, 20),     # G = 12: two row groups of 8
+    (4, 32, 8, 128, 16, 64, 300),   # minitron-8b's attention, 1k context
+]
+
+
+def _decode_inputs(dev, B, Hq, Hkv, D, page, n, P, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(dtype)
+    kp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
+    vp = torch.randn((P, page, Hkv, D), generator=g, device=dev).to(dtype)
+    table = torch.randint(0, P, (B, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    lengths = torch.randint(1, n * page + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = n * page                        # a full table
+    return q, kp, vp, table, lengths
+
+
+def _decode_limit(want):
+    if want.dtype == torch.float32:
+        return 1e-5
+    top = float(want.float().abs().max())
+    return 2 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_matches_plain_version(card, shape, dtype):
+    q, kp, vp, table, lengths = _decode_inputs(card, *shape, dtype,
+                                               seed=sum(shape))
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _decode_limit(want), err
+
+
+def test_decode_kernel_length_zero_and_unread_pages(card):
+    """Length 0 gives 0 (the TPU kernel's l == 0 -> 1) where the plain
+    version gives NaN (the oracle's); table entries of pages wholly past
+    a stream's length are never read, even when they point nowhere."""
+    B, Hq, Hkv, D, page, n, P = 3, 8, 2, 64, 16, 6, 20
+    q, kp, vp, table, _ = _decode_inputs(card, B, Hq, Hkv, D, page, n, P,
+                                         torch.float32, seed=3)
+    lengths = torch.tensor([37, 0, 16], dtype=torch.int32, device=card)
+    got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, lengths)
+    assert (got[1] == 0).all() and torch.isnan(want[1]).all()
+    live = torch.tensor([0, 2], device=card)
+    assert float((got[live] - want[live]).abs().max()) <= 1e-5
+    wild = table.clone()
+    wild[0, 3:] = 1 << 30                       # past 37 tokens: unread
+    wild[1, :] = -(1 << 30)
+    wild[2, 1:] = 1 << 30
+    again = ops.paged_decode_attention(q, kp, vp, wild, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_decode_kernel_rejects_what_it_cannot_run(card):
+    q, kp, vp, table, lengths = _decode_inputs(card, 2, 4, 2, 48, 8, 2, 4,
+                                               torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.paged_decode_attention(q, kp, vp, table, lengths)
+    q, kp, vp, table, lengths = _decode_inputs(card, 2, 4, 2, 16, 8, 2, 4,
+                                               torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        ops.paged_decode_attention(q.bfloat16(), kp, vp, table, lengths)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q, kp.cpu(), vp, table, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_decode_attention(q, kp[:, :, :1], vp[:, :, :1], table,
+                                   lengths)
+
+
+# ---------------------------------------------------------------------------
+# scaled fp8 matmul
+# ---------------------------------------------------------------------------
+
+FP8_SHAPES = [(64, 64, 64), (128, 256, 64), (32, 32, 32),   # M, K, N
+              (200, 136, 264), (130, 40, 24), (1, 4096, 300),
+              (257, 1536, 8960)]
+
+
+def _fp8_check(got, want):
+    top = float(want.float().abs().max())
+    tol = 1e-5 * max(top, 1e-30)
+    d = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(1e-30)
+        d = d - torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert float(d.max()) <= tol, (float(d.max()), tol)
+
+
+@pytest.mark.parametrize("shape", FP8_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fp8_kernel_matches_plain_version(card, shape, out_dtype):
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=card)
+    w = torch.randn((K, N), generator=g, device=card).bfloat16()
+    xq, sx = f8ops.quantize_fp8(x, axis=1)
+    wq, sw = f8ops.quantize_fp8(w, axis=0)
+    before = f8ops.fp8_scaled_matmul.launches
+    got = f8ops.fp8_scaled_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
+    want = f8ref.fp8_matmul_ref(xq, wq, sx, sw).to(out_dtype)
+    torch.cuda.synchronize()
+    assert f8ops.fp8_scaled_matmul.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == out_dtype
+    _fp8_check(got, want)
+    # the online-quantized entry point launches the same kernel
+    _fp8_check(f8ops.fp8_matmul(x, w, out_dtype=out_dtype), want)
+
+
+def test_quantize_on_the_card_matches_the_cpu(card):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((33, 70), generator=g)
+    x[1] = 0.0
+    x[2] *= 1e4
+    x[3, 5] = float("inf")
+    for axis in (0, 1):
+        for t in (x, x.bfloat16()):
+            qc, sc = f8ops.quantize_fp8(t, axis)
+            qg, sg = f8ops.quantize_fp8(t.to(card), axis)
+            assert torch.equal(sg.cpu(), sc)
+            nan = torch.isnan(qc.float())
+            assert torch.equal(torch.isnan(qg.float()).cpu(), nan)
+            assert torch.equal(qg.cpu().view(torch.uint8)[~nan],
+                               qc.view(torch.uint8)[~nan])
+
+
+def test_fp8_kernel_rejects_what_it_cannot_run(card):
+    x = torch.randn((16, 32), device=card)
+    xq, sx = f8ops.quantize_fp8(x, axis=1)
+    wq, sw = f8ops.quantize_fp8(torch.randn((32, 16), device=card), axis=0)
+    with pytest.raises(TypeError):
+        f8ops.fp8_scaled_matmul(x, wq, sx, sw)
+    with pytest.raises(ValueError, match="shapes"):
+        f8ops.fp8_scaled_matmul(xq, wq[:16], sx, sw)
+    with pytest.raises(TypeError):
+        f8ops.fp8_scaled_matmul(xq, wq, sx, sw, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        f8ops.fp8_scaled_matmul(xq, wq.cpu(), sx, sw)

@@ -81,8 +81,7 @@ def test_session_chunks_match_jax(inject_jax_draws, n, chunks, max_batch,
 
 
 def test_session_waiting_options_raise():
-    for kw in (dict(lanes=2), dict(models=["ardit-self-forcing"]),
-               dict(step_cache=True)):
+    for kw in (dict(models=["ardit-self-forcing"]), dict(step_cache=True)):
         with pytest.raises(NotImplementedError):
             TS.StreamingSession(TS.SessionConfig(device="cpu", **kw))
 
