@@ -18,7 +18,10 @@ Phases (any failure raises and the script exits non-zero):
    full-width shapes (B = 1, Sq = 2640, 12 heads of 128, bf16,
    non-causal, Skv = sink + 0 / 3 / 7 chunks + the chunk) and in every
    mode at modest shapes (causal with q_offset, sink + window, the rho
-   keep matrix, GQA, fp32, head dims 16 and 96); the same timings.
+   keep matrix, GQA, fp32, head dims 16 and 96); each case's kernel path
+   (bf16 at D 96 / 128 on the tensor cores, the rest on the CUDA cores)
+   checked, the tensor-core kernel's registers printed, the same
+   timings with the kernel's and SDPA's TFLOP/s.
 4. Integration at the reduced config, card vs CPU: the batched paged
    ``denoise_step_paged``, the sequential ``serve_chunk`` (fidelities
    top / rho 0.5 / W 3 / fp8 over a warm cache), the gather backend's
@@ -31,7 +34,8 @@ Phases (any failure raises and the script exits non-zero):
    launch), the sequential session (3 x 3; flash launches = n_layers x
    (steps + 1) per chunk, warm-up included, no paged launch) and the
    batched gather-backend session (2 x 2; flash launches = n_layers x
-   unmasked steps, no paged launch).
+   unmasked steps, no paged launch); in phases 6 and 7 every flash
+   launch must be a tensor-core launch.
 8. SSD kernel vs plain version on the card at the full-width shape
    (mamba2-780m: B = 2, S = 32,768, 48 heads of 64, state 128, chunk
    128, bf16 x/B/C), a ragged S, S < chunk, an init_state, x/B/C as
@@ -67,9 +71,13 @@ Phases (any failure raises and the script exits non-zero):
 12. Scaled fp8 matmul kernel vs plain version: minitron-8b's FFN
    up-projection over one prefill_32k prompt (M 32,768, K 4,096, N
    16,384), the AR-DiT's FFN at 4 rows (M 10,560, K 1,536, N 8,960) and
-   the reference tests' shapes; ``quantize_fp8`` card vs CPU bit for
-   bit; the entry point's launches; timings, the bound and
-   ``torch._scaled_mm`` with row-wise scales.
+   the reference tests' shapes (K 136 and N 300 on the CUDA cores, the
+   rest on the tensor cores, each held to its path's limit); all-positive
+   operands at K = 4,096, promoted (within the limit) and unpromoted
+   (beyond it); ``quantize_fp8`` card vs CPU bit for bit; the entry
+   point's launches, both FFN shapes on the tensor cores; the promotion
+   gap beside its limit; timings, the bound and ``torch._scaled_mm``
+   with row-wise scales.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
@@ -153,16 +161,42 @@ DECODE_PLAIN_ROWS = 16      # streams per plain-version call (memory)
 # result); SDPA within 8 ulps
 TOL_DECODE_F32 = 1e-5
 DECODE_BF16_ULPS = 2
-# fp8 kernel vs plain: products of e4m3 values are exact in fp32 and both
-# sum in fp32 in different orders: within 1e-5 of the output's largest
-# magnitude
+# fp8 kernel vs plain, as a share of the output's largest magnitude.  On
+# the CUDA cores products of e4m3 values are exact in fp32 and both sum
+# in fp32 in different orders: 1e-5.  On the tensor cores the wgmma
+# accumulator keeps about 14 bits between promotions into fp32 (every 64
+# of K), so 1e-5 cannot hold there: TOL_FP8_TC_REL is twice the worst gap
+# measured over this phase and the card tests on an H100, rounded up,
+# and at most 5e-4 (tests/test_torch_kernel_cuda.py FP8_TC_REL).
 TOL_FP8_REL = 1e-5
+TOL_FP8_TC_REL = 5e-4
 FP8_SHAPES = {"minitron-8b FFN up, prefill_32k prompt": (32768, 4096, 16384),
               "ardit-self-forcing FFN, 4 rows": (10560, 1536, 8960)}
 
 
 def sync():
     torch.cuda.synchronize()
+
+
+def reset_counts(counters):
+    """Sets every launch count (and tensor-core launch count) to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_tc"):
+            fn.launches_tc = 0
+
+
+def ptxas_entries(log):
+    """(kernel name, registers, spill bytes) of each function in an nvcc
+    -Xptxas=-v log, and the number of ptxas's "Potential Performance
+    Loss" notes (wgmma serialization, C75xx)."""
+    entries = []
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", block))
+        entries.append((name, int(regs.group(1)) if regs else 0, spills))
+    return entries, log.count("Potential Performance Loss")
 
 
 def cuda_ms(fn, iters):
@@ -375,6 +409,7 @@ def phase_flash(record):
     """Phase 3: the flash kernel against its plain version at the
     sequential path's shapes and in every mode; timings and the bound of
     the deepest shape."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops, ref
 
     gen = torch.Generator(device=DEV).manual_seed(4321)
@@ -384,6 +419,22 @@ def phase_flash(record):
         return tuple(torch.randn(s, generator=gen, device=DEV).to(dtype)
                      for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D),
                                (B, Skv, Hkv, D)))
+
+    def launch(q, k, v, **kw):
+        """One kernel call; checks that it took kernel_path's kernel."""
+        path = ops.kernel_path(q.dtype, q.shape[-1])
+        before = ops.flash_mha.launches_tc
+        out = ops.flash_mha(q, k, v, **kw)
+        if ops.flash_mha.launches_tc - before != int(path == "wgmma"):
+            raise AssertionError(f"flash launch off its path {path}")
+        return out, path
+
+    entries, _ = ptxas_entries(build.BUILD_LOGS.get(str(ops.SOURCE), ""))
+    tc_regs = {re.search(r"ILi(\d+)E", name).group(1): regs
+               for name, regs, _ in entries if "wgmma" in name}
+    print(f"  tensor-core kernel registers per thread at launch, by head "
+          f"dim: {tc_regs or 'not in this build log'} (setmaxnreg then "
+          f"gives the consumer warpgroups 232, the producer 40)")
 
     errs = []
     B, Sq, H, D = 1, 2640, 12, 128
@@ -396,7 +447,7 @@ def phase_flash(record):
         def plain():
             return ref.flash_mha_ref(q, k, v, n_kv_heads=H, causal=False)
 
-        out = kern()
+        out, path = launch(q, k, v, n_kv_heads=H, causal=False)
         errs.append(compare_flash(f"non-causal bf16 Skv={skv}", out,
                                   plain()))
         kernel_ms = cuda_ms(kern, 10)
@@ -423,11 +474,12 @@ def phase_flash(record):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"  B={B} Sq={Sq} Skv={skv}: kernel {kernel_ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB), achieved "
-              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        print(f"  B={B} Sq={Sq} Skv={skv}: kernel ({path}) {kernel_ms:.3f} "
+              f"ms, {flops / kernel_ms / 1e9:.2f} TFLOP/s; SDPA "
+              f"{library_ms:.3f} ms, {flops / library_ms / 1e9:.2f} "
+              f"TFLOP/s; plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+              f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB)")
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
     # the record keeps the deepest shape's numbers
@@ -435,8 +487,7 @@ def phase_flash(record):
                   bound_by=bound_by, library_ms=library_ms)
 
     # every mode at a modest shape: (name, B, Sq, Skv, Hq, Hkv, D, dtype,
-    # keyword arguments); the rho blocks are not the kernel's 64-wide
-    # tiles
+    # keyword arguments); the rho blocks are not the kernels' tiles
     f32 = torch.float32
     cases = [
         ("causal q_offset bf16", 2, 512, 1536, 12, 12, 128, bf16,
@@ -455,14 +506,19 @@ def phase_flash(record):
          dict(window=64, sink=16)),
         ("D=96 non-causal bf16 (causal-forcing)", 1, 660, 2057, 16, 16, 96,
          bf16, dict(causal=False)),
+        ("D=96 sink + window bf16", 1, 1024, 1024, 16, 16, 96, bf16,
+         dict(window=300, sink=77)),
+        ("D=96 rho 0.5 bf16", 1, 768, 768, 16, 16, 96, bf16,
+         dict(sparsity=0.5, block_q=96, block_kv=64)),
         ("D=96 causal rho 0.5 fp32", 1, 512, 512, 16, 16, 96, f32,
          dict(sparsity=0.5, block_q=64, block_kv=128)),
     ]
     for name, b_, sq, skv, hq, hkv, d, dt, kw in cases:
         q, k, v = qkv(b_, sq, skv, hq, hkv, d, dt)
         kw = {**dict(block_q=128, block_kv=128), **kw}
+        out, path = launch(q, k, v, n_kv_heads=hkv, **kw)
         errs.append(compare_flash(
-            name, ops.flash_mha(q, k, v, n_kv_heads=hkv, **kw),
+            f"{name} ({path})", out,
             ref.flash_mha_ref(q, k, v, n_kv_heads=hkv, **kw)))
     del q, k, v
     torch.cuda.empty_cache()
@@ -658,8 +714,7 @@ def run_session(label, cfg, make_executor, config, n_streams, n_chunks,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     ex = make_executor()
     t0 = time.perf_counter()
     session = StreamingSession(config, executor=ex)
@@ -668,11 +723,13 @@ def run_session(label, cfg, make_executor, config, n_streams, n_chunks,
     sync()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    launches_tc = counters["flash_mha"].launches_tc
 
     print(f"  {label} full width: {summarize(result).row()}")
     print(f"  session wall {wall:.2f} s (warm-up chunk included), "
           f"top-fidelity warm-up chunk {session.top_latency:.3f} s, "
-          f"kernel launches {launches}, peak memory "
+          f"kernel launches {launches} (flash on the tensor cores: "
+          f"{launches_tc}), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for key, lat in sorted(ex.latency_ema.items()):
         print(f"  chunk latency EMA {key}: {lat:.3f} s")
@@ -689,6 +746,9 @@ def run_session(label, cfg, make_executor, config, n_streams, n_chunks,
             if tuple(c.shape) != (1, A.chunk_tokens(cfg), A.LATENT_CH) \
                     or not bool(torch.isfinite(c).all()):
                 raise AssertionError(f"stream {h.sid}: bad latents")
+    if launches_tc != launches["flash_mha"]:
+        raise AssertionError(f"{label}: {launches['flash_mha']} flash "
+                             f"launches, {launches_tc} on the tensor cores")
     return ex, session, launches
 
 
@@ -914,8 +974,7 @@ def phase_ssm(counters):
     B, S = SSM_PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(DEV)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     prefills = 0
 
     def check(label):
@@ -1076,8 +1135,7 @@ def phase_lanes(cfg, params, counters):
     torch.cuda.reset_peak_memory_stats()
 
     def reset():
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         paged.view_launches = 0
 
     def launches():
@@ -1323,8 +1381,7 @@ def phase_decode(record, counters):
           f"GB each for K and V)")
 
     # the main path: the entry point at decode_32k, counts read after
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     out = {"all lengths 32768": ops.paged_decode_attention(q, kp, vp, table,
                                                            full),
            "lengths drawn from [1, 32768]": ops.paged_decode_attention(
@@ -1413,33 +1470,72 @@ def phase_decode(record, counters):
 
 
 def phase_fp8(record, counters):
-    """Phase 12: the scaled fp8 matmul kernel against its plain version;
-    the entry point's launches at the two FFN shapes; timings, the
-    bound and ``torch._scaled_mm``."""
+    """Phase 12: the scaled fp8 matmul kernels against their plain
+    version, each shape on the path ``kernel_path`` names and held to
+    that path's limit; the promotion's worth on all-positive operands;
+    the entry point's launches at the two FFN shapes, both on the tensor
+    cores; timings, the bound and ``torch._scaled_mm``."""
     from repro_torch.kernels.fp8_matmul import ops, ref
 
     gen = torch.Generator(device=DEV).manual_seed(8642)
     bf16 = torch.bfloat16
-    errs = []
+    errs, tc_gaps = [], []
 
-    def compare(name, got, want):
+    def gap(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max().clamp_min(1e-30))
+
+    def compare(name, got, want, path):
         top = float(want.abs().max())
         err = float((got.float() - want.float()).abs().max())
-        limit = TOL_FP8_REL * max(top, 1e-30)
-        print(f"  {name}: |d| {err:.3g} (limit {limit:.3g}, |out| <= "
-              f"{top:.3g})")
+        rel = TOL_FP8_TC_REL if path == "wgmma" else TOL_FP8_REL
+        limit = rel * max(top, 1e-30)
+        print(f"  {name} ({path}): |d| {err:.3g} = {err / top:.3g} of max "
+              f"|out| {top:.3g} (limit {rel:g} of it)")
         if not err <= limit or got.shape != want.shape:
             raise AssertionError(f"{name}: fp8 kernel disagrees ({err})")
         errs.append(err)
+        if path == "wgmma":
+            tc_gaps.append(err / top)
 
-    for M, K, N in ((64, 64, 64), (128, 256, 64), (32, 32, 32)):
+    def launch(xq, wq, sx, sw, **kw):
+        """One kernel call; checks that it took kernel_path's kernel."""
+        path = ops.kernel_path(xq.shape[1], wq.shape[1])
+        before = ops.fp8_scaled_matmul.launches_tc
+        out = ops.fp8_scaled_matmul(xq, wq, sx, sw, **kw)
+        if ops.fp8_scaled_matmul.launches_tc - before != int(
+                path == "wgmma"):
+            raise AssertionError(f"fp8 launch off its path {path}")
+        return out, path
+
+    # the reference tests' shapes, and two whose K or N is not a multiple
+    # of 16 (the CUDA-core kernel)
+    for M, K, N in ((64, 64, 64), (128, 256, 64), (32, 32, 32),
+                    (200, 136, 264), (1, 4096, 300)):
         x = torch.randn((M, K), generator=gen, device=DEV)
         w = torch.randn((K, N), generator=gen, device=DEV)
         xq, sx = ops.quantize_fp8(x, 1)
         wq, sw = ops.quantize_fp8(w, 0)
-        compare(f"reference shape M={M} K={K} N={N}",
-                ops.fp8_scaled_matmul(xq, wq, sx, sw),
-                ref.fp8_matmul_ref(xq, wq, sx, sw))
+        out, path = launch(xq, wq, sx, sw)
+        compare(f"reference shape M={M} K={K} N={N}", out,
+                ref.fp8_matmul_ref(xq, wq, sx, sw), path)
+
+    # |randn| operands at K = 4096: every truncation of the wgmma
+    # accumulator errs the same way; the promoted sum must meet the
+    # limit, one unpromoted chain over all of K must not
+    x = torch.randn((512, 4096), generator=gen, device=DEV).abs()
+    w = torch.randn((4096, 512), generator=gen, device=DEV).abs()
+    xq, sx = ops.quantize_fp8(x, 1)
+    wq, sw = ops.quantize_fp8(w, 0)
+    want = ref.fp8_matmul_ref(xq, wq, sx, sw)
+    out, path = launch(xq, wq, sx, sw)
+    compare("all-positive M=512 K=4096 N=512, promoted", out, want, path)
+    chained = gap(launch(xq, wq, sx, sw, promote=False)[0], want)
+    print(f"  the same unpromoted: {chained:.3g} of max |out| (must exceed "
+          f"{TOL_FP8_TC_REL:g})")
+    if not chained > TOL_FP8_TC_REL:
+        raise AssertionError("the unpromoted chain meets the limit: the "
+                             "all-positive case shows nothing")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1449,13 +1545,15 @@ def phase_fp8(record, counters):
                                  dtype=bf16) * 0.02)
               for name, (M, K, N) in FP8_SHAPES.items()}
     # the main path: the online-quantized entry point, counts read after
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     outs = {name: ops.fp8_matmul(x, w) for name, (x, w) in inputs.items()}
     sync()
     launches = {k: fn.launches for k, fn in counters.items()}
-    if launches != {**{k: 0 for k in counters}, "fp8_matmul": 2}:
-        raise AssertionError(f"fp8 launches {launches}")
+    if launches != {**{k: 0 for k in counters}, "fp8_matmul": 2} \
+            or ops.fp8_scaled_matmul.launches_tc != 2:
+        raise AssertionError(f"fp8 launches {launches}, on the tensor "
+                             f"cores {ops.fp8_scaled_matmul.launches_tc}")
+    print("  both FFN shapes through the entry point on the tensor cores")
     record["launches"] = launches["fp8_matmul"]
 
     first = True
@@ -1464,7 +1562,7 @@ def phase_fp8(record, counters):
         xq, sx = ops.quantize_fp8(x, 1)
         wq, sw = ops.quantize_fp8(w, 0)
         compare(f"{name} (M {M}, K {K}, N {N})", outs.pop(name),
-                ref.fp8_matmul_ref(xq, wq, sx, sw))
+                ref.fp8_matmul_ref(xq, wq, sx, sw), ops.kernel_path(K, N))
         if not first:
             # quantize_fp8 on the card equals the CPU's bit for bit
             for t, axis in ((x, 1), (w, 0)):
@@ -1487,7 +1585,9 @@ def phase_fp8(record, counters):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        # the library yardstick: cuBLASLt's fp8 GEMM with row-wise scales
+        # the library yardstick: cuBLASLt's fp8 GEMM with row-wise scales;
+        # its column-major w_col is made here, outside its timing (the
+        # kernel's own transpose of w_q is inside the kernel's)
         w_col = wq.t().contiguous().t()
         library_ms, lib_dtype = None, None
         for out_dtype in (bf16, torch.float32):
@@ -1510,10 +1610,11 @@ def phase_fp8(record, counters):
                   f"version max |d| / max |out| {rel:.3g}")
             del lib, want
             break
-        print(f"  {name}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {bound_ms:.3f} ms ({bound_by}; "
-              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB), "
-              f"achieved {flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        print(f"  {name}: kernel {kernel_ms:.3f} ms (fp32 out, the "
+              f"transpose of w_q included), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}; {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e9:.3f} GB), achieved "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
         if first:
             record.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms,
@@ -1522,6 +1623,9 @@ def phase_fp8(record, counters):
         del xq, wq, sx, sw, w_col
         gc.collect()
         torch.cuda.empty_cache()
+    print(f"  promotion gap on the tensor cores: worst {max(tc_gaps):.3g} "
+          f"of max |out| over {len(tc_gaps)} shapes (limit "
+          f"{TOL_FP8_TC_REL:g}; unpromoted all-positive {chained:.3g})")
     record["max_abs_err"] = max(errs)
 
 
@@ -1568,13 +1672,20 @@ def main():
     print(f"  built {', '.join(s.name for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for src in sources:
-        log = build.BUILD_LOGS.get(str(src), "")
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", log))
-        if regs:
-            print(f"  ptxas {src.name}: {len(regs)} instantiations, "
-                  f"{min(regs)}-{max(regs)} registers per thread, {spills} "
-                  f"bytes of spills")
+        entries, serialized = ptxas_entries(
+            build.BUILD_LOGS.get(str(src), ""))
+        for tc in (False, True):
+            part = [e for e in entries if ("wgmma" in e[0]) == tc]
+            if not part:
+                continue
+            regs = [e[1] for e in part]
+            print(f"  ptxas {src.name}{' (tensor cores)' if tc else ''}: "
+                  f"{len(part)} instantiations, {min(regs)}-{max(regs)} "
+                  f"registers per thread, {sum(e[2] for e in part)} bytes "
+                  f"of spills")
+        if serialized:
+            print(f"  ptxas {src.name}: {serialized} wgmma serialization "
+                  f"notes (C75xx)")
 
     paged = {"name": "paged_chunk_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/paged_attention/csrc/"

@@ -2,17 +2,21 @@
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` over a source with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
-lands in ``_build/`` next to this file (or ``$REPRO_TORCH_BUILD_DIR``),
-named by a hash of the source and flags, so an edited source rebuilds
-and concurrent builds never see a half-written file.  A missing
-``nvcc`` or a failed build raises; there is no fallback.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  A source
+includes its headers with ``#include "..."``, found beside the including
+file or in ``common/csrc`` (the shared Hopper header, passed with
+``-I``).  The library lands in ``_build/`` next to this file (or
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, every header
+it reaches and the flags, so an edited source or header rebuilds and
+concurrent builds never see a half-written file.  A missing ``nvcc`` or
+a failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,6 +26,10 @@ from typing import Dict, List, Sequence
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
+
+# headers shared by the kernels of several subpackages
+COMMON = Path(__file__).resolve().parent / "common" / "csrc"
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # nvcc output (with ptxas register / shared-memory / spill counts) of
@@ -47,8 +55,29 @@ def nvcc() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
+def sources(src: Path) -> List[Path]:
+    """``src`` and every header it reaches through ``#include "..."``,
+    transitively, each looked up beside the file that includes it, then
+    in ``COMMON``; in the order first reached."""
+    seen: List[Path] = []
+    todo = [Path(src).resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for name in _INCLUDE.findall(f.read_text()):
+            for d in (f.parent, COMMON):
+                if (d / name).is_file():
+                    todo.append((d / name).resolve())
+                    break
+    return seen
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha1(src.read_bytes())
+    h = hashlib.sha1()
+    for f in sources(src):
+        h.update(f.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
@@ -61,7 +90,8 @@ def _compile(src: Path):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     proc = subprocess.Popen(
-        [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, str(src)],
+        [nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(COMMON), "-o", tmp,
+         str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -2,10 +2,13 @@
 [B, S, H, D].
 
 A CPU tensor takes the plain PyTorch version (``ref.flash_mha_ref``,
-the plain ``mha`` body); a CUDA tensor launches the hand-written CUDA
-kernel (``csrc/flash_mha.cu``, built with nvcc at first use) or raises.
-There is no fallback between the two.  ``flash_mha.launches`` counts
-kernel launches.
+the plain ``mha`` body); a CUDA tensor launches a hand-written CUDA
+kernel of ``csrc/flash_mha.cu`` (built with nvcc at first use) or
+raises.  There is no fallback between the two.  ``kernel_path`` picks
+the kernel from the dtype and head dim alone: bf16 at D 96 or 128 runs
+on the tensor cores (wgmma fed by TMA), everything else on the CUDA
+cores.  ``flash_mha.launches`` counts kernel launches and
+``flash_mha.launches_tc`` the tensor-core ones among them.
 
 The modes are those of the reference's ``flash_mha_pallas``: causal with
 ``q_offset``, sink + sliding window, the static rho block keep matrix
@@ -32,6 +35,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the configs' head dims: reduced 16, ardit-causal-forcing 96,
 # ardit-self-forcing 128
 _HEAD_DIMS = (16, 96, 128)
+# the head dims of the tensor-core kernel (every full-width model)
+WGMMA_HEAD_DIMS = (96, 128)
+
+
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that takes q/k/v of ``dtype`` at ``head_dim``:
+    ``"wgmma"`` for bf16 at D 96 or 128 (tensor cores, P rounded to bf16
+    before P V as in SDPA), else ``"cuda_cores"`` (fp32 FMAs: fp32 inputs
+    keep their 1e-4 agreement with the CPU, which TF32 would not; bf16
+    at D 16 occurs only in tests)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def keep_matrix(n_q: int, n_kv: int, *, causal: bool, q_offset: int,
@@ -63,11 +79,11 @@ def keep_matrix(n_q: int, n_kv: int, *, causal: bool, q_offset: int,
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
-    fn = lib.flash_mha_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.flash_mha_launch.argtypes is None:
+        for fn in (lib.flash_mha_launch, lib.flash_mha_wgmma_launch):
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.flash_mha_error_string.argtypes = [ctypes.c_int]
         lib.flash_mha_error_string.restype = ctypes.c_char_p
     return lib
@@ -114,7 +130,9 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
             block_q=block_q, block_kv=block_kv)).to(dev)
     out = torch.empty_like(q)
     lib = _lib()
-    err = lib.flash_mha_launch(
+    tc = kernel_path(q.dtype, d) == "wgmma"
+    launch = lib.flash_mha_wgmma_launch if tc else lib.flash_mha_launch
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if keep is None else keep.data_ptr(), out.data_ptr(),
         b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
@@ -125,6 +143,7 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
         msg = lib.flash_mha_error_string(err).decode()
         raise RuntimeError(f"flash_mha launch failed: {msg}")
     flash_mha.launches += 1
+    flash_mha.launches_tc += int(tc)
     return out
 
 
@@ -153,3 +172,4 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_mha.launches = 0
+flash_mha.launches_tc = 0

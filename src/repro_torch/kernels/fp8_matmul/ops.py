@@ -3,11 +3,15 @@
 ``quantize_fp8`` is plain PyTorch on every device, as the reference runs
 its oracle on every backend.  ``fp8_scaled_matmul`` takes quantized
 operands: a CPU tensor takes the plain version (``ref.fp8_matmul_ref``),
-a CUDA tensor launches the hand-written CUDA kernel
-(``csrc/fp8_matmul.cu``, built with nvcc at first use) or raises; there
-is no fallback between the two, and ``fp8_scaled_matmul.launches``
-counts kernel launches.  ``fp8_matmul`` quantizes both operands online
-and calls it, as the reference's ``fp8_matmul`` does.
+a CUDA tensor launches a hand-written CUDA kernel of
+``csrc/fp8_matmul.cu`` (built with nvcc at first use) or raises; there
+is no fallback between the two.  ``kernel_path`` picks the kernel from
+the shape alone: K and N multiples of 16 run on the tensor cores (e4m3
+wgmma fed by TMA, partial sums promoted into fp32 every 64 of K), other
+shapes on the CUDA cores.  ``fp8_scaled_matmul.launches`` counts kernel
+launches and ``fp8_scaled_matmul.launches_tc`` the tensor-core ones
+among them.  ``fp8_matmul`` quantizes both operands online and calls
+it, as the reference's ``fp8_matmul`` does.
 """
 from __future__ import annotations
 
@@ -24,6 +28,15 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fp8_matmul.cu"
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def kernel_path(k: int, n: int) -> str:
+    """The CUDA kernel for x_q [M,k] x w_q [k,n]: ``"wgmma"`` where k and
+    n are nonzero multiples of 16 (TMA needs 16-byte row strides), else
+    ``"cuda_cores"``."""
+    if k > 0 and k % 16 == 0 and n % 16 == 0:
+        return "wgmma"
+    return "cuda_cores"
+
+
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
@@ -32,12 +45,16 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        tc = lib.fp8_matmul_wgmma_launch
+        tc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        tc.restype = ctypes.c_int
         lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.fp8_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x_q, w_q, sx, sw, out_dtype):
+def _launch(x_q, w_q, sx, sw, out_dtype, promote):
     m, k = x_q.shape
     k2, n = w_q.shape
     dev = x_q.device
@@ -60,14 +77,24 @@ def _launch(x_q, w_q, sx, sw, out_dtype):
         raise ValueError("x_q and w_q must be 16-byte aligned")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     lib = _lib()
-    err = lib.fp8_matmul_launch(
-        xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
-        out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tc = kernel_path(k, n) == "wgmma"
+    if tc:
+        # scratch for w_q transposed to [N, K], written by the same call
+        w_t = torch.empty((n, k), dtype=torch.uint8, device=dev)
+        err = lib.fp8_matmul_wgmma_launch(
+            xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
+            out.data_ptr(), w_t.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype],
+            int(promote), stream)
+    else:
+        err = lib.fp8_matmul_launch(
+            xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
+            out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype], stream)
     if err != 0:
         msg = lib.fp8_matmul_error_string(err).decode()
         raise RuntimeError(f"fp8_matmul launch failed: {msg}")
     fp8_scaled_matmul.launches += 1
+    fp8_scaled_matmul.launches_tc += int(tc)
     return out
 
 
@@ -80,19 +107,25 @@ def quantize_fp8(x: torch.Tensor,
 
 def fp8_scaled_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                       sx: torch.Tensor, sw: torch.Tensor, *,
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      out_dtype=torch.float32,
+                      promote: bool = True) -> torch.Tensor:
     """x_q [M,K] fp8, w_q [K,N] fp8, sx [M,1], sw [1,N] fp32 ->
     (x_q w_q) * sx * sw [M,N] in ``out_dtype`` (fp32 or bf16), summed in
-    fp32 with both scales folded in once, at the end.  Any M, N, K."""
+    fp32 with both scales folded in once, at the end.  Any M, N, K.
+
+    ``promote=False`` is for tests only: the tensor-core kernel then sums
+    all of K in the wgmma accumulator, to show what the promotion every
+    64 of K buys.  It changes nothing on the other paths."""
     if x_q.device.type == "cpu":
         return _ref.fp8_matmul_ref(x_q, w_q, sx, sw).to(out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"fp8_scaled_matmul: no kernel for device "
                          f"{x_q.device}")
-    return _launch(x_q, w_q, sx, sw, out_dtype)
+    return _launch(x_q, w_q, sx, sw, out_dtype, promote)
 
 
 fp8_scaled_matmul.launches = 0
+fp8_scaled_matmul.launches_tc = 0
 
 
 def fp8_matmul(x: torch.Tensor, w: torch.Tensor, *,

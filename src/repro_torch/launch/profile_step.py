@@ -1,4 +1,5 @@
-"""Where a batched denoise step spends its device time.
+"""Where a batched denoise step, or a sequential chunk, spends its
+device time.
 
 Builds a ``BatchedChunkExecutor`` for full-width ``ardit-self-forcing``
 on the card with random weights from a seed (adaLN gates opened), fills
@@ -6,10 +7,14 @@ on the card with random weights from a seed (adaLN gates opened), fills
 with ``torch.profiler`` and prints the device time by kernel and by
 category (the paged attention kernel, the attention segments' fp32
 matmuls, the linear layers' matmuls, the rest), next to the steps' host
-wall time and the device's idle share::
+wall time and the device's idle share.  With ``--sequential`` it runs
+the ``SequentialChunkExecutor`` instead: one stream filled to ``--fill``
+chunks, then one whole top-fidelity chunk traced (every attention call
+through the flash kernel)::
 
     python -m repro_torch.launch.profile_step            # 2 chunks
     python -m repro_torch.launch.profile_step --fill 7   # full window
+    python -m repro_torch.launch.profile_step --sequential --fill 2
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ def category(name: str) -> str:
     low = name.lower()
     if "paged_chunk_attention" in low:
         return "paged_chunk_attention (CUDA kernel)"
+    if "flash_mha" in low:
+        return "flash_mha (CUDA kernel)"
     if any(k in low for k in GEMM):
         if "f32f32" in low:
             return "matmul fp32 (attention einsums)"
@@ -46,6 +53,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fill", type=int, default=2,
                     help="chunks of context each stream holds when traced")
+    ap.add_argument("--sequential", action="store_true",
+                    help="trace one whole chunk of the sequential executor")
     args = ap.parse_args()
 
     from repro_torch.configs.base import get_config
@@ -57,10 +66,14 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     params = A.open_gates(A.init_params(cfg, gen, dev), gen)
+    fid = FidelityConfig(4, 0.0, cfg.ardit_window_chunks, "bf16")
+    ctx = A.COND_TOKENS + args.fill * A.chunk_tokens(cfg)
+    if args.sequential:
+        profile_sequential(cfg, params, dev, fid, args.fill, ctx)
+        return
     ex = BatchedChunkExecutor(cfg=cfg, params=params, max_streams=STREAMS,
                               device=dev)
     sids = list(range(STREAMS))
-    fid = FidelityConfig(4, 0.0, cfg.ardit_window_chunks, "bf16")
     for sid in sids:
         ex.admit(sid, seed=sid)
     for _ in range(args.fill):                    # fill the rings
@@ -81,9 +94,31 @@ def main() -> None:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
 
-    ctx = A.COND_TOKENS + args.fill * A.chunk_tokens(cfg)
     report(prof, category, STEPS, wall,
            f"{ARCH}: {STREAMS} rows, context {ctx} tokens, {STEPS} steps")
+
+
+def profile_sequential(cfg, params, dev, fid, fill: int, ctx: int) -> None:
+    """One stream on the sequential executor: ``fill`` chunks, then one
+    chunk traced (4 denoise steps and the clean forward)."""
+    from repro_torch.serve.executor import SequentialChunkExecutor
+
+    ex = SequentialChunkExecutor(cfg=cfg, params=params, device=dev)
+    ex.admit(0, seed=0)
+    for _ in range(fill):
+        ex.begin_chunk(0, fid, 0.0)
+        ex.run_step([0])
+    ex.begin_chunk(0, fid, 0.0)
+    torch.cuda.synchronize(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        ex.run_step([0])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    report(prof, category, 1, wall,
+           f"{ARCH}: sequential, 1 row, context {ctx} tokens, one chunk")
 
 
 def report(prof, category, steps: int, wall: float, title: str,

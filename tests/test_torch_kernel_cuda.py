@@ -19,10 +19,14 @@ l within 1e-4; rows that see nothing are exactly (NEG_INF, 0, 0).
 Flash attention: ``flash_mha`` against ``flash_mha_ref`` over head dims
 16/96/128 x fp32/bf16 x each mode (non-causal at ragged AR-DiT-like
 lengths, causal with ``q_offset``, sink + window, the rho keep matrix at
-blocks that are not the kernel's 64-wide tiles, GQA, rows that see
-nothing), ``mha``'s dispatch, and the inputs the wrapper refuses.
-Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at the output's largest
-magnitude for bf16 outputs (both round the same fp32 result once).
+blocks that are not the kernels' tiles, GQA, rows that see nothing), the
+tensor-core kernel (bf16 at D 96 and 128) at lengths that cross and
+miss its 128-row and 128-key tiles, ``mha``'s dispatch, and the inputs
+the wrapper refuses; every launch is checked to take the path
+``kernel_path`` names.  Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at
+the output's largest magnitude for bf16 outputs (the CUDA-core kernel
+rounds the same fp32 result once; the tensor-core kernel also rounds P
+to bf16 before P V, as SDPA does, and stays within the same limit).
 
 Paged chunk attention on head-range views ``pool[..., lo:hi, :]`` (the
 elastic SP2 shards): the kernel reads the view in place and gives
@@ -40,12 +44,20 @@ Tolerance: 1e-5 in fp32 (both sum in fp32; they differ in order only),
 
 Scaled fp8 matmul: ``fp8_scaled_matmul`` against ``fp8_matmul_ref`` at
 the reference tests' shapes and ragged M, N, K (including K and N that
-are not multiples of 16), fp32 and bf16 out; ``quantize_fp8`` on the
-card equals the CPU's bit for bit.  Tolerance: every product of two
-e4m3 values is exact in fp32 and both sides sum in fp32, in different
-orders: |d| <= 1e-5 of the output's largest magnitude in fp32 (about
-ten times the order difference of a 4,096-term sum); in bf16 one bf16
-ulp at each element's magnitude on top of that.
+are not multiples of 16, which take the CUDA-core kernel), fp32 and bf16
+out, the two FFN shapes of the chip check on the tensor cores, and
+all-positive operands at K = 4,096 with and without the promotion;
+``quantize_fp8`` on the card equals the CPU's bit for bit.  Tolerance
+on the CUDA-core kernel: every product of two e4m3 values is exact in
+fp32 and both sides sum in fp32, in different orders: |d| <= 1e-5 of the
+output's largest magnitude in fp32 (about ten times the order difference
+of a 4,096-term sum).  On the tensor-core kernel the wgmma accumulator
+keeps about 14 bits between promotions into fp32 (every 64 of K), so
+its limit is FP8_TC_REL of the largest magnitude, twice the worst gap
+measured on an H100 over these tests and the chip check, rounded up
+(and capped at 5e-4); the unpromoted chain over all-positive operands
+must exceed it.  In bf16 one bf16 ulp at each element's magnitude on
+top of either.
 
 SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
 instantiates x fp32/bf16 x/B/C, ragged S, S < chunk, ``init_state``,
@@ -188,10 +200,12 @@ def test_flash_kernel_matches_plain_version(card, mode, D, dtype):
     q = torch.randn((2, Sq, Hq, D), generator=g, device=card).to(dtype)
     k = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
     v = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
-    before = fops.flash_mha.launches
+    before = fops.flash_mha.launches, fops.flash_mha.launches_tc
     got = fops.flash_mha(q, k, v, n_kv_heads=Hkv, **kw)
     torch.cuda.synchronize()
-    assert fops.flash_mha.launches == before + 1
+    tc = int(fops.kernel_path(dtype, D) == "wgmma")
+    assert (fops.flash_mha.launches,
+            fops.flash_mha.launches_tc) == (before[0] + 1, before[1] + tc)
     want = fref.flash_mha_ref(q, k, v, n_kv_heads=Hkv,
                               **{**dict(block_q=128, block_kv=128), **kw})
     assert got.dtype == dtype and got.shape == q.shape
@@ -199,6 +213,34 @@ def test_flash_kernel_matches_plain_version(card, mode, D, dtype):
     assert err <= flash_limit(want), (mode, D, dtype, err)
     if mode == "rows-see-nothing":
         assert float(got[:, :8].float().abs().max()) == 0.0
+
+
+FLASH_TC_LENGTHS = [  # Sq, Skv, causal: across and short of 128-wide tiles
+    (1, 1, False), (127, 129, False), (129, 255, False), (300, 77, False),
+    (200, 1000, True), (257, 700, True), (300, 77, True)]
+
+
+@pytest.mark.parametrize("lengths", FLASH_TC_LENGTHS,
+                         ids=[f"{a}x{b}{'c' if c else ''}"
+                              for a, b, c in FLASH_TC_LENGTHS])
+@pytest.mark.parametrize("D", [96, 128])
+def test_flash_tensor_core_kernel_at_ragged_lengths(card, lengths, D):
+    Sq, Skv, causal = lengths
+    g = torch.Generator(device=card).manual_seed(Sq * 7 + Skv + D)
+    bf16 = torch.bfloat16
+    q = torch.randn((2, Sq, 8, D), generator=g, device=card).to(bf16)
+    k = torch.randn((2, Skv, 2, D), generator=g, device=card).to(bf16)
+    v = torch.randn((2, Skv, 2, D), generator=g, device=card).to(bf16)
+    kw = dict(causal=causal, q_offset=Skv - Sq if causal else 0)
+    before = fops.flash_mha.launches_tc
+    got = fops.flash_mha(q, k, v, n_kv_heads=2, **kw)
+    torch.cuda.synchronize()
+    assert fops.flash_mha.launches_tc == before + 1
+    want = fref.flash_mha_ref(q, k, v, n_kv_heads=2, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= flash_limit(want), (lengths, D, err)
+    if causal and Sq > Skv:                 # the first rows see nothing
+        assert float(got[:, :Sq - Skv].float().abs().max()) == 0.0
 
 
 def test_mha_dispatches_to_the_flash_kernel(card):
@@ -476,14 +518,29 @@ FP8_SHAPES = [(64, 64, 64), (128, 256, 64), (32, 32, 32),   # M, K, N
               (257, 1536, 8960)]
 
 
-def _fp8_check(got, want):
+# the tensor-core kernel's limit, a share of max |out|: twice the worst
+# gap measured (see the module docstring), rounded up, at most 5e-4
+FP8_TC_REL = 5e-4
+FP8_FFN_SHAPES = [(32768, 4096, 16384), (10560, 1536, 8960)]
+
+
+def _fp8_gap(got, want):
+    """max |got - want| over max |want| (fp32 outputs)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _fp8_check(got, want, path):
+    rel = FP8_TC_REL if path == "wgmma" else 1e-5
     top = float(want.float().abs().max())
-    tol = 1e-5 * max(top, 1e-30)
+    tol = rel * max(top, 1e-30)
     d = (got.float() - want.float()).abs()
     if want.dtype == torch.bfloat16:
         mag = want.float().abs().clamp_min(1e-30)
         d = d - torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    assert float(d.max()) <= tol, (float(d.max()), tol)
+    print(f"fp8 {path} {tuple(want.shape)} {want.dtype}: gap "
+          f"{float(d.max()) / max(top, 1e-30):.3g} of max |out|")
+    assert float(d.max()) <= tol, (path, float(d.max()), tol)
 
 
 @pytest.mark.parametrize("shape", FP8_SHAPES)
@@ -496,15 +553,53 @@ def test_fp8_kernel_matches_plain_version(card, shape, out_dtype):
     w = torch.randn((K, N), generator=g, device=card).bfloat16()
     xq, sx = f8ops.quantize_fp8(x, axis=1)
     wq, sw = f8ops.quantize_fp8(w, axis=0)
-    before = f8ops.fp8_scaled_matmul.launches
+    path = f8ops.kernel_path(K, N)
+    before = (f8ops.fp8_scaled_matmul.launches,
+              f8ops.fp8_scaled_matmul.launches_tc)
     got = f8ops.fp8_scaled_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
     want = f8ref.fp8_matmul_ref(xq, wq, sx, sw).to(out_dtype)
     torch.cuda.synchronize()
-    assert f8ops.fp8_scaled_matmul.launches == before + 1
+    assert (f8ops.fp8_scaled_matmul.launches,
+            f8ops.fp8_scaled_matmul.launches_tc) == (
+        before[0] + 1, before[1] + int(path == "wgmma"))
     assert got.shape == (M, N) and got.dtype == out_dtype
-    _fp8_check(got, want)
+    _fp8_check(got, want, path)
     # the online-quantized entry point launches the same kernel
-    _fp8_check(f8ops.fp8_matmul(x, w, out_dtype=out_dtype), want)
+    _fp8_check(f8ops.fp8_matmul(x, w, out_dtype=out_dtype), want, path)
+
+
+@pytest.mark.parametrize("shape", FP8_FFN_SHAPES,
+                         ids=["minitron-8b", "ardit"])
+def test_fp8_ffn_shapes_take_the_tensor_cores(card, shape):
+    M, K, N = shape
+    g = torch.Generator(device=card).manual_seed(K)
+    x = torch.randn((M, K), generator=g, device=card, dtype=torch.bfloat16)
+    w = torch.randn((K, N), generator=g, device=card,
+                    dtype=torch.bfloat16) * 0.02
+    before = f8ops.fp8_scaled_matmul.launches_tc
+    got = f8ops.fp8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert f8ops.fp8_scaled_matmul.launches_tc == before + 1
+    xq, sx = f8ops.quantize_fp8(x, axis=1)
+    wq, sw = f8ops.quantize_fp8(w, axis=0)
+    _fp8_check(got, f8ref.fp8_matmul_ref(xq, wq, sx, sw), "wgmma")
+
+
+def test_fp8_promotion_keeps_an_all_positive_sum_within_the_limit(card):
+    # |randn| operands: every truncation of the wgmma accumulator errs
+    # the same way, the worst case for a long sum
+    g = torch.Generator(device=card).manual_seed(4096)
+    x = torch.randn((512, 4096), generator=g, device=card).abs()
+    w = torch.randn((4096, 512), generator=g, device=card).abs()
+    xq, sx = f8ops.quantize_fp8(x, axis=1)
+    wq, sw = f8ops.quantize_fp8(w, axis=0)
+    want = f8ref.fp8_matmul_ref(xq, wq, sx, sw)
+    promoted = _fp8_gap(f8ops.fp8_scaled_matmul(xq, wq, sx, sw), want)
+    chained = _fp8_gap(
+        f8ops.fp8_scaled_matmul(xq, wq, sx, sw, promote=False), want)
+    print(f"fp8 all-positive K=4096: promoted {promoted:.3g}, unpromoted "
+          f"{chained:.3g} of max |out|")
+    assert promoted <= FP8_TC_REL < chained, (promoted, chained)
 
 
 def test_quantize_on_the_card_matches_the_cpu(card):
