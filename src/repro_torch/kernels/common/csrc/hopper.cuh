@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // mbarriers, TMA tiled loads, wgmma shared-memory descriptors and the
-// wgmma.mma_async shapes the kernels use, named barriers, register
+// wgmma.mma_async shapes the kernels use, e4m3 tiles widened to bf16 in
+// the swizzled layout wgmma reads, named barriers, register
 // re-allocation between warpgroups, and, on the host,
 // cuTensorMapEncodeTiled through the runtime's driver entry point (so a
 // library needs no -lcuda link).
 //
 // The conventions every user of this header follows:
-//   * a tile that wgmma reads is written by TMA with the 128-byte swizzle
-//     and starts on a 1024-byte boundary of shared memory: rows of 128
-//     bytes (64 bf16 or 128 fp8 values), eight rows to a 1024-byte atom;
+//   * a tile that wgmma reads is written with the 128-byte swizzle (by
+//     TMA, or by threads widening an e4m3 tile) and starts on a 1024-byte
+//     boundary of shared memory: rows of 128 bytes (64 bf16 values),
+//     eight rows to a 1024-byte atom;
 //   * a "full" barrier per ring stage is armed by the producer with the
 //     stage's byte count (arrive.expect_tx) and completes when TMA has
 //     written them; an "empty" barrier per stage completes when every
@@ -21,6 +23,8 @@
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -108,6 +112,70 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// orders this thread's generic-proxy writes to shared memory (plain
+// stores) before later async-proxy reads of them (wgmma operands); place
+// before the arrive that releases the tile to its readers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- softmax arithmetic ------------------------------------------------------
+
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values rounded to a bf16 pair (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- e4m3 -> bf16 in shared memory -------------------------------------------
+
+// 16 e4m3 values (16 bytes) widened to bf16: lo holds values 0-7, hi
+// 8-15.  Exact: every e4m3 value, NaN included, is a bf16 value.  (An
+// integer form with one bf16 multiply, tried on an H100, was slower than
+// these conversion instructions.)
+__device__ __forceinline__ void widen_e4m3x16(uint4 in, uint4& lo, uint4& hi) {
+  const __nv_fp8x2_e4m3* p = reinterpret_cast<const __nv_fp8x2_e4m3*>(&in);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = static_cast<float2>(p[i]);
+    w[i] = pack_bf16(f.x, f.y);
+  }
+  lo = make_uint4(w[0], w[1], w[2], w[3]);
+  hi = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Which 16-byte chunk j of which row a thread widens, for tiles of
+// 128-byte rows (8 chunks): chunk number idx goes to j = idx % 8 of one
+// of two rows, so that the 8 threads of a quarter warp read 8 distinct
+// chunks of the unswizzled e4m3 rows and write 8 distinct 16-byte bank
+// groups of the swizzled bf16 boxes (rows of opposite parity take
+// opposite halves of the swizzle): no bank is met twice.
+__device__ __forceinline__ void chunk_of(int idx, int& row, int& j) {
+  j = idx & 7;
+  row = ((idx >> 4) << 1) | (((idx >> 2) ^ (idx >> 3)) & 1);
+}
+
+// Stores bf16 columns 16j .. 16j+15 of row `row` (lo: the first 8, hi:
+// the last 8) into a tile kept as 64-column boxes of 128-byte rows in
+// the 128-byte swizzle (box b of the tile at tile + b * box_bytes, each
+// box on a 1024-byte boundary): the layout TMA writes and wgmma reads.
+__device__ __forceinline__ void st_sw128_bf16x16(uint8_t* tile, int box_bytes,
+                                                 int row, int j, uint4 lo,
+                                                 uint4 hi) {
+  uint8_t* r = tile + (j >> 2) * box_bytes + row * 128;
+  const int c = 2 * (j & 3), x = row & 7;
+  *reinterpret_cast<uint4*>(r + ((c ^ x) << 4)) = lo;
+  *reinterpret_cast<uint4*>(r + (((c + 1) ^ x) << 4)) = hi;
+}
+
 // ---- named barriers (ids 1-15; 0 is __syncthreads) ---------------------------
 
 // waits until `threads` threads (a multiple of 32) have reached barrier
@@ -142,7 +210,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 //   K-major (K contiguous, one 128-byte row per M/N index): SBO = 1024,
 //     the step between 8-row atoms; LBO is unused.  A k-step inside the
 //     128-byte row moves the start address by its bytes (32 for k16 in
-//     bf16, k32 in fp8): the swizzle is a function of the address.
+//     bf16): the swizzle is a function of the address.
 //   MN-major (M/N contiguous, one 128-byte row per K index; bf16 only):
 //     SBO = 1024, the step between groups of 8 K rows; LBO = the step
 //     between 64-wide M/N column blocks.
@@ -211,6 +279,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_bf16(float (&d)[64], uint64_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// bf16 x bf16 -> fp32, A K-major and B MN-major in shared memory
+// (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n128k16_ss_bf16_tb(float (&d)[64],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // bf16 x bf16 -> fp32, A in registers, B MN-major in shared memory
 // (imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_m64n128k16_rs_bf16_tb(float (&d)[64],
@@ -258,31 +351,6 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs_bf16_tb(float (&d)[48],
         "r"(scale_d));
 }
 
-// e4m3 x e4m3 -> fp32, A and B K-major in shared memory (fp8 takes no
-// transposed operand).
-__device__ __forceinline__ void wgmma_m64n128k32_ss_e4m3(float (&d)[64], uint64_t desc_a,
-    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 
 // ---- host -----------------------------------------------------------------
 
@@ -306,21 +374,24 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A tiled tensor map with the 128-byte swizzle and zero fill outside the
-// tensor.  dims and box innermost first; strides in bytes for dims 1..
-// rank-1.  Returns 0, or a nonzero CUresult (-1000 without the driver
-// entry point).
+// A tiled tensor map with zero fill outside the tensor, in the 128-byte
+// swizzle (what wgmma reads) unless another is asked for (a staging tile
+// that plain loads read: CU_TENSOR_MAP_SWIZZLE_NONE, rows of the box's
+// inner bytes back to back).  dims and box innermost first; strides in
+// bytes for dims 1..rank-1.  Returns 0, or a nonzero CUresult (-1000
+// without the driver entry point).
 inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType dtype,
                         uint32_t rank, const void* base,
                         const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+                        const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle =
+                            CU_TENSOR_MAP_SWIZZLE_128B) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return -1000;
   cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   CUresult r = encode(map, dtype, rank, const_cast<void*>(base), dims,
                       strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return static_cast<int>(r);

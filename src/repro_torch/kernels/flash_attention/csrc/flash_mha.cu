@@ -379,18 +379,6 @@ __device__ __forceinline__ bool tile_needs_mask(const Params& p, bool rho,
   return p.window && !(t0 > qp_hi - p.window || t0 + BN - 1 < p.sink);
 }
 
-// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // O += P V over a tile's keys in k16 steps (16 rows of V each)
 template <int D>
 __device__ __forceinline__ void pv_tile(float (&o)[D / 2],

@@ -12,30 +12,44 @@
 //
 // Bound at the main path's shape (minitron-8b's FFN up-projection over
 // one 32,768-token prompt: M 32768, K 4096, N 16384): 2MNK = 4.40 TFLOP,
-// 2.22 ms at the H100's 1,979 TFLOP/s dense fp8 rate (the 2.35 GB it
-// moves take 0.70 ms), so it is compute-bound.
+// 2.22 ms at the H100's 1,979 TFLOP/s dense fp8 rate, 4.447 ms at the
+// 989 TFLOP/s bf16 rate that an exact sum runs at (the 2.35 GB it moves
+// take 0.70 ms), so it is compute-bound.
 //
 // Two kernels; the wrapper picks one by shape.
 //
 // K and N multiples of 16 (every model shape): fp8_matmul_wgmma, on the
-// tensor cores.  w_q is first transposed to w_t [N,K] by a small kernel
-// in the same call (fp8 wgmma takes B only K-major).  A block owns a
-// 128 x 128 output tile: a producer warpgroup, of which one thread issues
-// TMA, and two consumer warpgroups of 64 rows each (setmaxnreg moves the
-// producer's registers to them).  128-byte K slices of x_q and w_t (one
-// 128-byte swizzled row per output row or column) come through a 4-stage
-// ring guarded by mbarriers; TMA writes zeros past M, N and K.  Each
-// stage is four m64n128k32 e4m3 wgmmas, in chunks of two (64 of K) into
-// two fp32 accumulators in turn, each chunk started from 0 and added
-// into a third set of fp32 registers while the next one runs: the tensor
-// cores keep only about 14 bits while they accumulate fp8 products
-// (DeepSeek-V3 technical report, "Increasing Accumulation Precision"),
-// and promoting the partial sums keeps the result near an fp32 sum.
-// Every 64 of K, not every 128: with all-positive operands (truncation
-// bias all one way) a 128-deep chain misses the limit the tests hold
-// this kernel to, 5e-4 of max |out|; a 32-deep one costs more fp32 adds
-// than the CUDA cores keep up with.  Blocks walk the output in groups of
-// 16 row blocks so that the tiles of x_q and w_t in flight stay in L2.
+// tensor cores, summing as exactly as the reference.  Hopper's e4m3 wgmma
+// keeps only about 14 bits while it accumulates (DeepSeek-V3 technical
+// report, "Increasing Accumulation Precision"), which misses the
+// reference's 1e-5 at the reference's own shapes.  So the e4m3 operands
+// are widened to bf16 in shared memory, which is exact (every e4m3 value
+// is a bf16 value), and multiplied on bf16 wgmma into fp32: the product
+// of two e4m3 values is exact, and the sum is fp32.  The bound is then
+// the bf16 rate, half the fp8 one (4.447 ms at minitron-8b's FFN, below).
+// A block owns a 128 x 128 output tile: one thread of the producer
+// warpgroup issues TMA loads of 128-deep K slices of x_q [128 rows of M]
+// and w_q [128 rows of K] as they lie in memory (e4m3, unswizzled) into a
+// 3-stage ring; two consumer warpgroups of 64 rows each (setmaxnreg moves
+// the producer's registers to them) widen each slice to bf16 in the
+// 128-byte swizzle (64-column boxes) of one of two bf16 stages, and run
+// m64n128k16 bf16 wgmmas on it, x K-major and w read MN-major (the
+// transposed-B form), so w_q needs no transpose.  The widening of slice
+// k + 1 runs while slice k's products are on the tensor cores: three
+// dedicated warps proved too few for it (one warp per scheduler is
+// latency-bound: about 3,500 cycles a 32 KB slice on an H100, 2,200 of
+// them the shared-memory loads and stores alone, against about 1,400 for
+// the slice's products).  TMA writes zeros past M, N and K.  Each stage is
+// eight k16 steps, in chunks of four (64 of K) into one fp32 accumulator,
+// each chunk started from 0 and added into the fp32 sum in registers when
+// it is done: the fp32 accumulation of Hopper's tensor cores truncates,
+// so a long all-positive chain drifts (on an H100, one chain over K =
+// 4,096 all-positive terms gave 2.67e-6 of max |out|, the promoted sum
+// 6.0e-7).  One accumulator, not two in turn, leaves the registers that
+// the widening needs.  Blocks walk the output in groups of
+// 16 row blocks so that the tiles of x_q and w_q in flight stay in L2.
+// Shared memory: 2 x 64 KB of bf16 stages + 3 x 32 KB of e4m3 stages =
+// 229,376 B (+ alignment and barriers).
 //
 // K or N not a multiple of 16 (TMA needs 16-byte row strides):
 // fp8_matmul_kernel, the first port, on the CUDA cores.  A block owns a
@@ -172,7 +186,7 @@ int launch(const uint8_t* xq, const uint8_t* wq, const float* sx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- e4m3 on the tensor cores ---------------------------------------------
+// ---- the tensor cores, summing exactly ------------------------------------
 
 namespace tc {
 
@@ -180,43 +194,21 @@ using namespace hopper;
 
 constexpr int BM = 128;           // output rows per block: 2 consumer WGs
 constexpr int BN = 128;           // output columns per block
-constexpr int BK = 128;           // K per ring stage: one swizzled row
-constexpr int STAGES = 4;
+constexpr int BK = 128;           // K per ring stage
+constexpr int STAGES8 = 3;        // e4m3 ring (TMA -> consumers)
 constexpr int THREADS = 384;      // producer warpgroup + 2 consumers
-constexpr int TILE_BYTES = 128 * BK;          // x_q or w_t of one stage
+constexpr int TILE8 = 128 * BK;               // x_q or w_q of one stage, e4m3
+constexpr int STAGE8_BYTES = 2 * TILE8;
+constexpr int BOX = 128 * 128;                // one 64-column bf16 box
+constexpr int TILE_BYTES = 2 * BOX;           // x or w of one stage, bf16
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;
-constexpr size_t SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 128;
+// two bf16 stages: the products read one while the other is widened
+constexpr size_t SMEM_BYTES =
+    1024 + 2 * STAGE_BYTES + STAGES8 * STAGE8_BYTES + 128;
 constexpr int GROUP_M = 16;       // row blocks walked together (L2 reuse)
-// k32 steps per promoted chunk (two chunks a stage): the accumulator is
+// k16 steps per promoted chunk (two chunks a stage): the accumulator is
 // added into the fp32 sum and restarted after every 64 of K
-constexpr int CHUNK = BK / 32 / 2;
-constexpr int TT = 64;            // transpose tile (bytes a side)
-
-// w_q [K, N] -> w_t [N, K] (K contiguous: wgmma's K-major B operand),
-// 64 x 64-byte tiles through shared memory; K and N multiples of 4.
-__global__ void __launch_bounds__(256)
-transpose_kernel(const uint8_t* __restrict__ w, uint8_t* __restrict__ wt,
-                 int K, int N) {
-  __shared__ __align__(4) uint8_t tile[TT][TT + 4];
-  const int k0 = blockIdx.y * TT, n0 = blockIdx.x * TT;
-  const int c4 = (threadIdx.x % 16) * 4;
-  for (int r = threadIdx.x / 16; r < TT; r += 16) {
-    const int k = k0 + r, n = n0 + c4;
-    uint32_t v = 0;
-    if (k < K && n < N)
-      v = *reinterpret_cast<const uint32_t*>(
-          w + static_cast<int64_t>(k) * N + n);
-    *reinterpret_cast<uint32_t*>(&tile[r][c4]) = v;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x / 16; r < TT; r += 16) {
-    const int n = n0 + r, k = k0 + c4;
-    if (n < N && k < K)
-      *reinterpret_cast<uint32_t*>(wt + static_cast<int64_t>(n) * K + k) =
-          uint32_t(tile[c4][r]) | uint32_t(tile[c4 + 1][r]) << 8 |
-          uint32_t(tile[c4 + 2][r]) << 16 | uint32_t(tile[c4 + 3][r]) << 24;
-  }
-}
+constexpr int CHUNK = BK / 16 / 2;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -225,86 +217,104 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ void release(uint64_t* empty, int stage, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(&empty[stage]);
-}
-
-// CHUNK k32 steps of the stage from step kk0 into acc, started from 0
+// CHUNK k16 steps of the stage from step kk0 into acc, started from 0.  A
+// (x, K-major) and B (w, N contiguous: MN-major) are 64-column boxes;
+// step kk reads A's box kk/4 at byte 32 (kk % 4) of each row and B's k
+// rows 16 kk .. 16 kk + 15 of both N boxes (LBO: the box stride).
 __device__ __forceinline__ void issue_chunk(float (&acc)[64], const uint8_t* a,
                                             const uint8_t* b, int kk0) {
   wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < CHUNK; ++i)
-    wgmma_m64n128k32_ss_e4m3(acc, desc_sw128(a + 32 * (kk0 + i), 16, 1024),
-                             desc_sw128(b + 32 * (kk0 + i), 16, 1024), i > 0);
+  for (int i = 0; i < CHUNK; ++i) {
+    const int kk = kk0 + i;
+    wgmma_m64n128k16_ss_bf16_tb(
+        acc, desc_sw128(a + (kk / 4) * BOX + 32 * (kk % 4), 16, 1024),
+        desc_sw128(b + kk * 16 * 128, BOX, 1024), i > 0);
+  }
   wgmma_commit();
 }
 
-// promotion every CHUNK k32 steps: a stage's two chunks run into two
-// accumulators, and the first is added into the fp32 sum while the
-// second runs on the tensor cores; nothing is in flight across stages
-__device__ __forceinline__ void consume_promoted(
-    const uint8_t* tiles, uint64_t* full, uint64_t* empty, int n_k, int cw,
-    int lane, float (&sum)[64]) {
-  float acc0[64], acc1[64];
+// Four 16-byte chunks of a staged e4m3 tile (128-byte rows) widened to
+// bf16 in the 128-byte swizzle of a bf16 tile: chunks idx0 + step * u
+// (u < 4) of rows shifted by row0, their loads all issued first.  The
+// chunks are spread so that no bank is met twice (chunk_of).
+__device__ __forceinline__ void widen4(const uint8_t* src, uint8_t* dst,
+                                       int idx0, int step, int row0) {
+  uint4 in[4];
+  int row[4], j[4];
 #pragma unroll
-  for (int c = 0; c < 64; ++c) acc0[c] = acc1[c] = sum[c] = 0.f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int kb = 0; kb < n_k; ++kb) {
-    mbar_wait(&full[stage], phase);
-    const uint8_t* a = tiles + stage * STAGE_BYTES + cw * 64 * BK;
-    const uint8_t* b = tiles + stage * STAGE_BYTES + TILE_BYTES;
-    issue_chunk(acc0, a, b, 0);
-    issue_chunk(acc1, a, b, CHUNK);
-    wgmma_wait<1>();
-    fence_regs(acc0);
+  for (int u = 0; u < 4; ++u) {
+    chunk_of(idx0 + step * u, row[u], j[u]);
+    row[u] += row0;
+    in[u] = *reinterpret_cast<const uint4*>(src + row[u] * 128 + 16 * j[u]);
+  }
 #pragma unroll
-    for (int c = 0; c < 64; ++c) sum[c] += acc0[c];
-    wgmma_wait<0>();
-    fence_regs(acc1);
-    release(empty, stage, lane);
-#pragma unroll
-    for (int c = 0; c < 64; ++c) sum[c] += acc1[c];
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
+  for (int u = 0; u < 4; ++u) {
+    uint4 lo, hi;
+    widen_e4m3x16(in[u], lo, hi);
+    st_sw128_bf16x16(dst, BOX, row[u], j[u], lo, hi);
   }
 }
 
-// one accumulator chain over all of K, no promotion (tests only: shows
-// what the promotion buys)
-__device__ __forceinline__ void consume_unpromoted(
-    const uint8_t* tiles, uint64_t* full, uint64_t* empty, int n_k, int cw,
-    int lane, float (&sum)[64]) {
+// The consumers.  Each stage of K is two chunks of four k16 steps (64 of
+// K) into one fp32 accumulator, each chunk started from 0 and added into
+// the fp32 sum when it is done.  While the tensor cores run a chunk, the
+// two warpgroups widen half of the next staged slice into the other bf16
+// stage (t: the thread's index of 256; each warpgroup its own 64 rows of
+// x, then both together the 128 k rows of w); a named barrier over both
+// warpgroups closes the stage (the next slice complete, this one's
+// products done).
+__device__ __forceinline__ void consume(
+    uint8_t* tiles, const uint8_t* tiles8, uint64_t* full8,
+    uint64_t* empty8, int n_k, int cw, int lane, float (&sum)[64]) {
+  const int t = threadIdx.x - 128;
+  float acc[64];
 #pragma unroll
-  for (int c = 0; c < 64; ++c) sum[c] = 0.f;
-  int stage = 0;
-  uint32_t phase = 0;
+  for (int c = 0; c < 64; ++c) acc[c] = sum[c] = 0.f;
+  mbar_wait(&full8[0], 0);
+  widen4(tiles8, tiles, t % 128, 128, 64 * cw);
+  widen4(tiles8 + TILE8, tiles + TILE_BYTES, t, 256, 0);
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty8[0]);
+  named_sync(1, 256);
+  int s8 = 1 % STAGES8;
+  uint32_t ph8 = STAGES8 == 1;
   for (int kb = 0; kb < n_k; ++kb) {
-    mbar_wait(&full[stage], phase);
-    const uint8_t* a = tiles + stage * STAGE_BYTES + cw * 64 * BK;
-    const uint8_t* b = tiles + stage * STAGE_BYTES + TILE_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk)
-      wgmma_m64n128k32_ss_e4m3(sum, desc_sw128(a + 32 * kk, 16, 1024),
-                               desc_sw128(b + 32 * kk, 16, 1024),
-                               kk > 0 || kb > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sum);
-    release(empty, stage, lane);
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
+    const uint8_t* a = tiles + (kb & 1) * STAGE_BYTES + cw * 64 * 128;
+    const uint8_t* b = tiles + (kb & 1) * STAGE_BYTES + TILE_BYTES;
+    uint8_t* next = tiles + ((kb + 1) & 1) * STAGE_BYTES;
+    const uint8_t* src = tiles8 + s8 * STAGE8_BYTES;
+    const bool more = kb + 1 < n_k;
+    issue_chunk(acc, a, b, 0);
+    if (more) {
+      mbar_wait(&full8[s8], ph8);
+      widen4(src, next, t % 128, 128, 64 * cw);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < 64; ++c) sum[c] += acc[c];
+    issue_chunk(acc, a, b, CHUNK);
+    if (more) {
+      widen4(src + TILE8, next + TILE_BYTES, t, 256, 0);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty8[s8]);
+      if (++s8 == STAGES8) {
+        s8 = 0;
+        ph8 ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < 64; ++c) sum[c] += acc[c];
+    named_sync(1, 256);
   }
 }
 
-template <typename OT, bool PROMOTE>
+template <typename OT>
 __global__ void __launch_bounds__(THREADS, 1)
 fp8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                         const __grid_constant__ CUtensorMap tb,
@@ -314,8 +324,10 @@ fp8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tiles = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + STAGES * STAGE_BYTES);
-  uint64_t* empty = full + STAGES;
+  uint8_t* tiles8 = tiles + 2 * STAGE_BYTES;
+  uint64_t* full8 =
+      reinterpret_cast<uint64_t*>(tiles8 + STAGES8 * STAGE8_BYTES);
+  uint64_t* empty8 = full8 + STAGES8;
 
   // output tile: groups of GROUP_M row blocks, N walked inside a group
   const int grid_m = (M + BM - 1) / BM, grid_n = (N + BN - 1) / BN;
@@ -326,31 +338,33 @@ fp8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   const int m0 = (first_m + in_group % rows_g) * BM;
   const int n0 = (in_group / rows_g) * BN;
   const int n_k = (K + BK - 1) / BK;
+  const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&full[st], 1);
-      mbar_init(&empty[st], 8);    // every consumer warp
+    for (int st = 0; st < STAGES8; ++st) {
+      mbar_init(&full8[st], 1);
+      mbar_init(&empty8[st], 8);           // every consumer warp
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer warpgroup: one thread issues every load
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
+      // one thread issues every load: e4m3 K slices of x_q [128 rows of M]
+      // and w_q [128 rows of K], as they are in memory
       tma_prefetch(&ta);
       tma_prefetch(&tb);
       int stage = 0;
       uint32_t phase = 0;
       for (int kb = 0; kb < n_k; ++kb) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* a = tiles + stage * STAGE_BYTES;
-        mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
-        tma_load_2d(a, &ta, &full[stage], kb * BK, m0);
-        tma_load_2d(a + TILE_BYTES, &tb, &full[stage], kb * BK, n0);
-        if (++stage == STAGES) {
+        mbar_wait(&empty8[stage], phase ^ 1);
+        uint8_t* a = tiles8 + stage * STAGE8_BYTES;
+        mbar_arrive_expect_tx(&full8[stage], STAGE8_BYTES);
+        tma_load_2d(a, &ta, &full8[stage], kb * BK, m0);
+        tma_load_2d(a + TILE8, &tb, &full8[stage], n0, kb * BK);
+        if (++stage == STAGES8) {
           stage = 0;
           phase ^= 1;
         }
@@ -359,13 +373,9 @@ fp8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   } else {
     setmaxnreg_inc<232>();
     const int cw = threadIdx.x / 128 - 1;
-    const int lane = threadIdx.x % 32;
     const int warp = (threadIdx.x % 128) / 32;
     float sum[64];
-    if constexpr (PROMOTE)
-      consume_promoted(tiles, full, empty, n_k, cw, lane, sum);
-    else
-      consume_unpromoted(tiles, full, empty, n_k, cw, lane, sum);
+    consume(tiles, tiles8, full8, empty8, n_k, cw, lane, sum);
 
     // both scales folded in once, in the reference's order: (acc*sx)*sw;
     // N is a multiple of 16, so a column pair is in or out together
@@ -387,30 +397,27 @@ fp8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// [rows, K] bytes, K contiguous, as a 2-D tensor map of 128 x 128 boxes
-inline int rows_map(CUtensorMap* map, const void* base, int rows, int K) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+// [rows, cols] bytes, cols contiguous, as a 2-D tensor map of 128 x 128
+// boxes, unswizzled (the converters read the staged rows as they are)
+inline int rows_map(CUtensorMap* map, const void* base, int rows, int cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[2] = {BK, 128};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, 128};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims,
-                      strides, box);
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename OT>
-int launch(const uint8_t* xq, const uint8_t* wq, uint8_t* wt, const float* sx,
-           const float* sw, void* out, int M, int N, int K, int promote,
+int launch(const uint8_t* xq, const uint8_t* wq, const float* sx,
+           const float* sw, void* out, int M, int N, int K,
            cudaStream_t stream) {
-  dim3 tgrid((N + TT - 1) / TT, (K + TT - 1) / TT);
-  transpose_kernel<<<tgrid, 256, 0, stream>>>(wq, wt, K, N);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap ta, tb;
-  if (rows_map(&ta, xq, M, K) || rows_map(&tb, wt, N, K)) return -4;
-  auto kern = promote ? fp8_matmul_wgmma_kernel<OT, true>
-                      : fp8_matmul_wgmma_kernel<OT, false>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(SMEM_BYTES));
+  if (rows_map(&ta, xq, M, K) || rows_map(&tb, wq, K, N)) return -4;
+  auto kern = fp8_matmul_wgmma_kernel<OT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t blocks =
       static_cast<int64_t>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
@@ -445,31 +452,25 @@ extern "C" int fp8_matmul_launch(const void* x_q, const void* w_q,
   return -1;
 }
 
-// The tensor-core kernel: the arguments of fp8_matmul_launch, plus w_t,
-// scratch of N x K bytes that receives w_q transposed, and `promote` (1:
-// the wgmma accumulator is added into the fp32 sum and restarted after
-// every 64 of K; 0, for tests only: one accumulator chain over all of
-// K).  K and N must be nonzero multiples of 16, x_q 16-byte aligned.
-// Returns as fp8_matmul_launch, or -3 for K or N, -4 when a tensor map
-// cannot be encoded.
+// The tensor-core kernel: the arguments of fp8_matmul_launch.  K and N
+// must be nonzero multiples of 16, x_q and w_q 16-byte aligned.  Returns
+// as fp8_matmul_launch, or -3 for K or N, -4 when a tensor map cannot be
+// encoded.
 extern "C" int fp8_matmul_wgmma_launch(const void* x_q, const void* w_q,
                                        const void* sx, const void* sw,
-                                       void* out, void* w_t, int M, int N,
-                                       int K, int out_dtype, int promote,
-                                       void* stream) {
+                                       void* out, int M, int N, int K,
+                                       int out_dtype, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K <= 0 || K % 16 || N % 16) return -3;
   const uint8_t* xq = static_cast<const uint8_t*>(x_q);
   const uint8_t* wq = static_cast<const uint8_t*>(w_q);
-  uint8_t* wt = static_cast<uint8_t*>(w_t);
   const float* sxf = static_cast<const float*>(sx);
   const float* swf = static_cast<const float*>(sw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
-    case 0: return tc::launch<float>(xq, wq, wt, sxf, swf, out, M, N, K,
-                                     promote, st);
-    case 1: return tc::launch<__nv_bfloat16>(xq, wq, wt, sxf, swf, out, M,
-                                             N, K, promote, st);
+    case 0: return tc::launch<float>(xq, wq, sxf, swf, out, M, N, K, st);
+    case 1: return tc::launch<__nv_bfloat16>(xq, wq, sxf, swf, out, M, N,
+                                             K, st);
   }
   return -1;
 }

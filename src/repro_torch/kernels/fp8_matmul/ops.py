@@ -6,12 +6,14 @@ operands: a CPU tensor takes the plain version (``ref.fp8_matmul_ref``),
 a CUDA tensor launches a hand-written CUDA kernel of
 ``csrc/fp8_matmul.cu`` (built with nvcc at first use) or raises; there
 is no fallback between the two.  ``kernel_path`` picks the kernel from
-the shape alone: K and N multiples of 16 run on the tensor cores (e4m3
-wgmma fed by TMA, partial sums promoted into fp32 every 64 of K), other
-shapes on the CUDA cores.  ``fp8_scaled_matmul.launches`` counts kernel
-launches and ``fp8_scaled_matmul.launches_tc`` the tensor-core ones
-among them.  ``fp8_matmul`` quantizes both operands online and calls
-it, as the reference's ``fp8_matmul`` does.
+the shape alone: K and N multiples of 16 run on the tensor cores (the
+e4m3 operands, fed by TMA, widened to bf16 in shared memory and
+multiplied on bf16 wgmma into fp32, partial sums promoted into fp32
+registers every 64 of K), other shapes on the CUDA cores.
+``fp8_scaled_matmul.launches`` counts kernel launches and
+``fp8_scaled_matmul.launches_tc`` the tensor-core ones among them.
+``fp8_matmul`` quantizes both operands online and calls it, as the
+reference's ``fp8_matmul`` does.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         tc = lib.fp8_matmul_wgmma_launch
-        tc.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         tc.restype = ctypes.c_int
         lib.fp8_matmul_error_string.argtypes = [ctypes.c_int]
@@ -54,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x_q, w_q, sx, sw, out_dtype, promote):
+def _launch(x_q, w_q, sx, sw, out_dtype):
     m, k = x_q.shape
     k2, n = w_q.shape
     dev = x_q.device
@@ -80,12 +82,9 @@ def _launch(x_q, w_q, sx, sw, out_dtype, promote):
     stream = torch.cuda.current_stream(dev).cuda_stream
     tc = kernel_path(k, n) == "wgmma"
     if tc:
-        # scratch for w_q transposed to [N, K], written by the same call
-        w_t = torch.empty((n, k), dtype=torch.uint8, device=dev)
         err = lib.fp8_matmul_wgmma_launch(
             xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
-            out.data_ptr(), w_t.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype],
-            int(promote), stream)
+            out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype], stream)
     else:
         err = lib.fp8_matmul_launch(
             xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
@@ -107,21 +106,16 @@ def quantize_fp8(x: torch.Tensor,
 
 def fp8_scaled_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                       sx: torch.Tensor, sw: torch.Tensor, *,
-                      out_dtype=torch.float32,
-                      promote: bool = True) -> torch.Tensor:
+                      out_dtype=torch.float32) -> torch.Tensor:
     """x_q [M,K] fp8, w_q [K,N] fp8, sx [M,1], sw [1,N] fp32 ->
     (x_q w_q) * sx * sw [M,N] in ``out_dtype`` (fp32 or bf16), summed in
-    fp32 with both scales folded in once, at the end.  Any M, N, K.
-
-    ``promote=False`` is for tests only: the tensor-core kernel then sums
-    all of K in the wgmma accumulator, to show what the promotion every
-    64 of K buys.  It changes nothing on the other paths."""
+    fp32 with both scales folded in once, at the end.  Any M, N, K."""
     if x_q.device.type == "cpu":
         return _ref.fp8_matmul_ref(x_q, w_q, sx, sw).to(out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"fp8_scaled_matmul: no kernel for device "
                          f"{x_q.device}")
-    return _launch(x_q, w_q, sx, sw, out_dtype, promote)
+    return _launch(x_q, w_q, sx, sw, out_dtype)
 
 
 fp8_scaled_matmul.launches = 0

@@ -8,7 +8,9 @@
 // by block_table[b, :] in the pool k/v [P,page,Hkv,D] (token t lives in
 // page block_table[b, t / page] at offset t % page), and the kernel
 // writes the finalised softmax(q k^T / sqrt(D)) v as [B,Hq,D] in q's
-// dtype.  Tokens at or past lengths[b] are never read, and neither is
+// dtype.  As in the TPU kernel, q (fp32 or bf16) and the pages (fp32,
+// bf16 or fp8-e4m3, either with either q) are widened to fp32, whatever
+// their dtypes.  Tokens at or past lengths[b] are never read, and neither is
 // the block-table entry of a page wholly past it.  A row with
 // lengths[b] == 0 gives 0, as the TPU kernel does (l == 0 -> 1).
 //
@@ -18,7 +20,8 @@
 // warps take interleaved steps of tokens, each its own online softmax,
 // and merge their (m, l, acc) through shared memory at the end.  Within
 // a warp, LPT = D/8 lanes share a token: each lane loads 8 consecutive
-// elements of the token's K and V row (16 bytes in bf16), holds the GT
+// elements of the token's K and V row (16 bytes in bf16, 8 in e4m3,
+// widened to fp32 in registers), holds the GT
 // query rows' matching 8 elements in registers, and the dot products
 // are summed across the LPT lanes with shuffles; the TPW = 32/LPT
 // tokens of a pass sit on the warp's lane groups, and a warp step is
@@ -38,6 +41,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -65,19 +69,31 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p,
+                                      float (&o)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = static_cast<float2>(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <int D, int GT, typename T>
+template <int D, int GT, typename QT, typename KT>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k_pages,
-                              const T* __restrict__ v_pages,
+paged_decode_attention_kernel(const QT* __restrict__ q,
+                              const KT* __restrict__ k_pages,
+                              const KT* __restrict__ v_pages,
                               const int32_t* __restrict__ block_table,
                               const int32_t* __restrict__ lengths,
-                              T* __restrict__ out, int Hq, int Hkv,
+                              QT* __restrict__ out, int Hq, int Hkv,
                               int page, int n, float scale) {
   constexpr int LPT = D / 8;               // lanes per token
   constexpr int TPW = 32 / LPT;            // tokens per warp pass
@@ -232,53 +248,66 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, int GT, typename T>
+template <int D, int GT, typename QT, typename KT>
 int launch(const Args& a) {
   const int G = a.Hq / a.Hkv;
   dim3 grid(a.Hkv * ((G + GT - 1) / GT), a.B);
-  paged_decode_attention_kernel<D, GT, T><<<grid, THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.bt, a.len, static_cast<T*>(a.out),
+  paged_decode_attention_kernel<D, GT, QT, KT>
+      <<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), a.bt, a.len, static_cast<QT*>(a.out),
       a.Hq, a.Hkv, a.page, a.n, 1.0f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
+template <int D, typename QT, typename KT>
 int launch_g(const Args& a) {
   const int G = a.Hq / a.Hkv;
-  if (G <= 1) return launch<D, 1, T>(a);
-  if (G <= 2) return launch<D, 2, T>(a);
-  if (G <= 4) return launch<D, 4, T>(a);
-  return launch<D, 8, T>(a);          // groups of 8 query rows per block
+  if (G <= 1) return launch<D, 1, QT, KT>(a);
+  if (G <= 2) return launch<D, 2, QT, KT>(a);
+  if (G <= 4) return launch<D, 4, QT, KT>(a);
+  return launch<D, 8, QT, KT>(a);     // groups of 8 query rows per block
 }
 
-template <typename T>
+template <typename QT, typename KT>
 int launch_d(const Args& a, int D) {
   switch (D) {
-    case 16: return launch_g<16, T>(a);
-    case 32: return launch_g<32, T>(a);
-    case 64: return launch_g<64, T>(a);
-    case 128: return launch_g<128, T>(a);
+    case 16: return launch_g<16, QT, KT>(a);
+    case 32: return launch_g<32, QT, KT>(a);
+    case 64: return launch_g<64, QT, KT>(a);
+    case 128: return launch_g<128, QT, KT>(a);
   }
   return -1;
 }
 
+template <typename QT>
+int launch_kv(const Args& a, int D, int kv_dtype) {
+  switch (kv_dtype) {
+    case 0: return launch_d<QT, float>(a, D);
+    case 1: return launch_d<QT, __nv_bfloat16>(a, D);
+    case 2: return launch_d<QT, __nv_fp8_e4m3>(a, D);
+  }
+  return -2;
+}
+
 }  // namespace
 
-// dtype codes (q, pools and output share one): 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (pages
+// only).  q and the output share q_dtype; both pools have kv_dtype.
 // Returns 0, a cudaError_t code, or -1 / -2 for an unsupported head dim
 // / dtype.  Launches on `stream`; never synchronises.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_table, const void* lengths, void* out, int B, int Hq,
-    int Hkv, int D, int page, int n, int dtype, void* stream) {
+    int Hkv, int D, int page, int n, int q_dtype, int kv_dtype,
+    void* stream) {
   Args a{q, k_pages, v_pages, static_cast<const int32_t*>(block_table),
          static_cast<const int32_t*>(lengths), out, B, Hq, Hkv, page, n,
          static_cast<cudaStream_t>(stream)};
   if (B == 0 || Hq == 0) return 0;
-  switch (dtype) {
-    case 0: return launch_d<float>(a, D);
-    case 1: return launch_d<__nv_bfloat16>(a, D);
+  switch (q_dtype) {
+    case 0: return launch_kv<float>(a, D, kv_dtype);
+    case 1: return launch_kv<__nv_bfloat16>(a, D, kv_dtype);
   }
   return -2;
 }
@@ -286,7 +315,8 @@ extern "C" int paged_decode_attention_launch(
 extern "C" const char* paged_decode_attention_error_string(int code) {
   switch (code) {
     case -1: return "unsupported head dim (16, 32, 64 or 128)";
-    case -2: return "unsupported dtype (float32 or bfloat16)";
+    case -2: return "unsupported dtype (q float32 or bfloat16; pages "
+                    "float32, bfloat16 or float8_e4m3fn)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

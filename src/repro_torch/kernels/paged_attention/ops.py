@@ -6,10 +6,14 @@ executor's hot path; ``csrc/paged_chunk_attention.cu``) and
 ``csrc/paged_decode_attention.cu``).  A CPU tensor takes the plain
 PyTorch version (``ref.py``); a CUDA tensor launches the hand-written
 CUDA kernel (built with nvcc at first use) or raises.  There is no
-fallback between the two.  Each wrapper's ``launches`` counts its
-kernel launches; ``paged_chunk_attention.view_launches`` counts apart
-those of them that read a head-range view of a wider pool (elastic
-SP2's half-head shards).
+fallback between the two.  ``kernel_path`` picks the chunk kernel from
+the dtypes, head dim and group alone: bf16 queries over bf16 or e4m3
+pages at D 96 or 128 with a group dividing 128 (every full-width model)
+run on the tensor cores (wgmma fed by TMA through the page table),
+everything else on the CUDA cores.  Each wrapper's ``launches`` counts
+its kernel launches; ``paged_chunk_attention.launches_tc`` counts the
+tensor-core launches among them, and ``view_launches`` those that read
+a head-range view of a wider pool (elastic SP2's half-head shards).
 """
 from __future__ import annotations
 
@@ -28,6 +32,25 @@ _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 # the configs' head dims: reduced 16, ardit-causal-forcing 96,
 # ardit-self-forcing 128
 _HEAD_DIMS = (16, 96, 128)
+# the tensor-core kernel's head dims and page dtypes
+WGMMA_HEAD_DIMS = (96, 128)
+_WGMMA_KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
+
+
+def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
+                group: int) -> str:
+    """The CUDA kernel that takes chunk queries of ``q_dtype`` over pages
+    of ``kv_dtype`` at ``head_dim`` with ``group`` = Hq / Hkv query heads
+    per KV head: ``"wgmma"`` for bf16 queries over bf16 or e4m3 pages at
+    D 96 or 128 with a group that divides 128 (a block's 128 query rows
+    are whole groups), else ``"cuda_cores"`` (fp32 FMAs: fp32 queries or
+    pages keep their 1e-4 agreement with the CPU; D 16 is the reduced
+    configs')."""
+    if q_dtype == torch.bfloat16 and kv_dtype in _WGMMA_KV_DTYPES \
+            and head_dim in WGMMA_HEAD_DIMS and group > 0 \
+            and 128 % group == 0:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,6 +61,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        tc = lib.paged_chunk_attention_wgmma_launch
+        tc.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        tc.restype = ctypes.c_int
         lib.paged_chunk_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_chunk_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,21 +113,30 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         mask = page_mask.to(torch.uint8).contiguous()
         page_any = mask.view(b, n, page).amax(dim=-1).contiguous()
     g = hq // hkv
+    tc = kernel_path(q.dtype, k_pages.dtype, d, g) == "wgmma"
+    if tc and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("the tensor-core path reads q and the pools by "
+                         "TMA: they must be 16-byte aligned")
     m = torch.empty((b, hkv, g, sq), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     acc = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.paged_chunk_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), None if mask is None else mask.data_ptr(),
-        page_any.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        b, sq, hq, hkv, d, page, n, int(sink), int(chunk_tokens),
-        _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], k_pages.stride(0),
-        k_pages.stride(1), torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), None if mask is None else mask.data_ptr(),
+            page_any.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            b, sq, hq, hkv, d, page, n, int(sink), int(chunk_tokens),
+            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], k_pages.stride(0),
+            k_pages.stride(1))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tc:
+        err = lib.paged_chunk_attention_wgmma_launch(*args, n_total, stream)
+    else:
+        err = lib.paged_chunk_attention_launch(*args, stream)
     if err != 0:
         msg = lib.paged_chunk_attention_error_string(err).decode()
         raise RuntimeError(f"paged_chunk_attention launch failed: {msg}")
     paged_chunk_attention.launches += 1
+    paged_chunk_attention.launches_tc += int(tc)
     if k_pages.stride(1) != hkv * d:
         paged_chunk_attention.view_launches += 1
     return m, l, acc
@@ -135,13 +171,23 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.launches_tc = 0
 paged_chunk_attention.view_launches = 0
 
 
-# the decode kernel: q, pools and output share one dtype; head dims of
-# the reference tests and the token configs (minitron-8b: 128)
-_DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the decode kernel: q (and the output) in fp32 or bf16, the pools in
+# fp32, bf16 or fp8-e4m3, any q dtype with any page dtype, as the TPU
+# kernel widens all three to fp32; head dims of the reference tests and
+# the token configs (minitron-8b: 128)
+_DECODE_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DECODE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def decode_dtypes_supported(q_dtype: torch.dtype,
+                            kv_dtype: torch.dtype) -> bool:
+    """Whether the decode kernel takes q of ``q_dtype`` over pages of
+    ``kv_dtype``: q fp32 or bf16, pages fp32, bf16 or fp8-e4m3."""
+    return q_dtype in _DECODE_Q_DTYPES and kv_dtype in _KV_DTYPES
 
 
 def _decode_lib() -> ctypes.CDLL:
@@ -149,7 +195,7 @@ def _decode_lib() -> ctypes.CDLL:
     lib = load(DECODE_SOURCE)
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.paged_decode_attention_error_string.argtypes = [ctypes.c_int]
@@ -166,10 +212,11 @@ def _launch_decode(q, k_pages, v_pages, block_table, lengths):
                     ("block_table", block_table), ("lengths", lengths)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype not in _DECODE_DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    if v_pages.dtype != k_pages.dtype or not decode_dtypes_supported(
+            q.dtype, k_pages.dtype):
         raise TypeError(f"dtypes q {q.dtype}, pages {k_pages.dtype}/"
-                        f"{v_pages.dtype}: one of float32 or bfloat16")
+                        f"{v_pages.dtype}: q float32 or bfloat16, both "
+                        f"pools one of float32, bfloat16, float8_e4m3fn")
     if d != dk or d not in _DECODE_HEAD_DIMS or hq % hkv:
         raise ValueError(f"head dims q {q.shape} vs pages {k_pages.shape}")
     if v_pages.shape != k_pages.shape or block_table.shape[0] != b \
@@ -187,7 +234,7 @@ def _launch_decode(q, k_pages, v_pages, block_table, lengths):
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-        page, n, _DECODE_DTYPES[q.dtype],
+        page, n, _DECODE_Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.paged_decode_attention_error_string(err).decode()
@@ -199,7 +246,8 @@ def _launch_decode(q, k_pages, v_pages, block_table, lengths):
 def paged_decode_attention(q, k_pages, v_pages, block_table, lengths):
     """One-token decode over the paged pool.  q [B,Hq,D]; pages
     [P_total,page,Hkv,D]; block_table [B,n]; lengths [B] valid tokens
-    per stream -> [B,Hq,D] in q's dtype.  Tokens at or past
+    per stream -> [B,Hq,D] in q's dtype (q fp32 or bf16; pages fp32,
+    bf16 or fp8-e4m3, all widened to fp32).  Tokens at or past
     ``lengths[b]`` are masked and their pages never read.  A stream of
     length 0 gives 0 from the kernel (as the TPU kernel does) and NaN
     from the plain version (as the reference's oracle does)."""

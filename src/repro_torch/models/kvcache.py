@@ -88,6 +88,14 @@ def mask_to_pages(mask: np.ndarray, n_ring: int, sink: int,
     return out
 
 
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` with the reference's cast: an e4m3 destination
+    takes ``to_fp8_e4m3(src)``."""
+    if dst.dtype == torch.float8_e4m3fn and src.dtype != dst.dtype:
+        src = to_fp8_e4m3(src)
+    dst.copy_(src)
+
+
 def pool_write_pages(pool: torch.Tensor, new: torch.Tensor,
                      pages: Sequence[int]) -> None:
     """pool [L,n_pages,P,...]; new [L,b,T,...] (T <= P); pages [b].
@@ -95,11 +103,14 @@ def pool_write_pages(pool: torch.Tensor, new: torch.Tensor,
     Writes one T-token block per stream at token 0 of its destination
     page, IN PLACE.  The JAX reference donates the pool buffer to a
     jitted functional update for the same effect; here the pool tensor
-    is simply mutated (``copy_`` also casts to the pool dtype, which is
-    where an fp8-rounded block lands back in a bf16 pool)."""
+    is simply mutated.  The block is cast to the pool dtype as the
+    reference's ``astype`` casts it: into an fp8-e4m3 pool through
+    ``to_fp8_e4m3`` (NaN above 464, where ``copy_`` would saturate to
+    448), into any other pool by ``copy_`` (which is also where an
+    fp8-rounded block lands back in a bf16 pool)."""
     t = new.shape[2]
     for i, pg in enumerate(pages):
-        pool[:, int(pg), :t].copy_(new[:, i])
+        _write(pool[:, int(pg), :t], new[:, i])
 
 
 def pool_write_pages_heads(pool: torch.Tensor, new: torch.Tensor,
@@ -111,7 +122,8 @@ def pool_write_pages_heads(pool: torch.Tensor, new: torch.Tensor,
     token 0 of its destination page and KV-head offset ``head_offset``,
     IN PLACE — the elastic-SP donor pool holds only its half of a
     stream's KV heads (Ulysses head partition, paper App. C.4), so its
-    appends touch only that half."""
+    appends touch only that half.  Cast as in ``pool_write_pages``."""
     t, hs = new.shape[2], new.shape[3]
     for i, pg in enumerate(pages):
-        pool[:, int(pg), :t, head_offset:head_offset + hs].copy_(new[:, i])
+        _write(pool[:, int(pg), :t, head_offset:head_offset + hs],
+               new[:, i])

@@ -6,8 +6,15 @@ configs, held to 1e-4 against the CPU) and bf16 at D 16 to the CUDA-core
 kernel.  ``fp8_matmul.ops.kernel_path`` sends shapes whose K and N are
 nonzero multiples of 16 (TMA's 16-byte row strides; both FFN shapes of
 the chip check) to the tensor-core kernel, the rest (the reference
-tests' K 136 and 40, N 300) to the CUDA-core kernel.  Both decide from
-the inputs alone.
+tests' K 136 and 40, N 300) to the CUDA-core kernel.
+``paged_attention.ops.kernel_path`` sends bf16 chunk queries over bf16
+or e4m3 pages at D 96 and 128 with a group dividing 128 (every
+full-width AR-DiT config) to the tensor-core kernel, and fp32 queries or
+pages (the reduced configs), D 16 and bf16 queries over fp32 pages to
+the CUDA-core kernel; ``decode_dtypes_supported`` is the decode kernel's
+dtype gate: q fp32 or bf16 over pages of fp32, bf16 or e4m3, any mix,
+as the reference widens all three to fp32.  All decide from the inputs
+alone.
 """
 import pytest
 import torch
@@ -16,6 +23,7 @@ from repro_torch.configs.ardit_causal_forcing import CONFIG as CAUSAL
 from repro_torch.configs.ardit_self_forcing import CONFIG as SELF
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_matmul import ops as fp8_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
 
 
 @pytest.mark.parametrize("dtype,head_dim,path", [
@@ -69,3 +77,63 @@ def test_cpu_tensors_take_the_plain_versions_whatever_the_path():
             flash_ops.flash_mha.launches_tc) == before
     assert (fp8_ops.fp8_scaled_matmul.launches,
             fp8_ops.fp8_scaled_matmul.launches_tc) == b8
+
+
+BF16, F32, E4M3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 3, 6, 256])
+@pytest.mark.parametrize("head_dim", [16, 96, 128])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (BF16, BF16), (BF16, E4M3), (BF16, F32), (F32, F32), (F32, BF16),
+    (F32, E4M3)], ids=["bf16-bf16", "bf16-e4m3", "bf16-f32", "f32-f32",
+                       "f32-bf16", "f32-e4m3"])
+def test_paged_chunk_path(q_dtype, kv_dtype, head_dim, group):
+    wgmma = (q_dtype == BF16 and kv_dtype in (BF16, E4M3)
+             and head_dim in (96, 128) and 128 % group == 0)
+    assert paged_ops.kernel_path(q_dtype, kv_dtype, head_dim, group) == (
+        "wgmma" if wgmma else "cuda_cores")
+
+
+@pytest.mark.parametrize("cfg", [SELF, CAUSAL], ids=["self", "causal"])
+@pytest.mark.parametrize("kv_dtype", [BF16, E4M3], ids=["bf16", "e4m3"])
+def test_full_width_ardit_chunk_attention_takes_the_tensor_cores(cfg,
+                                                                 kv_dtype):
+    head_dim = cfg.d_model // cfg.n_heads
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert paged_ops.kernel_path(BF16, kv_dtype, head_dim, group) == "wgmma"
+    # SP2's half-head shards keep the group
+    assert paged_ops.kernel_path(BF16, kv_dtype, head_dim, group) == \
+        paged_ops.kernel_path(BF16, kv_dtype, head_dim,
+                              (cfg.n_heads // 2) // (cfg.n_kv_heads // 2))
+    reduced = cfg.reduced()
+    assert paged_ops.kernel_path(
+        F32, F32, reduced.d_model // reduced.n_heads,
+        reduced.n_heads // reduced.n_kv_heads) == "cuda_cores"
+
+
+@pytest.mark.parametrize("q_dtype", [F32, BF16, E4M3, torch.float16])
+@pytest.mark.parametrize("kv_dtype", [F32, BF16, E4M3, torch.float16])
+def test_decode_dtype_gate(q_dtype, kv_dtype):
+    ok = q_dtype in (F32, BF16) and kv_dtype in (F32, BF16, E4M3)
+    assert paged_ops.decode_dtypes_supported(q_dtype, kv_dtype) == ok
+
+
+def test_cpu_chunk_and_decode_take_the_plain_versions():
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 6, 4, 96), generator=g).bfloat16()
+    pages = torch.randn((3, 8, 2, 96), generator=g).to(E4M3)
+    table = torch.tensor([[2, 0]], dtype=torch.int32)
+    before = (paged_ops.paged_chunk_attention.launches,
+              paged_ops.paged_chunk_attention.launches_tc,
+              paged_ops.paged_decode_attention.launches)
+    m, l, acc = paged_ops.paged_chunk_attention(q, pages, pages, table, None,
+                                                sink=5, chunk_tokens=8)
+    assert acc.shape == (1, 2, 2, 6, 96) and acc.dtype == F32
+    out = paged_ops.paged_decode_attention(
+        q[:, 0], pages, pages, table, torch.tensor([11], dtype=torch.int32))
+    assert out.shape == (1, 4, 96) and out.dtype == BF16
+    assert bool(torch.isfinite(out.float()).all())
+    assert (paged_ops.paged_chunk_attention.launches,
+            paged_ops.paged_chunk_attention.launches_tc,
+            paged_ops.paged_decode_attention.launches) == before

@@ -80,3 +80,51 @@ def test_fp8_cast_bf16_input_bitwise():
     want = np.asarray(xb.astype(jnp.float8_e4m3fn).astype(jnp.float32))
     got = TK.to_fp8_e4m3(torch.from_numpy(x).to(torch.bfloat16)).float()
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the overflow edge of e4m3 (448 is its largest finite value; JAX rounds
+# up to 464 to 448 and gives NaN above), infinities and NaN
+_EDGE = [447.0, 464.0, 464.1, 500.0, 1e4, np.inf, -np.inf, np.nan]
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [False, True], ids=["pages", "heads"])
+def test_pool_write_into_fp8_pool_follows_jax(src, heads):
+    """A block written into an e4m3 pool: NaN where the reference's
+    ``astype`` gives NaN (torch's ``copy_`` would saturate to 448), the
+    finite bytes equal bit for bit.  In bf16 464.1 rounds to 464."""
+    rng = np.random.default_rng(23)
+    pool = (rng.normal(size=(2, 5, 6, 4, 8)) * 100).astype(np.float32)
+    hs, off = (2, 1) if heads else (4, 0)
+    new = (rng.normal(size=(2, 3, 5, hs, 8)) * 300).astype(np.float32)
+    new[0, :, 0, 0, :len(_EDGE)] = _EDGE
+    new[1, :, 1, -1, :len(_EDGE)] = [-v for v in _EDGE]
+    pages = np.asarray([3, 0, 4], np.int32)
+    jdt = jnp.bfloat16 if src == "bfloat16" else jnp.float32
+    jpool = jnp.asarray(pool).astype(jnp.float8_e4m3fn)
+    jnew = jnp.asarray(new, jdt)
+    if heads:
+        want = JK.pool_write_pages_heads(jpool, jnew, jnp.asarray(pages),
+                                         off)
+    else:
+        want = JK.pool_write_pages(jpool, jnew, jnp.asarray(pages))
+    want = np.asarray(want.astype(jnp.float32))
+    tp = TK.to_fp8_e4m3(torch.from_numpy(pool))
+    tnew = torch.from_numpy(new).to(getattr(torch, src))
+    if heads:
+        TK.pool_write_pages_heads(tp, tnew, pages.tolist(), off)
+    else:
+        TK.pool_write_pages(tp, tnew, pages.tolist())
+    assert tp.dtype == torch.float8_e4m3fn
+    got = tp.float().numpy()
+    nan = np.isnan(want)
+    assert nan[:, pages].any()                   # the edge values landed
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    wb = np.asarray(jnp.asarray(want).astype(jnp.float8_e4m3fn)).view(
+        np.uint8)
+    np.testing.assert_array_equal(tp.view(torch.uint8).numpy()[~nan],
+                                  wb[~nan])
+    if src == "bfloat16":       # 464.1 is 464 in bf16: finite, 448
+        assert got[0, 3, 0, off, 2] == 448.0
+    else:
+        assert np.isnan(got[0, 3, 0, off, 2])

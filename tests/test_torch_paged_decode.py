@@ -142,3 +142,34 @@ def test_wrapper_refuses_a_device_without_kernel():
                                                device="meta"),
                                    torch.ones((1,), dtype=torch.int32,
                                               device="meta"))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("bfloat16", "float8_e4m3fn"), ("float32", "float8_e4m3fn"),
+    ("bfloat16", "float32"), ("float32", "bfloat16")],
+    ids=["bf16-e4m3", "f32-e4m3", "bf16-f32", "f32-bf16"])
+def test_paged_decode_mixed_dtypes_match_jax(q_dtype, kv_dtype):
+    """q and pages of different dtypes, e4m3 pages among them: the
+    reference's Pallas kernel widens all three to fp32 and returns q's
+    dtype; so does the port (its plain version here, its CUDA kernel on
+    the card).  Inputs rounded to their dtypes once, in JAX, and handed
+    to both as the same bits."""
+    q, kp, vp, bt, ln = _case(2, 4, 2, 16, 8, 4, 16, seed=29)
+    jq = jnp.asarray(q).astype(q_dtype)
+    jk, jv = (jnp.asarray(x * 4).astype(kv_dtype) for x in (kp, vp))
+    pallas = np.asarray(paged_decode_attention_pallas(
+        jq, jk, jv, jnp.asarray(bt), jnp.asarray(ln), interpret=True))
+    assert pallas.dtype == jq.dtype
+
+    def to_torch(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+            getattr(torch, str(x.dtype)))
+
+    got = ops.paged_decode_attention(to_torch(jq), to_torch(jk),
+                                     to_torch(jv), torch.from_numpy(bt),
+                                     torch.from_numpy(ln))
+    assert got.dtype == getattr(torch, q_dtype)
+    got = got.float().numpy()
+    want = pallas.astype(np.float32)
+    print(f"max |port - pallas| {np.abs(got - want).max():.3g}")
+    np.testing.assert_allclose(got, want, **TOL_PALLAS)
