@@ -42,9 +42,13 @@ Phases (any failure raises and the script exits non-zero):
 8. SSD kernel vs plain version on the card at the full-width shape
    (mamba2-780m: B = 2, S = 32,768, 48 heads of 64, state 128, chunk
    128, bf16 x/B/C), a ragged S, S < chunk, an init_state, x/B/C as
-   strided views, the reduced shape in fp32 and the reference tests'
-   odd length and chunk (S = 33, chunk 8) at the reduced (P, N); the
-   same timings (no library call computes the scan).
+   strided views with an init_state, a chained grid of 1,248 blocks
+   (many more than are resident) with a ragged end and an init_state,
+   a head count that leaves a partial head group, the reduced shape in
+   fp32 and the reference tests' odd length and chunk (S = 33, chunk 8)
+   at the reduced (P, N); each case's kernel path checked (bf16 at (64,
+   128) on the tensor cores, the rest on the CUDA cores); the same
+   timings (no library call computes the scan).
 9. ``mamba2-780m`` at full width through the registry API (random bf16
    weights from a seed): ``prefill`` of 2 x 32,768 tokens, 32 greedy
    ``decode_step``s, a teacher-forced ``prefill`` over prompt +
@@ -52,7 +56,9 @@ Phases (any failure raises and the script exits non-zero):
    step's, and 16 ``decode_step``s at batch 128 from ``init_cache``;
    then the same prefill / decode / teacher-forced check with the
    weights widened to fp32 (2 x 8,192 tokens, 16 steps) at a limit for
-   fp32 rounding; ssd_scan launches = 48 per prefill, none from decode.
+   fp32 rounding; ssd_scan launches = 48 per prefill, none from decode;
+   every bf16 prefill's launches on the tensor cores, the fp32 ones on
+   the CUDA cores.
 10. Elastic SP and migration at full width (run right after phase 7, on
    its weights): ``ardit-self-forcing`` in bf16 with two lanes on the
    one card.  (i) Direct apply: a stream with 2 chunks of context takes
@@ -71,9 +77,13 @@ Phases (any failure raises and the script exits non-zero):
    bf16 q over fp32, fp32 q over bf16) and minitron-8b's attention (Hq
    32, Hkv 8, D 128, bf16) at decode_32k (B = 128, 32,768 tokens in
    pages of 16 drawn from a shuffled pool of 262,144), all lengths full
-   and lengths drawn from [1, 32768], then the pools in e4m3; the entry
-   point's launches; timings, the bound (visible K/V bytes) and SDPA
-   over the pre-gathered context.
+   and lengths drawn from [1, 32768], then the pools in e4m3; the edges
+   of the split: a stream one token past a unit boundary, B = 1 with
+   32,768 tokens (128 units of 256), lengths 0 and 1 in one batch, D 64
+   and pages of 8 and 64 tokens; the entry point's launches, both
+   decode_32k launches on the tensor cores (split over the sequence);
+   timings, the bound (visible K/V bytes) and SDPA over the
+   pre-gathered context.
 12. Scaled fp8 matmul kernel vs plain version: minitron-8b's FFN
    up-projection over one prefill_32k prompt (M 32,768, K 4,096, N
    16,384), the AR-DiT's FFN at 4 rows (M 10,560, K 1,536, N 8,960) and
@@ -940,7 +950,20 @@ def phase_ssd(record):
     def plain():
         return ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
 
-    errs = [compare_ssd(f"full width B={B} S={S} bf16", kern(), plain())]
+    def on_path(name, fn, want_path):
+        """fn()'s launch, checked to have taken ``want_path``."""
+        before = (ops.ssd.launches, ops.ssd.launches_tc)
+        out = fn()
+        sync()
+        tc = ops.ssd.launches_tc - before[1]
+        path = "wgmma" if tc else "cuda_cores"
+        if ops.ssd.launches - before[0] != 1 or path != want_path:
+            raise AssertionError(f"{name}: launched on {path}, expected "
+                                 f"{want_path}")
+        return out
+
+    errs = [compare_ssd(f"full width B={B} S={S} bf16 (wgmma)",
+                        on_path("full width", kern, "wgmma"), plain())]
     kernel_ms = cuda_ms(kern, 10)
     plain_ms = cuda_ms(plain, 2)
     # each input read once (x, dt, A, B, C), y and the final state
@@ -967,8 +990,12 @@ def phase_ssd(record):
         ("ragged S=1000 bf16", 2, 1000, H, P, N, Q, bf16, False, False),
         ("S=100 < chunk bf16", 2, 100, H, P, N, Q, bf16, False, False),
         ("init_state S=1000 bf16", 2, 1000, H, P, N, Q, bf16, True, False),
-        ("strided views S=1000 bf16", 2, 1000, H, P, N, Q, bf16, True,
-         True),
+        ("strided views with init_state S=1000 bf16", 2, 1000, H, P, N, Q,
+         bf16, True, True),
+        ("chained grid of 1,248 blocks B=2 S=13,243 bf16", 2, 13243, H, P,
+         N, Q, bf16, True, True),
+        ("partial head group H=7 chunk 64 bf16", 2, 1000, 7, P, N, 64,
+         bf16, False, True),
         ("reduced S=1000 fp32 (P 16, N 16, chunk 16)", 2, 1000, 8, 16, 16,
          16, f32, True, False),
         ("odd B=2 S=33 H=3 chunk 8 fp32 (P 16, N 16)", 2, 33, 3, 16, 16,
@@ -977,8 +1004,11 @@ def phase_ssd(record):
     for name, b_, s_, h_, p_, n_, q_, dtype, init, view in cases:
         x, dt, A, Bm, Cm, s0 = ssd_case(gen, b_, s_, h_, p_, n_, dtype,
                                         init, view)
+        path = ops.kernel_path(dtype, p_, n_)
         errs.append(compare_ssd(
-            name, ops.ssd(x, dt, A, Bm, Cm, chunk=q_, init_state=s0),
+            f"{name} ({path})",
+            on_path(name, lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=q_,
+                                          init_state=s0), path),
             ref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
                         Cm.contiguous(), chunk=q_, init_state=s0)))
     record["max_abs_err"] = max(errs)
@@ -1009,14 +1039,19 @@ def phase_ssm(counters):
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).to(DEV)
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
-    prefills = 0
+    prefills = prefills_bf16 = 0
 
     def check(label):
+        """Launch counts: n_layers ssd launches per prefill, nothing else;
+        the bf16 prefills' launches on the tensor cores, the fp32 ones'
+        on the CUDA cores."""
         launches = {name: fn.launches for name, fn in counters.items()}
         want = {**{k: 0 for k in counters}, "ssd": prefills * cfg.n_layers}
-        if launches != want:
-            raise AssertionError(f"{label}: launches {launches}, expected "
-                                 f"{want}")
+        tc = counters["ssd"].launches_tc
+        if launches != want or tc != prefills_bf16 * cfg.n_layers:
+            raise AssertionError(f"{label}: launches {launches}, "
+                                 f"{tc} on the tensor cores; expected "
+                                 f"{want}, {prefills_bf16 * cfg.n_layers}")
 
     def greedy(logits):
         return logits[:, :cfg.vocab_size].argmax(-1)[:, None]
@@ -1028,14 +1063,16 @@ def phase_ssm(counters):
         """prefill, ``steps`` greedy decode steps, then a teacher-forced
         prefill over prompt + generated tokens: its last logits against
         the last decode step's, as a relative L2 gap within ``limit``."""
-        nonlocal prefills
+        nonlocal prefills, prefills_bf16
         b, s = prompt.shape
+        bf16 = cfg_.param_dtype == "bfloat16"
         sync()
         t0 = time.perf_counter()
         logits, state, pos = api.prefill(cfg_, params_, prompt)
         sync()
         prefill_s = time.perf_counter() - t0
         prefills += 1
+        prefills_bf16 += bf16
         check(f"{label} prefill")
         if tuple(logits.shape) != (b, cfg.padded_vocab) \
                 or not bool(torch.isfinite(logits).all()) \
@@ -1068,6 +1105,7 @@ def phase_ssm(counters):
         sync()
         tf_s = time.perf_counter() - t0
         prefills += 1
+        prefills_bf16 += bf16
         check(f"{label} teacher-forced prefill")
         gap = rel(logits, tf_logits)
         max_d = float((logits.float() - tf_logits.float()).abs().max())
@@ -1122,7 +1160,8 @@ def phase_ssm(counters):
                 tokens[:, :SSM_F32_PREFILL], SSM_F32_STEPS,
                 TOL_CONSISTENCY_F32)
     print(f"  ssd_scan launches {counters['ssd'].launches} = {cfg.n_layers} x "
-          f"{prefills} prefills, 0 from "
+          f"{prefills} prefills ({counters['ssd'].launches_tc} on the tensor "
+          f"cores: the {prefills_bf16} bf16 prefills), 0 from "
           f"{SSM_DECODE_STEPS + SSM_WIDE_STEPS + SSM_F32_STEPS} decode steps;"
           f" peak memory {prefill_peak / 2**30:.2f} GiB ({cfg.param_dtype} "
           f"prefill and "
@@ -1373,12 +1412,31 @@ def phase_decode(record, counters):
     entry point's launches at decode_32k; timings and the bound."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.models.kvcache import to_fp8_e4m3
 
     gen = torch.Generator(device=DEV).manual_seed(97531)
     bf16, f32 = torch.bfloat16, torch.float32
     errs = []
+    fn = ops.paged_decode_attention
+
+    def run(q, kp, vp, bt, lengths):
+        """The entry point, its launch checked to have taken the kernel
+        that ``decode_kernel_path`` names; returns (output, path)."""
+        want = ops.decode_kernel_path(q.dtype, kp.dtype, q.shape[-1],
+                                      q.shape[1] // kp.shape[2], kp.shape[1])
+        before = (fn.launches, fn.launches_tc)
+        out = fn(q, kp, vp, bt, lengths)
+        sync()
+        path = "mma" if fn.launches_tc > before[1] else "cuda_cores"
+        if fn.launches != before[0] + 1 or path != want:
+            raise AssertionError(f"decode launched on {path}, expected "
+                                 f"{want}")
+        return out, path
 
     def compare(name, got, want):
+        if isinstance(got, tuple):
+            got, path = got
+            name = f"{name} ({path})"
         err = float((got.float() - want.float()).abs().max())
         limit = (TOL_DECODE_F32 if want.dtype == f32 else DECODE_BF16_ULPS
                  * ulp_bf16(float(want.float().abs().max())))
@@ -1402,11 +1460,10 @@ def phase_decode(record, counters):
                                             generator=gen, device=DEV,
                                             dtype=torch.int32))
         compare(f"reference shape B={B} Hq={Hq} Hkv={Hkv} D={D} fp32",
-                ops.paged_decode_attention(q, kp, vp, bt, lengths),
+                run(q, kp, vp, bt, lengths),
                 ref.paged_decode_attention_ref(q, kp, vp, bt, lengths))
     # q and pages of different dtypes, e4m3 pages among them (the
     # reference widens all three to fp32 and returns q's dtype)
-    from repro_torch.models.kvcache import to_fp8_e4m3
     for q_dtype, kv_name in ((bf16, "e4m3"), (f32, "e4m3"), (bf16, "fp32"),
                              (f32, "bf16")):
         cast = to_fp8_e4m3 if kv_name == "e4m3" else (
@@ -1423,8 +1480,43 @@ def phase_decode(record, counters):
                                 device=DEV, dtype=torch.int32)
         compare(f"q {str(q_dtype)[6:]} over {kv_name} pages, B={B} Hq={Hq} "
                 f"Hkv={Hkv} D={D}",
-                ops.paged_decode_attention(q, kp, vp, bt, lengths),
+                run(q, kp, vp, bt, lengths),
                 ref.paged_decode_attention_ref(q, kp, vp, bt, lengths))
+
+    # the edges of the split over the sequence (bf16 q): a stream one
+    # token past a unit boundary, one stream of 32,768 tokens (128 units
+    # of 256), lengths 0 and 1 in one batch (length 0 gives 0 from the
+    # kernel, NaN from the plain version: live rows compared), D 64 and
+    # pages of 8 and 64 tokens
+    def edge(name, B, Hq, Hkv, D, page, npg, ptot, lengths, kv=bf16):
+        cast = to_fp8_e4m3 if kv == torch.float8_e4m3fn else (
+            lambda t: t.to(kv))
+        q = torch.randn((B, Hq, D), generator=gen, device=DEV).to(bf16)
+        kp = cast(torch.randn((ptot, page, Hkv, D), generator=gen,
+                              device=DEV))
+        vp = cast(torch.randn((ptot, page, Hkv, D), generator=gen,
+                              device=DEV))
+        bt = torch.randint(0, ptot, (B, npg), generator=gen, device=DEV,
+                           dtype=torch.int32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+        got, path = run(q, kp, vp, bt, ln)
+        want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln)
+        live = ln > 0
+        if not bool((got[~live] == 0).all()):
+            raise AssertionError(f"{name}: a length-0 row is not 0")
+        compare(name, (got[live], path), want[live])
+
+    unit = ops.decode_unit_tokens(2, 8, 256 * 16)
+    edge(f"one token past a unit boundary (unit {unit}): lengths "
+         f"{unit + 1}, {2 * unit + 1}", 2, 32, 8, 128, 16, 256, 600,
+         [unit + 1, 2 * unit + 1])
+    edge(f"B=1, 32768 tokens ({32768 // ops.decode_unit_tokens(1, 8, 32768)}"
+         f" units)", 1, 32, 8, 128, 16, 2048, 4096, [32768])
+    edge("lengths 0, 1, 0, 37 in one batch", 4, 8, 2, 128, 16, 4, 20,
+         [0, 1, 0, 37])
+    edge("D 64, pages of 8, G 8", 3, 16, 2, 64, 8, 40, 130, [320, 9, 161])
+    edge("D 64 over e4m3 pages of 64, G 1", 3, 8, 8, 64, 64, 6, 20,
+         [384, 65, 3], kv=torch.float8_e4m3fn)
 
     cfg = get_config(DECODE_ARCH)
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1453,9 +1545,14 @@ def phase_decode(record, counters):
            "lengths drawn from [1, 32768]": ops.paged_decode_attention(
                q, kp, vp, table, drawn)}
     sync()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    if launches != {**{k: 0 for k in counters}, "paged_decode_attention": 2}:
-        raise AssertionError(f"decode launches {launches}")
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches != {**{k: 0 for k in counters}, "paged_decode_attention": 2} \
+            or fn.launches_tc != 2:
+        raise AssertionError(f"decode launches {launches}, "
+                             f"{fn.launches_tc} on the tensor cores")
+    print(f"  entry point at decode_32k: {fn.launches} launches, "
+          f"{fn.launches_tc} on the tensor cores (split into units of "
+          f"{ops.decode_unit_tokens(B, Hkv, S)} tokens)")
     record["launches"] = launches["paged_decode_attention"]
 
     def plain(lengths):
@@ -1465,7 +1562,7 @@ def phase_decode(record, counters):
             for i in range(0, B, r)])
 
     for (name, got), lengths in zip(out.items(), (full, drawn)):
-        compare(f"decode_32k bf16, {name}", got, plain(lengths))
+        compare(f"decode_32k bf16, {name} (mma)", got, plain(lengths))
     kernel_ms = cuda_ms(lambda: ops.paged_decode_attention(
         q, kp, vp, table, full), 10)
     drawn_ms = cuda_ms(lambda: ops.paged_decode_attention(
@@ -1534,7 +1631,7 @@ def phase_decode(record, counters):
     # e4m3 pages (knob Q's pools) at decode_32k, bf16 q, all lengths full
     kp, vp = to_fp8_e4m3(kp), to_fp8_e4m3(vp)
     compare("decode_32k bf16 q over e4m3 pages, all lengths 32768",
-            ops.paged_decode_attention(q, kp, vp, table, full), plain(full))
+            run(q, kp, vp, table, full), plain(full))
     fp8_ms = cuda_ms(lambda: ops.paged_decode_attention(
         q, kp, vp, table, full), 10)
     fp8_bytes = nbytes - 2 * B * S * Hkv * D   # one byte a K/V element
@@ -1757,7 +1854,8 @@ def main():
         entries, serialized = ptxas_entries(
             build.BUILD_LOGS.get(str(src), ""))
         for tc in (False, True):
-            part = [e for e in entries if ("wgmma" in e[0]) == tc]
+            part = [e for e in entries
+                    if ("wgmma" in e[0] or "_mma_kernel" in e[0]) == tc]
             if not part:
                 continue
             regs = [e[1] for e in part]
@@ -1784,12 +1882,12 @@ def main():
     ssd = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
-           "path": "cuda_cores"}
+           "path": "wgmma"}
     decode = {"name": "paged_decode_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_decode_attention.cu",
               "replaces": "src/repro/kernels/paged_attention/kernel.py:84",
-              "path": "cuda_cores"}
+              "path": "mma"}
     fp8 = {"name": "fp8_matmul", "route": "cuda",
            "source": "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu",
            "replaces": "src/repro/kernels/fp8_matmul/kernel.py:42",

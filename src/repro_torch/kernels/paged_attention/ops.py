@@ -10,9 +10,12 @@ fallback between the two.  ``kernel_path`` picks the chunk kernel from
 the dtypes, head dim and group alone: bf16 queries over bf16 or e4m3
 pages at D 96 or 128 with a group dividing 128 (every full-width model)
 run on the tensor cores (wgmma fed by TMA through the page table),
-everything else on the CUDA cores.  Each wrapper's ``launches`` counts
-its kernel launches; ``paged_chunk_attention.launches_tc`` counts the
-tensor-core launches among them, and ``view_launches`` those that read
+everything else on the CUDA cores; ``decode_kernel_path`` sends bf16
+decode queries over bf16 or e4m3 pages at D 64 or 128 (minitron-8b's
+decode) to the split, TMA-fed tensor-core decode kernel.  Each wrapper's
+``launches`` counts its kernel launches; ``launches_tc`` counts the
+tensor-core launches among them (the chunk kernel's and the decode
+kernel's), and ``view_launches`` those that read
 a head-range view of a wider pool (elastic SP2's half-head shards).
 """
 from __future__ import annotations
@@ -190,6 +193,60 @@ def decode_dtypes_supported(q_dtype: torch.dtype,
     return q_dtype in _DECODE_Q_DTYPES and kv_dtype in _KV_DTYPES
 
 
+# the decode kernel's tensor-core path: bf16 q over bf16 or e4m3 pages at
+# these head dims with a group of at most 8, pages of 8, 16 or a multiple
+# of the 32-token tile; units of at most 2048 tokens
+DECODE_MMA_HEAD_DIMS = (64, 128)
+DECODE_TILE = 32
+DECODE_MAX_UNIT = 2048
+
+
+def decode_kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                       head_dim: int, group: int, page: int) -> str:
+    """The CUDA kernel that takes one-token decode queries of ``q_dtype``
+    over pages of ``kv_dtype``: ``"mma"`` (split over the sequence, K/V
+    by TMA through the page table, products on the tensor cores) for
+    bf16 q over bf16 or e4m3 pages at D 64 or 128 with ``group`` = Hq /
+    Hkv at most 8 and ``page`` 8, 16 or a multiple of 32 tokens, else
+    ``"cuda_cores"`` (fp32 FMAs: fp32 q or pages keep their 1e-5
+    agreement with the CPU; the other head dims)."""
+    if q_dtype == torch.bfloat16 and kv_dtype in _WGMMA_KV_DTYPES \
+            and head_dim in DECODE_MMA_HEAD_DIMS and 0 < group <= 8 \
+            and (page in (8, 16) or (page > 0 and page % DECODE_TILE == 0)):
+        return "mma"
+    return "cuda_cores"
+
+
+def decode_unit_tokens(batch: int, kv_heads: int, max_tokens: int) -> int:
+    """Tokens per work unit of the tensor-core path, from the shapes
+    alone (no look at the lengths, so no host sync): 2048, halved down
+    to 256 while the grid would have fewer than 1024 units of (b, KV
+    head) at ``max_tokens`` (= table entries x page), so that one long
+    stream still spreads over the card."""
+    unit = DECODE_MAX_UNIT
+    while unit > 256 and \
+            batch * kv_heads * -(-max_tokens // unit) < 1024:
+        unit //= 2
+    return unit
+
+
+def decode_units(lengths, n: int, page: int, unit: int):
+    """The tensor-core path's work plan, as its grid makes it on the
+    card: (b, u, first page entry, first token, tokens) for every unit
+    of ``unit`` tokens that holds a visible token of stream b; lengths
+    are clamped to [0, n * page].  Every visible token lies in exactly
+    one unit, and none at or past ``lengths[b]``."""
+    cap = n * page
+    out = []
+    for b, ln in enumerate(int(x) for x in lengths):
+        ln = min(max(ln, 0), cap)
+        for u in range(-(-cap // unit)):
+            t0 = u * unit
+            if t0 < ln:
+                out.append((b, u, t0 // page, t0, min(unit, ln - t0)))
+    return out
+
+
 def _decode_lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(DECODE_SOURCE)
@@ -198,6 +255,10 @@ def _decode_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        tc = lib.paged_decode_attention_mma_launch
+        tc.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        tc.restype = ctypes.c_int
         lib.paged_decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -205,7 +266,7 @@ def _decode_lib() -> ctypes.CDLL:
 
 def _launch_decode(q, k_pages, v_pages, block_table, lengths):
     b, hq, d = q.shape
-    _, page, hkv, dk = k_pages.shape
+    n_pages, page, hkv, dk = k_pages.shape
     n = block_table.shape[1]
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -231,15 +292,31 @@ def _launch_decode(q, k_pages, v_pages, block_table, lengths):
     ln = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _decode_lib()
-    err = lib.paged_decode_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-        page, n, _DECODE_Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tc = decode_kernel_path(q.dtype, k_pages.dtype, d, hq // hkv,
+                            page) == "mma"
+    if tc:
+        unit = decode_unit_tokens(b, hkv, n * page)
+        units = -(-(n * page) // unit)
+        m = torch.empty((b, hq, units), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        acc = torch.empty((b, hq, units, d), dtype=torch.float32, device=dev)
+        err = lib.paged_decode_attention_mma_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), ln.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), b, hq, hkv, d, page, n, n_pages,
+            _KV_DTYPES[k_pages.dtype], unit, stream)
+    else:
+        err = lib.paged_decode_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq, hkv, d,
+            page, n, _DECODE_Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
+            stream)
     if err != 0:
         msg = lib.paged_decode_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: {msg}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_tc += int(tc)
     return out
 
 
@@ -261,3 +338,4 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths):
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_tc = 0

@@ -110,3 +110,55 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = torch.sum(p, dim=-1)
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
     return m, l, acc
+
+
+def paged_decode_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_table: torch.Tensor,
+                              lengths: torch.Tensor, unit: int):
+    """The decode kernel's split over the sequence, plain: per stream b
+    and unit u of ``unit`` tokens ([u * unit, (u + 1) * unit) of the
+    logical sequence, clamped to [0, n * page]), the fp32 online-softmax
+    partials of every query head over the unit's visible tokens (those
+    before ``lengths[b]``): m, l [B, Hq, U] and acc [B, Hq, U, D]
+    unnormalized, U = ceil(n * page / unit); m = NEG_INF, l = acc = 0 for
+    a unit with no visible token.  ``combine_decode_partials`` merges
+    them (tests only)."""
+    b, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    k = gather_pages(k_pages, block_table).float()   # [B, T, Hkv, D]
+    v = gather_pages(v_pages, block_table).float()
+    t = k.shape[1]
+    units = -(-t // unit)
+    qg = q.float().reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k) / math.sqrt(d)
+    pos = torch.arange(t, device=q.device)
+    ln = lengths.to(q.device).long().clamp(0, t)
+    vis = pos[None, :] < ln[:, None]                 # [B, T]
+    m = torch.full((b, hkv, g, units), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, units), device=q.device)
+    acc = torch.zeros((b, hkv, g, units, d), device=q.device)
+    for u in range(units):
+        sl = slice(u * unit, min((u + 1) * unit, t))
+        vu = vis[:, None, None, sl]
+        su = torch.where(vu, s[..., sl], NEG_INF)
+        mu = su.amax(-1)
+        pu = torch.where(vu, torch.exp(su - mu[..., None]), 0.0)
+        m[..., u] = mu
+        l[..., u] = pu.sum(-1)
+        acc[..., u, :] = torch.einsum("bhgt,bthd->bhgd", pu, v[:, sl])
+    return (m.reshape(b, hq, units), l.reshape(b, hq, units),
+            acc.reshape(b, hq, units, d))
+
+
+def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
+                            acc: torch.Tensor, out_dtype=torch.float32):
+    """Merges the units' partials of ``paged_decode_partials_ref`` (the
+    kernel's combine pass, plain): softmax over all units, a stream whose
+    units saw nothing gives 0 (as the TPU kernel: l == 0 -> 1)."""
+    mm = m.amax(-1, keepdim=True)                    # [B, Hq, 1]
+    w = torch.where(m == NEG_INF, 0.0, torch.exp(m - mm))
+    ll = (l * w).sum(-1)
+    aa = (acc * w[..., None]).sum(-2)
+    return (aa / torch.where(ll == 0, 1.0, ll)[..., None]).to(out_dtype)

@@ -1,11 +1,16 @@
 """Wrapper of the Mamba-2 SSD chunked scan, in the model layout.
 
 A CPU tensor takes the plain PyTorch version (``ref.ssd_ref``); a CUDA
-tensor launches the hand-written CUDA kernel (``csrc/ssd_scan.cu``,
-three passes, built with nvcc at first use) or raises.  There is no
-fallback between the two.  ``ssd.launches`` counts kernel launches: one
-per call on the card (the three passes together), so one per layer per
-``prefill`` / ``forward``.  The one-token ``ssd_decode`` is the plain
+tensor launches a hand-written CUDA kernel (``csrc/ssd_scan.cu``, built
+with nvcc at first use) or raises.  There is no fallback between the
+two.  ``kernel_path`` picks the kernel from the dtype, (P, N) and the
+views' alignment alone: bf16 x/B/C at mamba2-780m's (64, 128) with
+16-byte aligned views run on the tensor cores (``"wgmma"``: one C B^T
+per chunk shared by a group of heads, the state chained across chunks
+through L2), the rest on the CUDA cores (``"cuda_cores"``: three passes).
+``ssd.launches`` counts kernel launches, one per call on the card, so
+one per layer per ``prefill`` / ``forward``; ``ssd.launches_tc`` those on
+the tensor cores.  The one-token ``ssd_decode`` is the plain
 recurrence on every device, as in the reference.
 """
 from __future__ import annotations
@@ -25,6 +30,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (64, 128) and its reduced config (16, 16)
 _SHAPES = ((64, 128), (16, 16))
 _MAX_CHUNK = 128
+# the tensor-core kernel's (P, N)
+WGMMA_SHAPE = (64, 128)
+
+
+def kernel_path(dtype: torch.dtype, head_dim: int, state_dim: int,
+                aligned: bool = True) -> str:
+    """The CUDA kernel that takes x/B/C of ``dtype`` at (P, N) =
+    (``head_dim``, ``state_dim``): ``"wgmma"`` for bf16 at (64, 128)
+    whose views TMA can read (``aligned``: bases 16-byte aligned, batch
+    and token strides multiples of 8 elements), else ``"cuda_cores"``
+    (fp32 keeps its 1e-4 agreement with the CPU; (16, 16) is the reduced
+    config's)."""
+    if dtype == torch.bfloat16 and (head_dim, state_dim) == WGMMA_SHAPE \
+            and aligned:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def _tma_aligned(*views: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+               and t.stride(1) % 8 == 0 for t in views)
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,6 +61,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        tc = lib.ssd_scan_wgmma_launch
+        tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+            + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+        tc.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,20 +111,36 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state):
     nc = -(-s // q)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, nc, p, n), dtype=torch.float32, device=dev)
-    decay = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
+    tc = kernel_path(x.dtype, p, n, _tma_aligned(x, Bm, Cm)) == "wgmma"
     lib = _lib()
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), states.data_ptr(), decay.data_ptr(), final.data_ptr(),
-        b, s, h, p, n, q, x.stride(0), x.stride(1), Bm.stride(0),
-        Bm.stride(1), Cm.stride(0), Cm.stride(1), _DTYPES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    init = None if init_state is None else init_state.data_ptr()
+    if tc:
+        # two slots of the chained states, and the chain's flags (one per
+        # (b, h) and warp, then the ticket counter), zeroed
+        slots = torch.empty((2, b, h, p, n), dtype=torch.float32, device=dev)
+        flags = torch.zeros((b * h * 8 + 1,), dtype=torch.int32, device=dev)
+        err = lib.ssd_scan_wgmma_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), init, y.data_ptr(), final.data_ptr(),
+            slots.data_ptr(), flags.data_ptr(), b, s, h, q, x.stride(0),
+            x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+            Cm.stride(1), stream)
+    else:
+        states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                             device=dev)
+        decay = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
+        err = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), init, y.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), final.data_ptr(), b, s, h, p, n, q,
+            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1), _DTYPES[x.dtype], stream)
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()
         raise RuntimeError(f"ssd_scan launch failed: {msg}")
     ssd.launches += 1
+    ssd.launches_tc += int(tc)
     return y, final
 
 
@@ -114,6 +160,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd.launches = 0
+ssd.launches_tc = 0
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state):

@@ -118,3 +118,83 @@ def ssd_decode_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  + xdt[..., None] * Bh[:, :, None, :])
     y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
     return y.to(x.dtype), new_state
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def _operand(t: torch.Tensor, pair: bool) -> torch.Tensor:
+    """An fp32 operand as the tensor cores take it: one bf16 rounding,
+    or a bf16 hi + lo pair (two products, ~16 significant bits)."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi) if pair else hi
+
+
+# The fp32 operands of the tensor-core SSD kernel (csrc/ssd_scan.cu,
+# ``ssd_wgmma_kernel``) that go to the tensor cores as a bf16 hi + lo
+# pair; the others take one bf16 rounding.  W = (C B^T) o L o dt (the
+# intra-chunk weights), XW = (x o dt o exp(cs_last - cs)) (the chunk
+# state's operand) and the entering state of the inter-chunk output.
+# Settled on the CPU against JAX's ssd_pallas (tests/test_torch_ssd.py
+# measures it): with XW single the final state is off by ~2e-3 of its
+# magnitude (limit 1e-4), so XW is a pair (4e-6); W and the state as
+# single roundings leave y within 1 of the 2 bf16 ulps allowed (0.25 as
+# pairs), so they take one rounding each.
+KERNEL_PAIRS = frozenset({"xw"})
+
+
+def ssd_kernel_emulation(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor, *,
+                         chunk: int = 128,
+                         init_state: Optional[torch.Tensor] = None,
+                         pairs=KERNEL_PAIRS,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan as the tensor-core kernel factors and rounds it
+    (tests only; G = 1): per chunk, CB = C B^T once for all heads (bf16
+    inputs, exact products summed in fp32); per head W = CB o L o dt_j
+    (L = exp(cs_i - cs_j) only where i >= j), y_intra = W X; the chunk
+    state contrib = (X o w)^T B with w_j = dt_j exp(cs_last - cs_j); the
+    state chained chunk after chunk as state * exp(cs_last) + contrib,
+    in fp32; y_inter = exp(cs_i) (C state^T).  Each fp32 operand is
+    rounded as the kernel feeds it (``pairs`` names those fed as a hi +
+    lo pair, the rest are single bf16 roundings); x, B and C are the
+    inputs' own values.  Same contract as ``ssd_ref``."""
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    assert Bm.shape[2] == 1, "the kernel folds n_groups to 1"
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float()[:, :, 0], Cm.float()[:, :, 0]
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nc):
+        sl = slice(c * q, (c + 1) * q)
+        xc, dtc = xf[:, sl], dtf[:, sl]                  # [b,q,h,p], [b,q,h]
+        Bc, Cc = Bf[:, sl], Cf[:, sl]                    # [b,q,n]
+        cs = torch.cumsum(dtc * A.float(), dim=1)        # [b,q,h]
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)        # once per chunk
+        seg = cs[:, :, None, :] - cs[:, None, :, :]      # [b,i,j,h]
+        L = torch.where(tri[None, :, :, None], torch.exp(seg),
+                        torch.zeros((), device=x.device))
+        W = cb[..., None] * L * dtc[:, None, :, :]       # [b,i,j,h]
+        y = torch.einsum("bijh,bjhp->bihp", _operand(W, "w" in pairs), xc)
+        wj = dtc * torch.exp(cs[:, -1:, :] - cs)         # [b,q,h]
+        xw = _operand(xc * wj[..., None], "xw" in pairs)
+        contrib = torch.einsum("bjhp,bjn->bhpn", xw, Bc)
+        st = _operand(state, "state" in pairs)
+        y = y + torch.exp(cs)[..., None] * torch.einsum("bin,bhpn->bihp",
+                                                        Cc, st)
+        ys.append(y)
+        state = state * torch.exp(cs[:, -1, :])[:, :, None, None] + contrib
+    y = torch.cat(ys, 1)[:, :s]
+    return y.to(x.dtype), state

@@ -26,7 +26,8 @@ STEPS = 8
 
 
 def category(name: str) -> str:
-    """Coarse class of a kernel by name: the SSD kernel's three passes,
+    """Coarse class of a kernel by name: the SSD kernel (its tensor-core
+    kernel, or its three CUDA-core passes),
     matmuls (the projections, the unembedding, decode's state readout),
     reductions (the RMS norms), copies, the rest."""
     low = name.lower()

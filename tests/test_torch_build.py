@@ -21,8 +21,8 @@ HOPPER = build.COMMON / "hopper.cuh"
 
 @pytest.mark.parametrize("src,uses_hopper", [
     (flash_ops.SOURCE, True), (fp8_ops.SOURCE, True),
-    (paged_ops.SOURCE, True), (paged_ops.DECODE_SOURCE, False),
-    (ssd_ops.SOURCE, False)])
+    (paged_ops.SOURCE, True), (paged_ops.DECODE_SOURCE, True),
+    (ssd_ops.SOURCE, True)])
 def test_sources_lists_the_shared_header(src, uses_hopper):
     found = build.sources(src)
     assert found[0] == src.resolve()

@@ -46,7 +46,13 @@ modest context, q in fp32 or bf16 over pages of fp32, bf16 or fp8-e4m3
 (each widened to fp32, as the reference does), ragged lengths; a stream
 of length 0 gives 0 from the kernel (the TPU kernel's rule) where the
 plain version gives NaN, and table entries past a stream's length are
-never read.
+never read.  bf16 q over bf16 or e4m3 pages at D 64 / 128 with a group
+of at most 8 takes the tensor-core kernel split over the sequence
+(``launches_tc``): the edges of its split (a stream one token past a
+unit boundary, one stream of 32,768 tokens, lengths 0 and 1 in one
+batch, pages of 8 and 64 tokens) are held to the plain version, and
+shapes outside it (D 32, a group of 12, pages of 24) are checked to
+take the CUDA-core kernel.
 Tolerance: 1e-5 for fp32 q (both sum in fp32; they differ in order
 only), 2 bf16 ulps at the output's largest magnitude for bf16 q.
 
@@ -69,7 +75,11 @@ top.
 SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
 instantiates x fp32/bf16 x/B/C, ragged S, S < chunk, ``init_state``,
 x/B/C as strided views of one wider tensor (as the model passes them),
-and the inputs the wrapper refuses.  Tolerance: y within 1e-4 of the
+and the inputs the wrapper refuses; bf16 at (64, 128) takes the
+tensor-core kernel (``launches_tc``), including a chained grid of many
+more blocks than are resident, ``init_state`` with strided views and a
+partial head group, and a view TMA cannot read takes the CUDA-core
+kernel by ``kernel_path``.  Tolerance: y within 1e-4 of the
 output's largest magnitude (at least 1e-4 absolute) in fp32, within 2
 bf16 ulps at that magnitude in bf16; the fp32 final state within 1e-4
 of its largest magnitude.  A scan's outputs grow with its inputs (unlike
@@ -723,3 +733,148 @@ def test_fp8_kernel_rejects_what_it_cannot_run(card):
         f8ops.fp8_scaled_matmul(xq, wq, sx, sw, out_dtype=torch.float16)
     with pytest.raises(ValueError):
         f8ops.fp8_scaled_matmul(xq, wq.cpu(), sx, sw)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core paths of the decode and SSD kernels
+# ---------------------------------------------------------------------------
+
+DECODE_TC_EDGES = {  # B, Hq, Hkv, D, page, n, P_total, lengths, page dtype
+    "one past a unit boundary": (2, 32, 8, 128, 16, 256, 600, (257, 513),
+                                 torch.bfloat16),
+    "one stream of 32768": (1, 32, 8, 128, 16, 2048, 4096, (32768,),
+                            torch.bfloat16),
+    "lengths 0 and 1": (4, 8, 2, 128, 16, 4, 20, (0, 1, 0, 37),
+                        torch.float8_e4m3fn),
+    "D 64, pages of 8, G 8": (3, 16, 2, 64, 8, 40, 130, (320, 9, 161),
+                              torch.bfloat16),
+    "D 64, e4m3 pages of 64": (3, 8, 8, 64, 64, 6, 20, (384, 65, 3),
+                               torch.float8_e4m3fn),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_TC_EDGES))
+def test_decode_tensor_core_split_edges(card, case):
+    B, Hq, Hkv, D, page, n, P, lengths, kv_dtype = DECODE_TC_EDGES[case]
+    q, kp, vp, table, _ = _decode_inputs(card, B, Hq, Hkv, D, page, n, P,
+                                         torch.bfloat16, seed=len(case),
+                                         kv_dtype=kv_dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    assert ops.decode_kernel_path(q.dtype, kp.dtype, D, Hq // Hkv,
+                                  page) == "mma"
+    before = ops.paged_decode_attention.launches_tc
+    got = ops.paged_decode_attention(q, kp, vp, table, ln)
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, ln)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches_tc == before + 1
+    live = ln > 0
+    assert (got[~live] == 0).all()
+    err = float((got[live].float() - want[live].float()).abs().max())
+    assert err <= _decode_limit(want[live]), err
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 2, 32, 16, 4, 16),       # D 32
+    (3, 12, 1, 128, 16, 5, 20),     # a group of 12
+    (2, 8, 2, 128, 24, 4, 16),      # pages of 24
+], ids=["D32", "G12", "page24"])
+def test_decode_outside_the_tensor_core_path_takes_the_cuda_cores(card,
+                                                                  shape):
+    q, kp, vp, table, lengths = _decode_inputs(card, *shape, torch.bfloat16,
+                                               seed=4)
+    B, Hq, Hkv, D, page = shape[:5]
+    assert ops.decode_kernel_path(q.dtype, kp.dtype, D, Hq // Hkv,
+                                  page) == "cuda_cores"
+    before = (ops.paged_decode_attention.launches,
+              ops.paged_decode_attention.launches_tc)
+    got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert (ops.paged_decode_attention.launches,
+            ops.paged_decode_attention.launches_tc) == (before[0] + 1,
+                                                        before[1])
+    assert float((got.float() - want.float()).abs().max()) <= \
+        _decode_limit(want)
+
+
+SSD_TC_CASES = {  # B, S, H, chunk, init_state, strided views
+    "chained grid, 1,248 blocks": (2, 13243, 48, 128, True, True),
+    "init_state and strided views": (2, 1000, 12, 128, True, True),
+    "partial head group, chunk 64": (2, 1000, 7, 64, False, True),
+    "S < chunk": (1, 100, 6, 128, True, False),
+}
+
+
+def _ssd_views(dev, B, S, H, init, view, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P, N = 64, 128
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=g,
+                      device=dev).bfloat16()
+    xi, Bp, Cp = torch.split(xbc, [H * P, N, N], dim=-1)
+    x, Bm, Cm = xi.reshape(B, S, H, P), Bp.reshape(B, S, 1, N), \
+        Cp.reshape(B, S, 1, N)
+    if not view:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev) - 3.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    s0 = torch.randn((B, H, P, N), generator=g, device=dev) if init \
+        else None
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("case", list(SSD_TC_CASES))
+def test_ssd_tensor_core_kernel(card, case):
+    B, S, H, chunk, init, view = SSD_TC_CASES[case]
+    x, dt, A, Bm, Cm, s0 = _ssd_views(card, B, S, H, init, view, seed=S)
+    before = sops.ssd.launches_tc
+    got = sops.ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert sops.ssd.launches_tc == before + 1
+    check_ssd(got, sref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                                Cm.contiguous(), chunk=chunk,
+                                init_state=s0))
+
+
+def test_ssd_view_tma_cannot_read_takes_the_cuda_cores(card):
+    """x/B/C sliced from a tensor whose rows are one element longer: the
+    token stride is not a multiple of 8 elements, so ``kernel_path``
+    names the CUDA-core kernel, which takes it (no launch on the tensor
+    cores, the same answer)."""
+    B, S, H, P, N = 2, 300, 4, 64, 128
+    g = torch.Generator(device=card).manual_seed(3)
+    wide = torch.randn((B, S, H * P + 2 * N + 1), generator=g,
+                       device=card).bfloat16()
+    xi, Bp, Cp, _ = torch.split(wide, [H * P, N, N, 1], dim=-1)
+    x, Bm, Cm = xi.reshape(B, S, H, P), Bp.reshape(B, S, 1, N), \
+        Cp.reshape(B, S, 1, N)
+    assert sops.kernel_path(x.dtype, P, N,
+                            sops._tma_aligned(x, Bm, Cm)) == "cuda_cores"
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=card) - 3.0)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=card)
+    before = (sops.ssd.launches, sops.ssd.launches_tc)
+    got = sops.ssd(x, dt, A, Bm, Cm, chunk=128)
+    torch.cuda.synchronize()
+    assert (sops.ssd.launches, sops.ssd.launches_tc) == (before[0] + 1,
+                                                         before[1])
+    check_ssd(got, sref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
+                                Cm.contiguous(), chunk=128))
+
+
+def test_decode_tensor_core_path_never_reads_pages_past_the_length(card):
+    """Table entries of pages wholly past a stream's length may point
+    anywhere (even out of the pool) on the tensor-core path too: they
+    are neither staged nor read, and the output does not change."""
+    B, Hq, Hkv, D, page, n, P = 3, 8, 2, 128, 16, 40, 130
+    q, kp, vp, table, _ = _decode_inputs(card, B, Hq, Hkv, D, page, n, P,
+                                         torch.bfloat16, seed=8)
+    lengths = torch.tensor([37, 0, 300], dtype=torch.int32, device=card)
+    got = ops.paged_decode_attention(q, kp, vp, table, lengths)
+    wild = table.clone()
+    wild[0, 3:] = 1 << 30
+    wild[1, :] = -(1 << 30)
+    wild[2, 19:] = 1 << 30
+    before = ops.paged_decode_attention.launches_tc
+    again = ops.paged_decode_attention(q, kp, vp, wild, lengths)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches_tc == before + 1
+    assert torch.equal(again, got) and (got[1] == 0).all()

@@ -13,8 +13,15 @@ full-width AR-DiT config) to the tensor-core kernel, and fp32 queries or
 pages (the reduced configs), D 16 and bf16 queries over fp32 pages to
 the CUDA-core kernel; ``decode_dtypes_supported`` is the decode kernel's
 dtype gate: q fp32 or bf16 over pages of fp32, bf16 or e4m3, any mix,
-as the reference widens all three to fp32.  All decide from the inputs
-alone.
+as the reference widens all three to fp32.
+``paged_attention.ops.decode_kernel_path`` sends bf16 decode queries over
+bf16 or e4m3 pages at D 64 and 128 with a group of at most 8 and pages of
+8, 16 or a multiple of 32 (minitron-8b's decode) to the split tensor-core
+kernel, everything else to the CUDA-core kernel;
+``ssd_scan.ops.kernel_path`` sends bf16 x/B/C at (P, N) = (64, 128)
+(mamba2-780m) whose views TMA can read to the tensor-core kernel, and
+fp32, the reduced (16, 16) and unaligned views to the CUDA-core passes.
+All decide from the inputs alone.
 """
 import pytest
 import torch
@@ -137,3 +144,81 @@ def test_cpu_chunk_and_decode_take_the_plain_versions():
     assert (paged_ops.paged_chunk_attention.launches,
             paged_ops.paged_chunk_attention.launches_tc,
             paged_ops.paged_decode_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's and the SSD kernel's tensor-core paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("page", [8, 64, 24])
+@pytest.mark.parametrize("group", [4, 8, 12])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (BF16, BF16), (BF16, E4M3), (BF16, F32), (F32, F32), (F32, BF16),
+    (F32, E4M3)], ids=["bf16-bf16", "bf16-e4m3", "bf16-f32", "f32-f32",
+                       "f32-bf16", "f32-e4m3"])
+def test_decode_path(q_dtype, kv_dtype, head_dim, group, page):
+    mma = (q_dtype == BF16 and kv_dtype in (BF16, E4M3)
+           and head_dim in (64, 128) and group <= 8
+           and (page in (8, 16) or page % 32 == 0))
+    assert paged_ops.decode_kernel_path(q_dtype, kv_dtype, head_dim, group,
+                                        page) == (
+        "mma" if mma else "cuda_cores")
+
+
+@pytest.mark.parametrize("kv_dtype", [BF16, E4M3], ids=["bf16", "e4m3"])
+def test_minitron_decode_takes_the_tensor_cores(kv_dtype):
+    """minitron-8b's attention at decode_32k (Hq 32, Hkv 8, D 128, pages
+    of 16): bf16 q over bf16 or e4m3 pages takes the split tensor-core
+    kernel; fp32 q (the reference tests' shapes) the CUDA-core one."""
+    from repro_torch.configs.minitron_8b import CONFIG as MINITRON
+    g = MINITRON.n_heads // MINITRON.n_kv_heads
+    assert (g, MINITRON.head_dim) == (4, 128)
+    assert paged_ops.decode_kernel_path(BF16, kv_dtype, MINITRON.head_dim,
+                                        g, 16) == "mma"
+    assert paged_ops.decode_kernel_path(F32, kv_dtype, MINITRON.head_dim,
+                                        g, 16) == "cuda_cores"
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["tma", "unaligned"])
+@pytest.mark.parametrize("P,N", [(64, 128), (16, 16), (64, 64), (32, 128)])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_ssd_path(dtype, P, N, aligned):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    tc = dtype == BF16 and (P, N) == (64, 128) and aligned
+    assert ssd_ops.kernel_path(dtype, P, N, aligned) == (
+        "wgmma" if tc else "cuda_cores")
+
+
+def test_mamba_full_width_prefill_takes_the_tensor_cores():
+    """mamba2-780m at full width (bf16, heads of 64, state 128) and the
+    model's x/B/C views of the conv output (token stride H*P + 2N) take
+    the tensor-core SSD kernel; the reduced config and fp32 weights take
+    the CUDA-core kernel."""
+    from repro_torch.configs.mamba2_780m import CONFIG as MAMBA
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    hd, n = MAMBA.ssm_head_dim, MAMBA.ssm_state
+    heads = MAMBA.ssm_expand * MAMBA.d_model // hd
+    xbc = torch.zeros((2, 64, heads * hd + 2 * n), dtype=BF16)
+    xi, Bp, Cp = torch.split(xbc, [heads * hd, n, n], dim=-1)
+    views = (xi.reshape(2, 64, heads, hd), Bp.reshape(2, 64, 1, n),
+             Cp.reshape(2, 64, 1, n))
+    assert ssd_ops.kernel_path(BF16, hd, n, ssd_ops._tma_aligned(*views)) \
+        == "wgmma"
+    assert ssd_ops.kernel_path(F32, hd, n) == "cuda_cores"
+    red = MAMBA.reduced()
+    assert ssd_ops.kernel_path(BF16, red.ssm_head_dim,
+                               red.ssm_state) == "cuda_cores"
+
+
+def test_ssd_alignment_of_views():
+    """TMA needs 16-byte bases and batch / token strides that are
+    multiples of 8 bf16 elements: a view one element off is refused by
+    the tensor-core path and named so by kernel_path."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    base = torch.zeros((2, 40, 4 * 64 + 256 + 8), dtype=BF16)
+    ok = base[..., :4 * 64].reshape(2, 40, 4, 64)
+    assert ssd_ops._tma_aligned(ok)
+    odd = torch.zeros((2, 40, 4 * 64 + 257), dtype=BF16)
+    off = odd[..., 1:4 * 64 + 1].reshape(2, 40, 4, 64)
+    assert not ssd_ops._tma_aligned(off)

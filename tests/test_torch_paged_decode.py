@@ -3,7 +3,12 @@ CPU: ``ops.paged_decode_attention`` (the plain version on CPU tensors)
 against ``paged_decode_attention_pallas(interpret=True)`` and the
 reference's oracle, at the reference test's three shapes and length 1;
 ``models.attention.decode_attention`` (the oracle's inner function)
-with a window and a sink; and the length-0 behaviours.
+with a window and a sink; the length-0 behaviours; and the tensor-core
+path's split over the sequence: its unit plan (``ops.decode_units``, the
+grid the kernel launches) covers every visible token once, and per-unit
+plain partials merged by the plain combine
+(``ref.paged_decode_partials_ref`` / ``ref.combine_decode_partials``)
+match the Pallas kernel within 1e-5.
 
 Inputs come from a numpy generator and go to both frameworks.
 Tolerances: 2e-3 against the Pallas kernel (the reference test's own
@@ -20,7 +25,7 @@ from repro.kernels.paged_attention.kernel import \
 from repro.kernels.paged_attention.ref import \
     paged_decode_attention_ref as jax_decode_ref
 from repro.models.attention import decode_attention as jax_decode_attention
-from repro_torch.kernels.paged_attention import ops
+from repro_torch.kernels.paged_attention import ops, ref
 from repro_torch.models.attention import decode_attention
 
 torch.set_num_threads(2)
@@ -173,3 +178,89 @@ def test_paged_decode_mixed_dtypes_match_jax(q_dtype, kv_dtype):
     want = pallas.astype(np.float32)
     print(f"max |port - pallas| {np.abs(got - want).max():.3g}")
     np.testing.assert_allclose(got, want, **TOL_PALLAS)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core path's split over the sequence (flash-decoding)
+# ---------------------------------------------------------------------------
+
+PAGE, N_ENTRIES, UNIT = 16, 2048, 2048
+
+
+@pytest.mark.parametrize("length", [0, 1, PAGE - 1, UNIT - 1, UNIT,
+                                    UNIT + 1, 32768, 40000, -3],
+                         ids=["0", "1", "page-1", "unit-1", "unit",
+                              "unit+1", "32768", "past-table", "negative"])
+def test_unit_plan_covers_every_visible_token_once(length):
+    """``decode_units`` (the grid the kernel launches, as a plan): every
+    token before ``lengths[b]`` (clamped to the table's n * page) lies in
+    exactly one unit, no unit reaches a token at or past it, units start
+    on a page boundary, and a stream of length 0 has no unit."""
+    lengths = [length, 7]
+    units = ops.decode_units(lengths, N_ENTRIES, PAGE, UNIT)
+    for b, ln in enumerate(lengths):
+        ln = min(max(ln, 0), N_ENTRIES * PAGE)
+        covered = np.zeros(N_ENTRIES * PAGE, np.int32)
+        for bb, u, first_page, t0, count in units:
+            if bb != b:
+                continue
+            assert t0 == u * UNIT and first_page * PAGE == t0
+            assert 0 < count <= UNIT and t0 + count <= ln
+            covered[t0:t0 + count] += 1
+        assert (covered[:ln] == 1).all() and (covered[ln:] == 0).all()
+
+
+@pytest.mark.parametrize("B,Hkv,tokens,unit", [
+    (128, 8, 32768, 2048),      # minitron-8b decode_32k: 16,384 units
+    (1, 8, 32768, 256),         # one long stream: 128 units of 256
+    (2, 8, 4096, 256),
+    (64, 8, 32768, 2048),
+    (16, 4, 32768, 2048),       # 1,024 units: enough
+    (8, 4, 32768, 1024),
+    (4, 2, 64, 256),            # a short table: one unit each
+])
+def test_unit_size_spreads_long_streams(B, Hkv, tokens, unit):
+    got = ops.decode_unit_tokens(B, Hkv, tokens)
+    assert got == unit
+    assert got % ops.DECODE_TILE == 0 and got <= ops.DECODE_MAX_UNIT
+
+
+@pytest.mark.parametrize("case", CASES,
+                         ids=["gqa2", "mha", "gqa4", "length1"])
+@pytest.mark.parametrize("unit", [8, 16, 32])
+def test_split_partials_combined_match_pallas(case, unit):
+    """Per-unit fp32 partials (m, l, acc) of the split over the sequence,
+    merged by the plain combine, against the reference's Pallas kernel
+    in interpret mode at its test shapes, within 1e-5: splitting the
+    online softmax at unit boundaries changes the summation order only."""
+    *shape, lengths = case
+    q, kp, vp, bt, ln = _case(*shape, seed=sum(shape) + unit,
+                              lengths=lengths)
+    tq, tk, tv, tb, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, ln))
+    m, l, acc = ref.paged_decode_partials_ref(tq, tk, tv, tb, tl, unit)
+    units = -(-shape[5] * shape[4] // unit)
+    assert m.shape == (shape[0], shape[1], units)
+    # a unit wholly past a stream's length contributes nothing
+    for b, length in enumerate(ln):
+        dead = np.arange(units) * unit >= length
+        assert (m[b][:, dead] == ref.NEG_INF).all()
+        assert (l[b][:, dead] == 0).all() and (acc[b][:, dead] == 0).all()
+    got = ref.combine_decode_partials(m, l, acc).numpy()
+    pallas = _jax(paged_decode_attention_pallas, q, kp, vp, bt, ln,
+                  interpret=True)
+    print(f"max |split+combine - pallas| {np.abs(got - pallas).max():.3g}")
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_split_combine_gives_zero_for_length_zero():
+    """A stream of length 0 has no visible unit: the combine gives 0, as
+    the Pallas kernel and the CUDA kernel do."""
+    q, kp, vp, bt, _ = _case(3, 4, 2, 16, 8, 4, 16, seed=12)
+    ln = np.asarray([5, 0, 32], np.int32)
+    tq, tk, tv, tb, tl = (torch.from_numpy(a) for a in (q, kp, vp, bt, ln))
+    got = ref.combine_decode_partials(
+        *ref.paged_decode_partials_ref(tq, tk, tv, tb, tl, 8)).numpy()
+    pallas = _jax(paged_decode_attention_pallas, q, kp, vp, bt, ln,
+                  interpret=True)
+    assert (got[1] == 0).all() and (pallas[1] == 0).all()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)

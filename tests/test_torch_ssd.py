@@ -4,8 +4,13 @@ kernel ``ssd_pallas`` in interpret mode at the shapes of
 ``tests/test_kernels.py::TestSSD`` (ragged S included), ``init_state``
 and its continuation, S shorter than the chunk, n_groups > 1 (the plain
 version only), bf16 inputs; ``ssd_decode_ref`` against the reference's;
-the chunked scan against the port's own per-token recurrence; and the
-wrapper's dispatch on the CPU.  Inputs come from numpy seeds.
+the chunked scan against the port's own per-token recurrence; the
+wrapper's dispatch on the CPU; and ``ssd_kernel_emulation``, the scan as
+the tensor-core kernel factors and rounds it (one C B^T per chunk, the
+fp32 operands fed to bf16 products as one rounding or a hi + lo pair,
+the state chained in fp32), against ``ssd_pallas`` in interpret mode at
+the card's limits (2 bf16 ulps on y, 1e-4 on the final state), which
+settles the kernel's operand plan.  Inputs come from numpy seeds.
 
 Tolerance: 1e-5 (rtol and atol) in fp32 — both sides accumulate in fp32
 and differ in summation order only (measured <= 2e-6 relative); bf16
@@ -182,3 +187,93 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssd(*meta, chunk=8)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's factoring and rounding, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+EMU_CASES = {  # (B, S, H, P, N), chunk, init_state
+    "B2-S64-H4-P16-N8-c16": ((2, 64, 4, 16, 8), 16, False),
+    "B1-S100-H2-P8-N16-c32-ragged": ((1, 100, 2, 8, 16), 32, False),
+    "B2-S33-H3-P8-N4-c8-ragged-init": ((2, 33, 3, 8, 4), 8, True),
+    "B1-S300-H3-P64-N128-c128-ragged-init": ((1, 300, 3, 64, 128), 128,
+                                              True),
+}
+
+
+def _bf16_inputs(shape, init, seed):
+    """The SSD inputs with x, B and C rounded to bf16 (the kernel's
+    input type), dt scaled as the model's (softplus(normal - 3))."""
+    x, dt, A, Bm, Cm, s0 = _inputs(*shape, init=init, seed=seed)
+    dt = np.log1p(np.exp(np.log(np.expm1(dt)) - 3.0)).astype(np.float32)
+    bf = ml_dtypes.bfloat16
+    return ([a.astype(bf) for a in (x, Bm, Cm)], dt, A, s0)
+
+
+def _bf16_ulp(top):
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _emulated_vs_pallas(shape, chunk, init, seed, pairs=ref.KERNEL_PAIRS):
+    (xb, Bb, Cb), dt, A, s0 = _bf16_inputs(shape, init, seed)
+    y, f = ref.ssd_kernel_emulation(
+        tensor_from_numpy(xb), torch.from_numpy(dt), torch.from_numpy(A),
+        tensor_from_numpy(Bb), tensor_from_numpy(Cb), chunk=chunk,
+        init_state=None if s0 is None else torch.from_numpy(s0),
+        pairs=pairs)
+    yj, fj = ssd_pallas(jnp.asarray(xb), jnp.asarray(dt), jnp.asarray(A),
+                        jnp.asarray(Bb), jnp.asarray(Cb), chunk=chunk,
+                        init_state=None if s0 is None else jnp.asarray(s0),
+                        interpret=True)
+    yj = np.asarray(yj).astype(np.float32)
+    fj = np.asarray(fj)
+    assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
+    y_ulps = np.abs(y.float().numpy() - yj).max() / _bf16_ulp(
+        np.abs(yj).max())
+    f_rel = np.abs(f.numpy() - fj).max() / max(1.0, np.abs(fj).max())
+    return y_ulps, f_rel
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_kernel_emulation_within_the_chip_limits(case):
+    """``ssd_kernel_emulation`` (C B^T once per chunk, W, X o w and the
+    entering state fed to bf16 products as hi + lo pairs, the state
+    chained in fp32 chunk after chunk) against JAX's ssd_pallas in
+    interpret mode, held to the limits chip_smoke.py holds the card to:
+    y within 2 bf16 ulps at its largest magnitude, the final state within
+    1e-4 of its largest magnitude."""
+    shape, chunk, init = EMU_CASES[case]
+    y_ulps, f_rel = _emulated_vs_pallas(shape, chunk, init,
+                                        seed=sum(shape))
+    print(f"{case}: y {y_ulps:.3f} bf16 ulps, state {f_rel:.3g}")
+    assert y_ulps <= 2.0
+    assert f_rel <= 1e-4
+
+
+def test_chunk_state_operand_needs_the_pair():
+    """Why X o w is fed as a hi + lo pair: as one bf16 rounding the final
+    state misses its 1e-4 limit by an order of magnitude (each chunk's
+    state feeds every later one); as a pair it is far inside."""
+    shape, chunk, init = EMU_CASES["B1-S300-H3-P64-N128-c128-ragged-init"]
+    _, single = _emulated_vs_pallas(shape, chunk, init, seed=5,
+                                    pairs=frozenset())
+    _, pair = _emulated_vs_pallas(shape, chunk, init, seed=5)
+    print(f"final state: X o w single {single:.3g}, pair {pair:.3g}")
+    assert single > 1e-4 and pair <= 1e-5
+
+
+def test_phase_profiler_marks_every_phase_of_the_kernel():
+    """``launch/profile_ssd.py --phases`` builds a copy of the kernel's
+    source with a clock mark after each phase, found by the phase's line:
+    every line is still there, each marked once, after a whole line."""
+    from repro_torch.launch import profile_ssd
+
+    src = ops.SOURCE.read_text()
+    marked = profile_ssd.marked_source(src)
+    lines = marked.splitlines()
+    marks = [i for i, line in enumerate(lines) if "g_marks[(" in line]
+    assert len(marks) == 1 + len(profile_ssd.MARKS)
+    for i in marks:
+        assert lines[i].lstrip().startswith("if ((tid & 127) == 0)")
+    assert "ssd_marks_copy" in marked and len(marked) > len(src)
