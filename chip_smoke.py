@@ -16,7 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    tensor-core kernel), fp32 (the CUDA-core kernel); each case's path
    checked.  Times the kernel over bf16 and e4m3 pages, the plain
    version and one PyTorch library call computing the same attention,
-   with the card's bound and the achieved TFLOP/s.
+   with the card's bound and the achieved TFLOP/s; then the same
+   all-visible cases, checks and timings at ardit-causal-forcing's
+   heads (Hq = Hkv = 16, D = 96: two 64-column TMA boxes, the second
+   half zero-filled), on the tensor cores.
 3. Flash kernel vs plain version on the card at the sequential path's
    full-width shapes (B = 1, Sq = 2640, 12 heads of 128, bf16,
    non-causal, Skv = sink + 0 / 3 / 7 chunks + the chunk) and in every
@@ -96,10 +99,47 @@ Phases (any failure raises and the script exits non-zero):
    and at the bf16 rate and ``torch._scaled_mm`` with row-wise
    scales.
 
+13. The step cache at full width (run right after phase 10, on phase
+   5's weights; ``ardit-self-forcing``, bf16, batched paged): (i) a
+   session with ``step_cache=True`` under a static cache-off fidelity
+   builds no manager and gives chunks bit-identical to
+   ``step_cache=False``; one stream on ``aggressive`` over phase 5's
+   weights, every hit decision checked against its threshold and the
+   deltas printed (their velocity moves past the threshold, so the
+   cache does not fire); then, on the same weights with the adaLN gates
+   opened at ``SMOOTH_GATES`` in place of 0.2: (ii) the executor driven
+   directly, 2 streams x
+   3 chunks, all off against stream 1 on ``aggressive``: hits > 0 and
+   stream 0's chunks bit-identical (hit rows ride as no-ops); (iii) one
+   stream x 3 chunks, aggressive against off: skipped launches > 0,
+   fewer dispatches, paged launches = n_layers x dispatches, all on the
+   tensor cores, every hit's output x - dt v (one rounding) bit for
+   bit, the drift against off printed, and the first chunk's steps
+   traced one by one (wall, device busy, idle share); (iv) a session
+   with ``step_cache=True`` under the default BMPR policy, 3 streams x
+   3 chunks, at playout budgets from ``FACTORS_IV`` until BMPR picks a
+   cache level: the fidelity mix, the step-cache counters and the
+   chunk latency EMAs.
+14. Co-serving at full width: ``ardit-self-forcing`` (phase 5's
+   weights) beside ``ardit-causal-forcing`` (16 heads of 96, random
+   weights from a seed, gates opened), 2 streams of each x 2 chunks,
+   ``pool_streams`` 2 per bundle, a static fidelity: no unserved
+   stream, every sub-batch of one model, both ``Summary.by_model``
+   rows, paged launches = n_layers x dispatches per model (counted by
+   head dim), all on the tensor cores; each model's chunks against its
+   solo session (bit-identical or within 1 bf16 ulp, phase 10's rule);
+   a single-bundle session against the ``model_cfg`` path, bit for bit.
+15. The simulator calibrated from the card: ``fit_session`` on phase 13
+   (iv)'s session replayed through ``Simulator`` on the calibrated
+   profile (ratios, scale, cache speedups and the agreement printed,
+   not gated: the tolerance was pinned for the reduced CPU session),
+   and the per-bundle fits of phase 14's session.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
 it exits non-zero and prints no result.
 """
+import dataclasses
 import gc
 import json
 import os
@@ -169,10 +209,23 @@ DEV = "cuda"
 # chunk of 3 x 880 tokens, 12 heads of 128, one page per chunk, tables
 # of the sink page + a 7-chunk ring, a sink of 77 conditioning tokens
 KERNEL_SHAPES = dict(B=2, Sq=2640, H=12, D=128, page=2640, n=8, sink=77)
+# ardit-causal-forcing's attention at the same shape: 16 heads of 96
+# (16 x 96 = 12 x 128 = 1,536 per token, so the same operations)
+KERNEL_D96 = dict(H=16, D=96)
 # the sequential path's attention at full width: one stream, the chunk's
 # 2640 queries over sink + w chunks + the chunk itself
 FLASH_SKV = (77 + 2640, 77 + 3 * 2640 + 2640, 77 + 7 * 2640 + 2640)
 SESSION_ARCH = "ardit-self-forcing"
+# phase 13 (iv): playout budgets (x the top-fidelity warm-up chunk) tried
+# in turn until BMPR picks a step-cache level for some chunk
+FACTORS_IV = (1.0, 0.5, 0.3, 0.2, 0.1, 0.05)
+# phase 13 (ii)-(iv): the scale the adaLN gates are opened at (phase 5's:
+# 0.2).  With random weights at full width, 0.2 moves the velocity by
+# more than the aggressive threshold (100%) between denoise steps, so
+# the cache never fires there; the phase prints the deltas of both
+SMOOTH_GATES = 0.05
+# phase 14 co-serves it beside the paper's other model column
+CO_ARCH = "ardit-causal-forcing"
 # the decode kernel at minitron-8b's decode_32k: batch, context, page,
 # pool pages
 DECODE_ARCH = "minitron-8b"
@@ -297,6 +350,7 @@ def phase_kernel(record):
     bf16 = torch.bfloat16
     errs = []
     fn = ops.paged_chunk_attention
+    hint = dict(sink=sink, chunk_tokens=tc)
 
     def run(name, q, kp, vp, table, mask, **hint):
         """One kernel call against the plain version; checks that it
@@ -312,75 +366,89 @@ def phase_kernel(record):
                                                      **hint), path))
         return path
 
-    # (a) the main path's all-visible fast path: sink + 7 full ring pages
-    q, kp, vp, table = paged_case(gen, B, Sq, H, H, D, page, n, bf16, bf16)
-    hint = dict(sink=sink, chunk_tokens=tc)
-    record["path"] = run("all-visible bf16", q, kp, vp, table, None, **hint)
-    kf, vf = to_fp8_e4m3(kp), to_fp8_e4m3(vp)
-    # (e) fp8-e4m3 pages under the same tables, all visible
-    fp8_path = run("all-visible fp8 pages", q, kf, vf, table, None, **hint)
-    reset_counts({"paged": fn})
-    kernel_ms = cuda_ms(lambda: fn(q, kp, vp, table, None, **hint), 10)
-    fp8_ms = cuda_ms(lambda: fn(q, kf, vf, table, None, **hint), 10)
-    timed = (fn.launches, fn.launches_tc)
-    plain_ms = cuda_ms(lambda: ref.paged_chunk_attention_ref(
-        q, kp, vp, table, None, **hint), 3)
-    fp8_plain_ms = cuda_ms(lambda: ref.paged_chunk_attention_ref(
-        q, kf, vf, table, None, **hint), 3)
+    def timed(H, D, label):
+        """(a) the main path's all-visible fast path, sink + 7 full ring
+        pages, over bf16 and (e) e4m3 pages: each held to the plain
+        version, then timed beside it, SDPA and the card's bound."""
+        q, kp, vp, table = paged_case(gen, B, Sq, H, H, D, page, n, bf16,
+                                      bf16)
+        path = run(f"all-visible bf16{label}", q, kp, vp, table, None,
+                   **hint)
+        kf, vf = to_fp8_e4m3(kp), to_fp8_e4m3(vp)
+        fp8_path = run(f"all-visible fp8 pages{label}", q, kf, vf, table,
+                       None, **hint)
+        reset_counts({"paged": fn})
+        kernel_ms = cuda_ms(lambda: fn(q, kp, vp, table, None, **hint), 10)
+        fp8_ms = cuda_ms(lambda: fn(q, kf, vf, table, None, **hint), 10)
+        timed_n = (fn.launches, fn.launches_tc)
+        plain_ms = cuda_ms(lambda: ref.paged_chunk_attention_ref(
+            q, kp, vp, table, None, **hint), 3)
+        fp8_plain_ms = cuda_ms(lambda: ref.paged_chunk_attention_ref(
+            q, kf, vf, table, None, **hint), 3)
 
-    # the library yardstick: SDPA over the gathered visible context plus
-    # the chunk's own KV (the merged output, not the partials)
-    ck = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(bf16)
-    cv = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(bf16)
-    bt = table.long()
-    k_ctx = torch.cat([kp[bt[:, 0], :sink],
-                       kp[bt[:, 1:].reshape(-1), :tc].view(B, -1, H, D)], 1)
-    v_ctx = torch.cat([vp[bt[:, 0], :sink],
-                       vp[bt[:, 1:].reshape(-1), :tc].view(B, -1, H, D)], 1)
-    k_all = torch.cat([k_ctx, ck], 1).transpose(1, 2).contiguous()
-    v_all = torch.cat([v_ctx, cv], 1).transpose(1, 2).contiguous()
-    qt = q.transpose(1, 2).contiguous()
+        # the library yardstick: SDPA over the gathered visible context
+        # plus the chunk's own KV (the merged output, not the partials)
+        ck = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(bf16)
+        cv = torch.randn((B, Sq, H, D), generator=gen, device=DEV).to(bf16)
+        bt = table.long()
+        k_ctx = torch.cat([kp[bt[:, 0], :sink], kp[bt[:, 1:].reshape(-1),
+                                                   :tc].view(B, -1, H, D)], 1)
+        v_ctx = torch.cat([vp[bt[:, 0], :sink], vp[bt[:, 1:].reshape(-1),
+                                                   :tc].view(B, -1, H, D)], 1)
+        k_all = torch.cat([k_ctx, ck], 1).transpose(1, 2).contiguous()
+        v_all = torch.cat([v_ctx, cv], 1).transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
 
-    def library():
-        return F.scaled_dot_product_attention(qt, k_all, v_all)
+        def library():
+            return F.scaled_dot_product_attention(qt, k_all, v_all)
 
-    library_ms = cuda_ms(library, 5)
-    merged = paged_mha(q, kp, vp, table, None, ck, cv, n_kv_heads=H, **hint)
-    lib_err = float((merged.float()
-                     - library().transpose(1, 2).float()).abs().max())
-    print(f"  paged_mha (kernel + in-chunk merge) vs SDPA: |d| {lib_err:.3g} "
-          f"(limit {TOL_SDPA:g})")
-    if not lib_err <= TOL_SDPA:
-        raise AssertionError(f"paged_mha disagrees with SDPA ({lib_err})")
+        library_ms = cuda_ms(library, 5)
+        merged = paged_mha(q, kp, vp, table, None, ck, cv, n_kv_heads=H,
+                           **hint)
+        lib_err = float((merged.float()
+                         - library().transpose(1, 2).float()).abs().max())
+        print(f"  paged_mha (kernel + in-chunk merge) vs SDPA{label}: |d| "
+              f"{lib_err:.3g} (limit {TOL_SDPA:g})")
+        if not lib_err <= TOL_SDPA:
+            raise AssertionError(f"paged_mha disagrees with SDPA{label} "
+                                 f"({lib_err})")
 
-    # bound of case (a): each input read once, each output written once;
-    # 4 * rows * D * visible tokens operations per (b, kv head), on the
-    # bf16 tensor cores whatever the page dtype (e4m3 pages are widened)
-    ctx = sink + (n - 1) * tc
-    flops = 4.0 * B * H * Sq * D * ctx
+        # bound: each input read once, each output written once; 4 * rows
+        # * D * visible tokens operations per (b, kv head), on the bf16
+        # tensor cores whatever the page dtype (e4m3 pages are widened)
+        ctx = sink + (n - 1) * tc
+        flops = 4.0 * B * H * Sq * D * ctx
 
-    def bound(elt):
-        nbytes = (q.numel() * q.element_size() + 2 * B * ctx * H * D * elt
-                  + table.numel() * 4 + B * H * Sq * (D + 2) * 4)
-        t_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes),
-                "operations" if t_ops >= t_bytes else "bytes", nbytes)
+        def bound(elt):
+            nbytes = (q.numel() * q.element_size() + 2 * B * ctx * H * D * elt
+                      + table.numel() * 4 + B * H * Sq * (D + 2) * 4)
+            t_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            return (max(t_ops, t_bytes),
+                    "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
-    bound_ms, bound_by, nbytes = bound(2)
-    fp8_bound, fp8_by, fp8_bytes = bound(1)
-    print(f"  timed launches {timed[0]}, on the tensor cores {timed[1]} "
-          f"(path {record['path']} for bf16 pages, {fp8_path} for e4m3)")
-    print(f"  all-visible B={B} ctx={ctx}, bf16 pages: kernel "
-          f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
-          f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-          f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), achieved "
-          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
-    print(f"  all-visible B={B} ctx={ctx}, e4m3 pages: kernel {fp8_ms:.3f} "
-          f"ms, plain {fp8_plain_ms:.3f} ms, bound {fp8_bound:.3f} ms "
-          f"({fp8_by}; {fp8_bytes / 1e6:.1f} MB), achieved "
-          f"{flops / fp8_ms / 1e9:.2f} TFLOP/s")
-    del k_ctx, v_ctx, k_all, v_all, qt, merged
+        bound_ms, bound_by, nbytes = bound(2)
+        fp8_bound, fp8_by, fp8_bytes = bound(1)
+        print(f"  timed launches{label} {timed_n[0]}, on the tensor cores "
+              f"{timed_n[1]} (path {path} for bf16 pages, {fp8_path} for "
+              f"e4m3)")
+        print(f"  all-visible B={B} ctx={ctx} H={H} D={D}, bf16 pages: "
+              f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+              f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB), achieved "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        print(f"  all-visible B={B} ctx={ctx} H={H} D={D}, e4m3 pages: "
+              f"kernel {fp8_ms:.3f} ms, plain {fp8_plain_ms:.3f} ms, bound "
+              f"{fp8_bound:.3f} ms ({fp8_by}; {fp8_bytes / 1e6:.1f} MB), "
+              f"achieved {flops / fp8_ms / 1e9:.2f} TFLOP/s")
+        del k_ctx, v_ctx, k_all, v_all, qt, merged
+        return (dict(path=path, ms=kernel_ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms), (q, kp, vp, kf, vf, table))
+
+    # the main path's shape (ardit-self-forcing, D 128) fills the record
+    main, (q, kp, vp, kf, vf, table) = timed(H, D, "")
+    record.update(main)
 
     # (b) explicit mask: sparsity-style 128-token drops on ring pages, a
     # hole row (ring entry 3 remapped to the row's sink page, mask slice
@@ -409,6 +477,16 @@ def phase_kernel(record):
                                   bf16)
     mask = torch.rand((2, 4 * gpage), generator=gen, device=DEV) < 0.6
     run("GQA G=4 masked", q, kp, vp, table, mask)
+    del q, kp, vp
+    torch.cuda.empty_cache()
+
+    # (f) ardit-causal-forcing's heads at the same shape: D 96 loads as
+    # two 64-column TMA boxes, the second half zero-filled
+    d96, _ = timed(KERNEL_D96["H"], KERNEL_D96["D"], " (D 96)")
+    if d96["path"] != "wgmma":
+        raise AssertionError(f"D 96 took the {d96['path']} path")
+    record["d96"] = d96
+    torch.cuda.empty_cache()
 
     # (d) fp32 queries and pages (the reduced configs' dtype), 3 entries
     q, kp, vp, table = paged_case(gen, B, Sq, H, H, D, page, 3,
@@ -417,9 +495,7 @@ def phase_kernel(record):
     del q, kp, vp
     torch.cuda.empty_cache()
 
-    record.update(max_abs_err=max(errs), ms=kernel_ms, kernel_ms=kernel_ms,
-                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=library_ms)
+    record["max_abs_err"] = max(errs)
 
 
 def ulp_bf16(x):
@@ -1407,6 +1483,429 @@ def phase_lanes(cfg, params, counters):
     return worst
 
 
+def traced_step(fn):
+    """Host wall ms of ``fn()`` (ending in a sync) and the device's busy
+    ms in it, from a ``torch.profiler`` trace: the idle share of one
+    step is 1 - busy / wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sync()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(ev.device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return wall, busy
+
+
+def drive(ex, fid_of, targets, max_batch=8):
+    """The reference step-cache tests' ``_drive``: every runnable stream
+    begins its next chunk, then one fused step per group."""
+    from repro_torch.serve.batcher import compose_batch
+
+    sids = sorted(targets)
+    while any(len(ex.chunks[s]) < targets[s] for s in sids):
+        runnable = [s for s in sids if len(ex.chunks[s]) < targets[s]]
+        for s in runnable:
+            if s not in ex.inflight:
+                ex.begin_chunk(s, fid_of(s), 0.0)
+        for grp in compose_batch(runnable,
+                                 lambda s: ex.inflight[s].fidelity,
+                                 max_batch, fuse=True):
+            ex.run_step(grp)
+
+
+def smooth_gates(params, scale=None):
+    """Phase 5's weights with the adaLN gates opened at ``scale``
+    (default SMOOTH_GATES) in place of 0.2, drawn on the card from a
+    seeded generator; every other tensor is shared, not copied."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    scale = SMOOTH_GATES if scale is None else scale
+
+    def rnd(t, shift=0.0):
+        r = torch.randn(t.shape, generator=gen, device=DEV)
+        return (shift + scale * r).to(t.dtype)
+
+    layers = dict(params["layers"], mod=rnd(params["layers"]["mod"]),
+                  mod_b=rnd(params["layers"]["mod_b"], 0.5))
+    return dict(params, layers=layers, final_mod=rnd(params["final_mod"]))
+
+
+def phase_stepcache(cfg, params, counters):
+    """Phase 13: the step cache at full width (``ardit-self-forcing``,
+    bf16, batched paged, phase 5's weights); see the module docstring.
+    Returns (iv)'s session and specs for phase 15."""
+    from repro_torch.core.bmpr import StaticFidelity
+    from repro_torch.core.fidelity import FidelityConfig
+    from repro_torch.models import ardit as A
+    from repro_torch.models.stepcache import MAX_CONSECUTIVE
+    from repro_torch.sched_sim.metrics import summarize
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.session import (SessionConfig, StreamingSession,
+                                           uniform_specs)
+
+    paged = counters["paged_chunk_attention"]
+    L = cfg.n_layers
+    off = FidelityConfig(4, 0.0, cfg.ardit_window_chunks, "bf16")
+    agg = off._replace(cache="aggressive")
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (i) step_cache=True under a static cache="off" fidelity --------
+    out = {}
+    for step_cache in (True, False):
+        fresh()
+        sess = StreamingSession(
+            SessionConfig(model_cfg=cfg, max_batch=4, step_cache=step_cache,
+                          device=DEV, verbose=False),
+            executor=BatchedChunkExecutor(cfg=cfg, params=params,
+                                          max_streams=3, device=DEV),
+            fidelity_policy=StaticFidelity(off))
+        hs = [sess.submit(sp) for sp in uniform_specs(2, 2)]
+        res = sess.run()
+        out[step_cache] = [[c.clone() for c in h.chunks] for h in hs]
+        if step_cache and (sess.executor.stepcache is not None
+                           or res.step_cache):
+            raise AssertionError("a cache=off session built the step cache")
+        del sess, hs, res
+    for sid in range(2):
+        for c in range(2):
+            if not torch.equal(out[True][sid][c], out[False][sid][c]):
+                raise AssertionError(f"(i) step_cache=True changed stream "
+                                     f"{sid} chunk {c} under cache=off")
+    print("  (i) step_cache=True under cache=off: no manager built, chunks "
+          "bit-identical to step_cache=False")
+
+    def executor(n, weights):
+        fresh()
+        ex = BatchedChunkExecutor(cfg=cfg, params=weights,
+                                  max_streams=n + 1, device=DEV)
+        for sid in range(n):
+            if not ex.admit(sid, seed=sid):
+                raise AssertionError("admission failed")
+        return ex
+
+    def watch_decisions(ex):
+        """Record (delta, threshold, hit) at each eligible hit decision
+        of ``ex``'s step cache, checking hit == (delta < threshold)."""
+        seen = []
+        decide = ex._stepcache().should_hit
+
+        def spy(sid, level):
+            st = ex.stepcache.states.get(sid)
+            eligible = (st is not None and st.delta is not None
+                        and st.n_computed >= 2
+                        and st.consecutive < MAX_CONSECUTIVE[level])
+            d = float(st.delta) if eligible else None
+            hit = decide(sid, level)
+            if eligible:
+                thr = ex.stepcache.effective_threshold(level, st.motion)
+                seen.append((round(d, 4), round(thr, 4), hit))
+                if hit != (d < thr):
+                    raise AssertionError("a hit decision off its threshold")
+            return hit
+
+        ex.stepcache.should_hit = spy
+        return seen
+
+    # ---- the gate, both ways ---------------------------------------------
+    # phase 5's weights open the adaLN gates at 0.2; the rest of the
+    # phase runs on the same weights with the gates opened at
+    # SMOOTH_GATES, whose velocity field changes less between steps
+    ex = executor(1, params)
+    seen = watch_decisions(ex)
+    drive(ex, lambda s: agg, {0: 2})
+    print(f"  phase 5's weights (gates 0.2) on aggressive, 1 stream x 2 "
+          f"chunks: (delta, threshold, hit) at each eligible decision "
+          f"{seen}; {ex.stepcache.stats()}")
+    del ex
+    params = smooth_gates(params)
+
+    # ---- (ii) 2 streams x 3 chunks, stream 1 on aggressive ---------------
+
+    ref = executor(2, params)
+    drive(ref, lambda s: off, {0: 3, 1: 3})
+    ref_chunks = [[c.clone() for c in ref.chunks[s]] for s in (0, 1)]
+    ref_dispatch = ref.dispatch_count
+    del ref
+    mix = executor(2, params)
+    drive(mix, lambda s: agg if s == 1 else off, {0: 3, 1: 3})
+    sc = mix.stepcache
+    print(f"  (ii) stream 1 aggressive beside stream 0 off: {sc.stats()}, "
+          f"dispatches {mix.dispatch_count} (all off: {ref_dispatch}), "
+          f"skipped launches {mix.cache_skipped_launches}")
+    if sc is None or sc.hits == 0:
+        raise AssertionError("(ii) the aggressive stream never hit")
+    for c in range(3):
+        if not torch.equal(mix.chunks[0][c], ref_chunks[0][c]):
+            raise AssertionError(f"(ii) the off stream's chunk {c} changed "
+                                 f"beside a cache row")
+    drift2 = max(float((a - b).abs().max())
+                 for a, b in zip(mix.chunks[1], ref_chunks[1]))
+    print(f"  (ii) stream 0's chunks bit-identical to the all-off run; "
+          f"stream 1's drift against off {drift2:.4g}")
+    del mix, ref_chunks
+
+    # ---- (iii) 1 stream x 3 chunks, aggressive against off ---------------
+    # the first chunk step by step under the profiler (its hits come
+    # before any motion history scales the threshold down), then two more
+    def first_chunk_traced(ex, fid):
+        ex.begin_chunk(0, fid, 0.0)
+        rows = []
+        while ex.inflight:
+            skipped = ex.cache_skipped_launches
+            hits_before = ex.stepcache.hits if ex.stepcache else 0
+            wall, busy = traced_step(lambda: ex.run_step([0]))
+            kind = ("hit, launch skipped"
+                    if ex.cache_skipped_launches > skipped else
+                    "hit row" if ex.stepcache and ex.stepcache.hits
+                    > hits_before else "computed")
+            rows.append(f"{kind}: {wall:.1f} ms wall, {busy:.1f} ms busy, "
+                        f"idle {100 * (1 - busy / wall):.1f}%")
+        print(f"  (iii) first chunk, cache {fid.cache}, traced step by step "
+              f"(1 row, no context):")
+        for r in rows:
+            print(f"      {r}")
+
+    one_off = executor(1, params)
+    reset_counts(counters)
+    first_chunk_traced(one_off, off)
+    drive(one_off, lambda s: off, {0: 3})
+    off_launches = paged.launches
+    agg_ex = executor(1, params)
+    hits = []
+
+    def spy_apply(sid, x, dt):
+        st = agg_ex.stepcache.states[sid]
+        v = agg_ex.stepcache.pool.v[st.slot].clone()
+        got = real_apply(sid, x, dt)
+        hits.append((x.clone(), v, dt, got))
+        return got
+
+    real_apply = agg_ex._stepcache().apply_hit
+    agg_ex.stepcache.apply_hit = spy_apply
+    seen = watch_decisions(agg_ex)
+    reset_counts(counters)
+    first_chunk_traced(agg_ex, agg)
+    drive(agg_ex, lambda s: agg, {0: 3})
+    sync()
+    launches, launches_tc = paged.launches, paged.launches_tc
+    sc = agg_ex.stepcache
+    print(f"  (iii) one stream aggressive: {sc.stats()}, dispatches "
+          f"{agg_ex.dispatch_count} (off: {one_off.dispatch_count}), "
+          f"skipped launches {agg_ex.cache_skipped_launches}, paged launches "
+          f"{launches} (off: {off_launches}), on the tensor cores "
+          f"{launches_tc}")
+    if agg_ex.cache_skipped_launches == 0 or \
+            agg_ex.dispatch_count >= one_off.dispatch_count:
+        raise AssertionError("(iii) no launch was skipped")
+    if launches != L * agg_ex.dispatch_count or launches_tc != launches:
+        raise AssertionError(f"(iii) {launches} paged launches "
+                             f"({launches_tc} on the tensor cores) for "
+                             f"{agg_ex.dispatch_count} dispatches")
+    for x, v, dt, got in hits:
+        # one rounding of x - dt v (the product of two fp32 values is
+        # exact in fp64), as the multiply-add computes it
+        want = (x.double() - float(np.float32(dt)) * v.double()).float()
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            raise AssertionError("(iii) a hit's output is not x - dt v")
+    drift = max(float((a - b).abs().max())
+                for a, b in zip(agg_ex.chunks[0], one_off.chunks[0]))
+    print(f"  (iii) {len(hits)} hits, each x - dt v bit for bit; drift of "
+          f"the chunks against off: max |a - b| {drift:.4g} (not gated); "
+          f"(delta, threshold, hit) at each eligible decision {seen}")
+    del one_off, agg_ex, hits
+
+    # ---- (iv) the default BMPR policy with the cache levels unlocked ----
+    session = specs = None
+    for factor in FACTORS_IV:
+        fresh()
+        session = StreamingSession(SessionConfig(
+            model_cfg=cfg, max_batch=4, step_cache=True,
+            budget_factor=factor, device=DEV, verbose=False),
+            executor=BatchedChunkExecutor(cfg=cfg, params=params,
+                                          max_streams=4, device=DEV))
+        specs = uniform_specs(3, 3)
+        for sp in specs:
+            session.submit(sp)
+        t0 = time.perf_counter()
+        res = session.run()
+        sync()
+        wall = time.perf_counter() - t0
+        mix = dict(sorted(session.fidelity_counts.items()))
+        print(f"  (iv) BMPR with the step cache, budget factor {factor}: "
+              f"{summarize(res).row()}; wall {wall:.2f} s")
+        print(f"      fidelity mix {mix}")
+        print(f"      step_cache {res.step_cache}")
+        for key, lat in sorted(session.executor.latency_ema.items()):
+            print(f"      chunk latency EMA {key}: {lat:.3f} s")
+        if any(k.endswith(("_ca", "_cc")) for k in mix):
+            break
+    else:
+        raise AssertionError(f"(iv) BMPR picked no cache level at budget "
+                             f"factors {FACTORS_IV}")
+    for h in session.handles.values():
+        if not h.done or not all(bool(torch.isfinite(c).all())
+                                 and tuple(c.shape) == (
+                                     1, A.chunk_tokens(cfg), A.LATENT_CH)
+                                 for c in h.chunks):
+            raise AssertionError(f"(iv) stream {h.sid}: bad chunks")
+    return session, specs
+
+
+def phase_modelplane(cfg, params, counters):
+    """Phase 14: co-served ``ardit-self-forcing`` (phase 5's weights) and
+    ``ardit-causal-forcing`` (fresh, gates opened) at full width; see the
+    module docstring.  Returns the co-serve session for phase 15."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.bmpr import StaticFidelity
+    from repro_torch.core.fidelity import FidelityConfig
+    from repro_torch.models import ardit as A
+    from repro_torch.sched_sim.metrics import summarize
+    from repro_torch.serve import session as S
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.modelplane import resolve_bundle
+
+    paged = counters["paged_chunk_attention"]
+    fid = FidelityConfig(2, 0.0, 7, "bf16")
+    cf_cfg = get_config(CO_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(1)
+    cf_params = A.open_gates(A.init_params(cf_cfg, gen, DEV), gen)
+    print(f"  {CO_ARCH}: {cf_cfg.n_heads} heads of {cf_cfg.head_dim}, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    b_sf = resolve_bundle(cfg, params=params, device=DEV)
+    b_cf = resolve_bundle(cf_cfg, params=cf_params, device=DEV)
+    names = [b_sf.name, b_cf.name]
+    specs = [dataclasses.replace(sp, model=names[i % 2])
+             for i, sp in enumerate(S.uniform_specs(4, 2))]
+
+    def serve(bundles, specs, executor=None, model_cfg=None, spy=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        paged.launches_by_dim.clear()
+        t0 = time.perf_counter()
+        sess = S.StreamingSession(
+            S.SessionConfig(models=bundles, model_cfg=model_cfg,
+                            pool_streams=2, max_batch=4, device=DEV,
+                            verbose=False),
+            executor=executor, fidelity_policy=StaticFidelity(fid))
+        for sp in specs:
+            sess.submit(sp)
+        res = sess.run()
+        sync()
+        return sess, res, time.perf_counter() - t0
+
+    groups = []
+    compose = S.compose_batch
+
+    def spy(*a, **kw):
+        got = compose(*a, **kw)
+        groups.extend(got)
+        return got
+
+    S.compose_batch = spy
+    try:
+        co, co_res, wall = serve([b_sf, b_cf], specs)
+    finally:
+        S.compose_batch = compose
+    summ = summarize(co_res)
+    by_dim = dict(paged.launches_by_dim)
+    disp = {b.name: sum(ex.dispatch_count
+                        for ex in co.lanes.bundle_executors[b.name])
+            for b in co.bundles}
+    print(f"  co-serve session: {summ.row()}; wall {wall:.2f} s (two "
+          f"warm-up chunks included), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for line in summ.model_rows():
+        print(f"  {line.strip()}")
+    print(f"  dispatches {disp}; paged launches {paged.launches} (tensor "
+          f"cores {paged.launches_tc}) by head dim {by_dim}; sub-batches "
+          f"{len(groups)}")
+    if summ.n_unserved or set(summ.by_model) != set(names):
+        raise AssertionError(f"co-serve: unserved {summ.n_unserved}, rows "
+                             f"{sorted(summ.by_model)}")
+    if not groups or any(len({co.lanes.model_of[s] for s in g}) != 1
+                         for g in groups):
+        raise AssertionError("a sub-batch mixed models")
+    if by_dim != {cfg.head_dim: cfg.n_layers * disp[b_sf.name],
+                  cf_cfg.head_dim: cf_cfg.n_layers * disp[b_cf.name]} \
+            or paged.launches_tc != paged.launches:
+        raise AssertionError("co-serve: paged launches are not n_layers x "
+                             "dispatches per model on the tensor cores")
+    for b in co.bundles:
+        print(f"  {b.name}: warm-up chunk {b.top_latency:.3f} s, "
+              f"time scale {b.time_scale:.3f}, page {b.page_bytes / 1e6:.1f}"
+              f" MB, chunk latency EMA "
+              f"{co.lanes.ex_for(0, b.name).latency_ema[fid.key]:.3f} s")
+    co_chunks = {h.sid: [c.clone() for c in h.chunks]
+                 for h in co.handles.values()}
+    worst = 0.0
+    for b in (b_sf, b_cf):
+        solo_specs = [sp for sp in specs if sp.model == b.name]
+        solo, _, solo_wall = serve([b], solo_specs)
+        for sp in solo_specs:
+            for c, got in enumerate(solo.handles[sp.sid].chunks):
+                worst = max(worst, same_or_ulp(
+                    f"co-serve vs solo {b.name}, stream {sp.sid} chunk {c}",
+                    co_chunks[sp.sid][c], got))
+        print(f"  solo {b.name}: wall {solo_wall:.2f} s")
+        del solo
+    # a single bundle is the model_cfg path
+    one = [dataclasses.replace(sp, model=None)
+           for sp in S.uniform_specs(2, 2)]
+    single, _, _ = serve([b_cf], one)
+    a = {h.sid: [c.clone() for c in h.chunks]
+         for h in single.handles.values()}
+    del single
+    legacy, _, _ = serve(None, one, executor=BatchedChunkExecutor(
+        cfg=cf_cfg, params=cf_params, max_streams=2, device=DEV),
+        model_cfg=None)
+    for sid, cs in a.items():
+        for c, got in enumerate(cs):
+            if not torch.equal(got, legacy.handles[sid].chunks[c]):
+                raise AssertionError(f"single bundle vs model_cfg: stream "
+                                     f"{sid} chunk {c} differs")
+    print(f"  single-bundle {b_cf.name} session == model_cfg session, bit "
+          f"for bit ({sum(len(c) for c in a.values())} chunks)")
+    del legacy, cf_params, b_cf
+    return co, worst
+
+
+def phase_calibration(sc_session, sc_specs, co_session):
+    """Phase 15: the simulator calibrated from the card's sessions."""
+    from repro_torch.sched_sim.calibration import agreement, fit_session
+    from repro_torch.sched_sim.metrics import summarize
+    from repro_torch.sched_sim.policies import make_policy
+    from repro_torch.sched_sim.simulator import Simulator
+
+    real = summarize(sc_session.result())
+    report = fit_session(sc_session)
+    sim = summarize(Simulator(
+        report.sim_config(n_workers=1, workers_per_node=1), sc_specs,
+        make_policy("slackserve", model=report.model,
+                    profile=report.profile())).run())
+    print(f"  phase 13 (iv) fit: model {report.model}, scale "
+          f"{report.scale:.4g}, chunk_seconds {report.chunk_seconds:.4g}, "
+          f"ratios { {k: round(v, 4) for k, v in report.ratios.items()} }, "
+          f"cache_speedups "
+          f"{ {k: round(v, 4) for k, v in report.cache_speedups.items()} }")
+    print(f"  replay: real {real.row()}")
+    print(f"          sim  {sim.row()}")
+    print(f"  agreement {agreement(real, sim)}")
+    for name in (b.name for b in co_session.bundles):
+        rep = fit_session(co_session, model=name)
+        print(f"  phase 14 fit, {name}: model {rep.model}, scale "
+              f"{rep.scale:.4g}, ratios "
+              f"{ {k: round(v, 4) for k, v in rep.ratios.items()} }")
+
+
 def phase_decode(record, counters):
     """Phase 11: the paged decode kernel against its plain version; the
     entry point's launches at decode_32k; timings and the bound."""
@@ -1911,7 +2410,15 @@ def main():
     phase_gather(cfg, params, counters)
     print("== phase 10: full-width elastic SP and migration, two lanes")
     phase_lanes(cfg, params, counters)
-    del cfg, params
+    print("== phase 13: full-width step cache")
+    sc_session, sc_specs = phase_stepcache(cfg, params, counters)
+    print(f"== phase 14: full-width co-serving, {SESSION_ARCH} + {CO_ARCH}")
+    co_session, _ = phase_modelplane(cfg, params, counters)
+    print("== phase 15: the simulator calibrated from the card's sessions")
+    phase_calibration(sc_session, sc_specs, co_session)
+    del cfg, params, sc_session, co_session
+    gc.collect()
+    torch.cuda.empty_cache()
     print("== phase 8: SSD kernel vs plain version")
     phase_ssd(ssd)
     print(f"== phase 9: full-width {SSM_ARCH} prefill and decode")

@@ -15,8 +15,10 @@ decode queries over bf16 or e4m3 pages at D 64 or 128 (minitron-8b's
 decode) to the split, TMA-fed tensor-core decode kernel.  Each wrapper's
 ``launches`` counts its kernel launches; ``launches_tc`` counts the
 tensor-core launches among them (the chunk kernel's and the decode
-kernel's), and ``view_launches`` those that read
-a head-range view of a wider pool (elastic SP2's half-head shards).
+kernel's), ``view_launches`` those that read
+a head-range view of a wider pool (elastic SP2's half-head shards), and
+the chunk kernel's ``launches_by_dim`` its launches per head dim (two
+co-served models of different head dims share the one kernel).
 """
 from __future__ import annotations
 
@@ -140,6 +142,8 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         raise RuntimeError(f"paged_chunk_attention launch failed: {msg}")
     paged_chunk_attention.launches += 1
     paged_chunk_attention.launches_tc += int(tc)
+    by_dim = paged_chunk_attention.launches_by_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     if k_pages.stride(1) != hkv * d:
         paged_chunk_attention.view_launches += 1
     return m, l, acc
@@ -176,6 +180,7 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
 paged_chunk_attention.launches = 0
 paged_chunk_attention.launches_tc = 0
 paged_chunk_attention.view_launches = 0
+paged_chunk_attention.launches_by_dim = {}
 
 
 # the decode kernel: q (and the output) in fp32 or bf16, the pools in

@@ -27,8 +27,13 @@ adopted whole for a migration (``export_stream`` / ``import_stream``),
 and an elastic-SP borrow is an ``SPLink`` on the home executor — solo
 mode runs the head-split ``ardit.denoise_step_paged_sp`` over both
 lanes' pools, batch mode serves the stream as an ``SPGuest`` row of the
-donor's own micro-batch.  The step cache (``FidelityConfig.cache !=
-"off"``) waits for its slice (ROADMAP).
+donor's own micro-batch.
+
+The step cache (``FidelityConfig.cache != "off"``, ``models/stepcache``)
+decides per row before staging: a hit row takes the AXPY
+``x - dt * v_cached``; when every row of a sub-batch hits, the launch is
+skipped (``cache_skipped_launches``), otherwise hit rows ride the launch
+as shape-stable no-ops.  All-off sub-batches never touch the tracker.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core.state_plane import AsyncTransferEngine, PagedKVPool
 from repro_torch.core.types import Stream
 from repro_torch.models import ardit as A
 from repro_torch.models import kvcache
+from repro_torch.models.stepcache import StepCacheManager
 from repro_torch.serve.executor import (EMA_DECAY, ChunkExecutor,
                                         ServedStream, chunk_noise,
                                         cond_noise)
@@ -53,7 +59,9 @@ from repro_torch.serve.executor import (EMA_DECAY, ChunkExecutor,
 
 def compose_batch(sids: Sequence[int],
                   fidelity_of: Callable[[int], FidelityConfig],
-                  max_batch: int, fuse: bool = False) -> List[List[int]]:
+                  max_batch: int, fuse: bool = False,
+                  model_of: Optional[Callable[[int], str]] = None,
+                  ) -> List[List[int]]:
     """Credit-ordered micro-batch composition.
 
     ``sids`` is the runnable set already ordered by service credit
@@ -67,11 +75,17 @@ def compose_batch(sids: Sequence[int],
     per-row data inside ``run_step``, so one launch serves every
     fidelity of a dtype.  The dtype split stays: KV quantization is a
     property of the append path shared by the whole launch.
+
+    ``model_of`` (co-served bundles) prefixes every group key with the
+    stream's model: a sub-batch runs one model's step against one pool.
+    None keeps the single-model keys.
     """
     groups: Dict[Any, List[int]] = {}
     for sid in list(sids)[:max_batch]:
         fid = fidelity_of(sid)
         key = fid.quant if fuse else fid.key
+        if model_of is not None:
+            key = (model_of(sid), key)
         groups.setdefault(key, []).append(sid)
     return list(groups.values())
 
@@ -665,6 +679,11 @@ class BatchedChunkExecutor(ChunkExecutor):
         self.deferrals = 0      # residency requests that had to wait
         self.page_evictions = 0   # single ring pages freed (ladder rung 1)
         self.dispatch_count = 0   # batched step launches issued
+        # the step cache (fifth fidelity knob): built on the first
+        # cache-on chunk, so cache=off executors hold no residual pool
+        self.max_streams = max_streams
+        self.stepcache: Optional[StepCacheManager] = None
+        self.cache_skipped_launches = 0   # whole launches never issued
         # per-stream effective-window history: one entry per completed
         # chunk = chunks of context its generation actually attended to
         self.effective_window_log: Dict[int, List[int]] = {}
@@ -744,6 +763,10 @@ class BatchedChunkExecutor(ChunkExecutor):
         if victim is None:
             return False
         self.pool.evict(victim)
+        if self.stepcache is not None:
+            # cache state is per-chunk transient: a spilled stream
+            # rejoins at a chunk boundary, where it is stale anyway
+            self.stepcache.drop(victim)
         self.evictions += 1
         self._boundary_cache.clear()
         return True
@@ -776,6 +799,8 @@ class BatchedChunkExecutor(ChunkExecutor):
         Pool state needs no rollback — KV is only appended at the clean
         pass."""
         self.inflight.pop(sid, None)
+        if self.stepcache is not None:
+            self.stepcache.reset_chunk(sid)
 
     def retire(self, sid: int, drop_history: bool = False) -> None:
         """Retire a stream: free its pages and per-stream counters.
@@ -785,6 +810,8 @@ class BatchedChunkExecutor(ChunkExecutor):
             f"stream {sid} retired with a live SP link (release first)"
         self.pool.release(sid)
         self.inflight.pop(sid, None)
+        if self.stepcache is not None:
+            self.stepcache.drop(sid)
         self._pending_wait.pop(sid, None)
         self.chunk_seq.pop(sid, None)
         if drop_history:
@@ -800,6 +827,8 @@ class BatchedChunkExecutor(ChunkExecutor):
         the noise sequence.  Returns False when the pool is full and the
         stream parked host-side (it rejoins via ``ensure_resident``)."""
         self.inflight.pop(sid, None)
+        if self.stepcache is not None:
+            self.stepcache.reset_chunk(sid)
         cond = cond_noise(seed, self.cfg.d_model)
         mark = len(self.pool.engine.log)
         self.pool.release(sid)
@@ -820,6 +849,10 @@ class BatchedChunkExecutor(ChunkExecutor):
         destination accounts the src->dst move."""
         assert sid not in self.inflight, f"stream {sid} is mid-chunk"
         assert sid not in self.sp_links, f"stream {sid} has a live SP link"
+        if self.stepcache is not None:
+            # step-cache state does not travel: it is per-chunk
+            # transient and a migration lands at a chunk boundary
+            self.stepcache.drop(sid)
         dropped = sorted(self.pool.ledger.dropped.get(sid, ()))
         pages, n_chunks = self.pool.export_spill(sid, to_host=to_host)
         self._boundary_cache.clear()
@@ -871,13 +904,21 @@ class BatchedChunkExecutor(ChunkExecutor):
                     now: float) -> None:
         """Start a chunk at a step boundary (noise seeded per stream and
         chunk, see ``chunk_noise``)."""
-        if fidelity.cache != "off":
-            raise NotImplementedError(
-                "the step cache waits for its slice (ROADMAP: port queue)")
         noise = chunk_noise(self.chunk_seq[sid], sid,
                             A.chunk_tokens(self.cfg)).to(self.device)
         self.inflight[sid] = InflightChunk(x=noise, fidelity=fidelity,
                                            started=now)
+        if fidelity.cache != "off":
+            self._stepcache().begin_chunk(sid, self.chunks.get(sid))
+
+    def _stepcache(self) -> StepCacheManager:
+        """The step-cache manager, built on first use: one residual-pool
+        slot per possible concurrent stream, on this executor's device."""
+        if self.stepcache is None:
+            self.stepcache = StepCacheManager(
+                self.max_streams + 1, A.chunk_tokens(self.cfg),
+                A.LATENT_CH, self.cfg.n_layers, device=self.device)
+        return self.stepcache
 
     def steps_left(self, sid: int) -> int:
         """Remaining forwards for the in-flight chunk (incl. clean pass)."""
@@ -1041,8 +1082,34 @@ class BatchedChunkExecutor(ChunkExecutor):
         if sp is not None and sp.mode != "solo":
             sp = None
         denoising = tuple(f.phase == "denoise" for f in flights)
+        # the step cache decides per row BEFORE staging; a group whose
+        # rows are all cache=off takes the path below with no tracker
+        # call at all
+        sc = self.stepcache
+        cache_hits: Dict[int, float] = {}    # row -> dt of the reuse
+        if any(fid.cache != "off" for fid in fids):
+            sc = self._stepcache()
+            for i, fid in enumerate(fids):
+                if fid.cache != "off" and denoising[i] \
+                        and sc.should_hit(sids[i], fid.cache):
+                    # uniform sigma grid (linspace 1 -> 0): dt = 1/S,
+                    # on the host, no device read on the decision path
+                    cache_hits[i] = 1.0 / fid.steps
 
         t0 = time.perf_counter()
+        if cache_hits and len(cache_hits) == len(sids):
+            # every row reuses its cached velocity: the launch is
+            # skipped, each row takes its AXPY (``dispatch_count`` does
+            # not advance)
+            self.cache_skipped_launches += 1
+            for i, (sid, f) in enumerate(zip(sids, flights)):
+                f.x = sc.apply_hit(sid, f.x, cache_hits[i])
+                f.step += 1
+            dt = time.perf_counter() - t0
+            for f in flights:
+                f.active_s += dt
+            return [], dt
+
         bnd = self._boundary(sids, chunk_idx, fids, sp=sp)
         x = (flights[0].x if len(flights) == 1
              else torch.cat([f.x for f in flights], dim=0))
@@ -1073,7 +1140,17 @@ class BatchedChunkExecutor(ChunkExecutor):
         clean_rows: List[int] = []
         for i, (sid, f) in enumerate(zip(sids, flights)):
             if denoising[i]:
-                f.x = x_new[i:i + 1]
+                if i in cache_hits:
+                    # a hit row of a mixed launch rode along for shape
+                    # stability; its output is the AXPY, as on the
+                    # skipped-launch path, whatever the group
+                    f.x = sc.apply_hit(sid, f.x, cache_hits[i])
+                else:
+                    if fids[i].cache != "off":
+                        sc.record_step(sid, f.x, x_new[i:i + 1],
+                                       1.0 / fids[i].steps,
+                                       new_kv["k"][:, i])
+                    f.x = x_new[i:i + 1]
                 f.step += 1
             else:
                 clean_rows.append(i)

@@ -49,8 +49,16 @@ per head dim, not per head count, so there is nothing to warm and it
 has no counterpart here.  Lanes on DIFFERENT devices wait for their
 slice (ROADMAP): the direct device-to-device migration, the timed
 ``_measured_put`` and batch-axis SP forced by a device difference raise
-``NotImplementedError``, and so do co-served model bundles (in the
-session).
+``NotImplementedError``.
+
+**Heterogeneous co-serving** (``bundles=``, ``serve.modelplane``): the
+pool holds one executor + paged ``KVPool`` per *(bundle, lane)*, each
+with that model's params and geometry.  Every stream is pinned to its
+bundle (``model_of``) and all routing (``executor_of`` / ``serving_ex``,
+migrate, SP expand / release) resolves through ``ex_for(lane, model)``,
+so re-homing and elastic SP are same-model-only by construction.  The
+primary bundle's executors are ``executors``, built as a single-model
+pool builds them, so a single-bundle pool is that pool.
 """
 from __future__ import annotations
 
@@ -85,11 +93,14 @@ class LanePool:
                  context_backend: str = "paged",
                  engine: Optional[AsyncTransferEngine] = None,
                  sp_mode: str = "solo", page_evict: bool = False,
-                 device: Any = "cuda"):
+                 device: Any = "cuda",
+                 bundles: Optional[Sequence[Any]] = None):
         if n_lanes < 1:
             raise ValueError(f"n_lanes {n_lanes}: at least 1")
         if sp_mode not in ("solo", "batch"):
             raise ValueError(f"sp_mode {sp_mode!r}: 'solo' or 'batch'")
+        if bundles:
+            cfg, params = bundles[0].cfg, bundles[0].params
         first = BatchedChunkExecutor(cfg=cfg, params=params, seed=seed,
                                      max_streams=max_streams,
                                      context_backend=context_backend,
@@ -103,6 +114,16 @@ class LanePool:
                                  page_evict=page_evict)
             for _ in range(1, n_lanes)]
         self._init(executors, first.pool.engine, sp_mode)
+        if bundles:
+            self.bundle_executors[bundles[0].name] = self.executors
+            for b in bundles[1:]:
+                self.bundle_executors[b.name] = [
+                    BatchedChunkExecutor(cfg=b.cfg, params=b.params,
+                                         max_streams=max_streams,
+                                         context_backend=context_backend,
+                                         engine=self.engine, device=device,
+                                         page_evict=page_evict)
+                    for _ in range(n_lanes)]
 
     @classmethod
     def wrap(cls, executor: Any) -> "LanePool":
@@ -122,6 +143,10 @@ class LanePool:
         self.engine = engine
         self.sp_mode = sp_mode
         self.lane_of: Dict[int, int] = {}
+        # co-served bundles: model -> its executor per lane, and each
+        # stream's model (both empty on a single-model pool)
+        self.bundle_executors: Dict[str, List[Any]] = {}
+        self.model_of: Dict[int, str] = {}
         self.n_migrations = 0
         self.n_sp_expands = 0
         self.n_sp_releases = 0
@@ -134,12 +159,24 @@ class LanePool:
     def ex(self, lane: int) -> Any:
         return self.executors[lane]
 
+    def ex_for(self, lane: int, model: Optional[str] = None) -> Any:
+        """The executor of ``lane`` serving ``model``'s bundle; the
+        primary executors when ``model`` is None or unknown."""
+        if model is not None and model in self.bundle_executors:
+            return self.bundle_executors[model][lane]
+        return self.executors[lane]
+
     @property
     def all_executors(self) -> List[Any]:
-        return self.executors
+        """Every executor across bundles, the primary bundle's first."""
+        out = list(self.executors)
+        for exs in self.bundle_executors.values():
+            if exs is not self.executors:
+                out.extend(exs)
+        return out
 
     def executor_of(self, sid: int) -> Any:
-        return self.executors[self.lane_of.get(sid, 0)]
+        return self.ex_for(self.lane_of.get(sid, 0), self.model_of.get(sid))
 
     def chunks_of(self, sid: int) -> List[Any]:
         return self.executor_of(sid).chunks.get(sid, [])
@@ -150,14 +187,14 @@ class LanePool:
         row), its home lane otherwise."""
         link = self.sp_link(sid)
         if link is not None and link.mode == "batch":
-            return self.executors[link.donor]
+            return self.ex_for(link.donor, self.model_of.get(sid))
         return self.executor_of(sid)
 
     def is_inflight(self, sid: int) -> bool:
         return sid in self.serving_ex(sid).inflight
 
     def any_inflight(self) -> bool:
-        return any(ex.inflight for ex in self.executors)
+        return any(ex.inflight for ex in self.all_executors)
 
     def sp_link(self, sid: int) -> Optional[SPLink]:
         return getattr(self.executor_of(sid), "sp_links", {}).get(sid)
@@ -165,21 +202,32 @@ class LanePool:
     def remaining_estimate(self, sid: int) -> float:
         return self.serving_ex(sid).remaining_estimate(sid)
 
-    def latency_ema_get(self, key: str, default: float) -> float:
+    def latency_ema_get(self, key: str, default: float,
+                        model: Optional[str] = None) -> float:
         """Measured chunk-latency EMA for a fidelity, averaged over the
         lanes that have observed it (the lanes share one device, so
-        their EMAs estimate the same quantity)."""
-        vals = [ex.latency_ema[key] for ex in self.executors
+        their EMAs estimate the same quantity).  ``model`` scopes the
+        read to that bundle's executors: fidelity keys collide across
+        co-served models."""
+        exs = (self.bundle_executors.get(model, self.executors)
+               if model is not None else self.executors)
+        vals = [ex.latency_ema[key] for ex in exs
                 if key in ex.latency_ema]
         return sum(vals) / len(vals) if vals else default
 
     # ---- stream lifecycle (routed to the home lane) ------------------------
     def admit(self, sid: int, lane: int, seed: int = 0,
               streams: Optional[Dict[int, Stream]] = None,
-              protect: Sequence[int] = ()) -> bool:
+              protect: Sequence[int] = (),
+              model: Optional[str] = None) -> bool:
         self.lane_of[sid] = lane
-        return self.executors[lane].admit(sid, seed=seed, streams=streams,
-                                          protect=protect)
+        if model is not None:
+            self.model_of[sid] = model
+        else:
+            self.model_of.pop(sid, None)      # sid reuse across models
+        return self.ex_for(lane, model).admit(sid, seed=seed,
+                                              streams=streams,
+                                              protect=protect)
 
     def ensure_resident(self, sid: int,
                         streams: Optional[Dict[int, Stream]] = None,
@@ -203,6 +251,8 @@ class LanePool:
         if self.sp_link(sid) is not None:
             self.sp_release(sid)
         self.executor_of(sid).retire(sid)
+        # model_of is kept: the generated chunks stay in the bundle's
+        # executor, so chunks_of / handle reads still route there
 
     def _same_device(self, a: Any, b: Any) -> None:
         if getattr(a, "device", None) != getattr(b, "device", None):
@@ -221,7 +271,10 @@ class LanePool:
         planner, owns ground truth."""
         if self.lane_of.get(sid) != src or src == dst:
             return False
-        src_ex, dst_ex = self.executors[src], self.executors[dst]
+        # same-model-only: both ends are the stream's own bundle's
+        # executor on each lane
+        model = self.model_of.get(sid)
+        src_ex, dst_ex = self.ex_for(src, model), self.ex_for(dst, model)
         if sid in src_ex.inflight or sid in src_ex.sp_links:
             return False
         self._same_device(src_ex, dst_ex)
@@ -261,7 +314,10 @@ class LanePool:
         home = self.lane_of.get(sid)
         if home is None or donor == home:
             return False
-        ex = self.executors[home]
+        # same-model-only: the mirror lands in the donor lane's pool of
+        # the stream's own bundle
+        model = self.model_of.get(sid)
+        ex = self.ex_for(home, model)
         if getattr(ex, "context_backend", None) != "paged":
             return False          # head split rides the paged step only
         if sid in ex.sp_links:
@@ -269,7 +325,7 @@ class LanePool:
         if not ex.pool.resident(sid) and \
                 not ex.ensure_resident(sid, streams, protect=[sid]):
             return False
-        donor_ex = self.executors[donor]
+        donor_ex = self.ex_for(donor, model)
         mode = self._sp_mode_for(ex, donor_ex)
         dpool: KVPool = donor_ex.pool
         while not dpool.can_admit():
@@ -351,7 +407,7 @@ class LanePool:
         link = getattr(ex, "sp_links", {}).pop(sid, None)
         if link is None:
             return
-        donor_ex = self.executors[link.donor]
+        donor_ex = self.ex_for(link.donor, self.model_of.get(sid))
         if link.mode == "batch":
             assert sid not in donor_ex.inflight, \
                 "batch-axis SP release only at a chunk boundary"

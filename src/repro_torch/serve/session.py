@@ -29,9 +29,14 @@ lanes grouped into nodes via ``workers_per_node`` — and the cluster view
 grows one Worker per lane, which turns on the cross-worker mechanisms:
 ``rehoming.Migration`` decisions become real cross-lane KV moves and
 ``elastic_sp.SPDecision`` a real Ulysses head-split SP2 step over the
-donor lane's pool (released at the next safe boundary).  Co-served
-model bundles and the step cache wait for their slices and raise
-``NotImplementedError`` (ROADMAP: port queue).
+donor lane's pool (released at the next safe boundary).
+
+Co-served models (``SessionConfig.models``, ``serve.modelplane``): one
+executor + paged KV pool per (model, lane), each stream routed to its
+spec's model, placement weighted by per-model step / page cost, every
+bundle calibrated by its own warm-up chunk, re-homing and elastic SP
+same-model-only.  ``step_cache`` unlocks the step-cache levels in the
+BMPR candidate space (``models/stepcache``).
 """
 from __future__ import annotations
 
@@ -56,8 +61,7 @@ from repro_torch.sched_sim.workloads import StreamSpec
 from repro_torch.serve.batcher import compose_batch
 from repro_torch.serve.executor import SequentialChunkExecutor, ServedStream
 from repro_torch.serve.lanes import LanePool
-
-_WAITS = "waits for its slice (ROADMAP: port queue)"
+from repro_torch.serve.modelplane import profile_name_of, resolve_bundles
 
 
 @dataclasses.dataclass
@@ -93,8 +97,14 @@ class SessionConfig:
     # partial-window residency: under pool pressure evict single ring
     # pages before whole-stream spill (discards KV)
     page_evict: bool = False
+    # the step cache (fifth fidelity knob): True unlocks the cache levels
+    # in the BMPR candidate space (270 points); cache levels also work
+    # when a custom ``fidelity_policy`` selects them
     step_cache: bool = False
     model_cfg: Optional[Any] = None    # None -> the reduced default model
+    # co-served models: registry arch ids (reduced), ModelConfigs or
+    # ready ``modelplane.ModelBundle``s; excludes ``model_cfg`` and an
+    # injected executor
     models: Optional[List[Any]] = None
     realtime_budget: Optional[float] = None
     budget_factor: float = 4.0     # chunk_seconds = factor x top latency
@@ -180,18 +190,44 @@ class _HostCalibratedPolicy:
     replaced by the measured EMA for that fidelity as soon as one exists
     (online re-profiling).  Deliberately does NOT expose ``.profile``:
     ``ControlPlane.tick`` then takes T_u from the returned decision.
+    ``model`` (co-served bundles) scopes the EMA read to that bundle's
+    executors: fidelity keys collide across models.
     """
 
-    def __init__(self, inner, lanes: LanePool, time_scale: float):
+    def __init__(self, inner, lanes: LanePool, time_scale: float,
+                 model: Optional[str] = None):
         self.inner = inner
         self.lanes = lanes
         self.time_scale = time_scale
+        self.model = model
 
     def select(self, budget: float) -> BMPRDecision:
         dec = self.inner.select(budget * self.time_scale)
         lat = self.lanes.latency_ema_get(dec.fidelity.key,
-                                         dec.latency / self.time_scale)
+                                         dec.latency / self.time_scale,
+                                         model=self.model)
         return BMPRDecision(dec.fidelity, lat, dec.quality, dec.mode)
+
+
+class _ModelRoutedPolicy:
+    """Fidelity-policy multiplexer for co-served bundles: one
+    ``_HostCalibratedPolicy`` per model (each over its bundle's offline
+    profile, time scale and measured EMAs).  ``select`` serves the
+    session primary; per-stream calls go through ``select_for(model,
+    budget)``.  Like the single-model wrapper it does NOT expose
+    ``.profile``, so T_u comes from the returned decision."""
+
+    def __init__(self, by_model: Dict[str, _HostCalibratedPolicy],
+                 primary: str):
+        self.by_model = by_model
+        self.primary = by_model[primary]
+
+    def select(self, budget: float) -> BMPRDecision:
+        return self.primary.select(budget)
+
+    def select_for(self, model: Optional[str],
+                   budget: float) -> BMPRDecision:
+        return self.by_model.get(model, self.primary).select(budget)
 
 
 def uniform_specs(n_streams: int, chunks_per_stream: int) -> List[StreamSpec]:
@@ -253,10 +289,17 @@ class StreamingSession:
             raise ValueError(f"executor {self.cfg.executor!r}: 'batched' "
                              "or 'sequential'")
         n_lanes = max(1, self.cfg.lanes)
+        self.bundles = None
         if self.cfg.models:
-            raise NotImplementedError("co-served model bundles " + _WAITS)
-        if self.cfg.step_cache:
-            raise NotImplementedError("the step cache " + _WAITS)
+            if executor is not None or self.cfg.model_cfg is not None:
+                raise ValueError("SessionConfig.models excludes executor= "
+                                 "and model_cfg")
+            if self.cfg.executor != "batched":
+                raise ValueError("co-served models ride the batched paged "
+                                 "executor")
+            self.bundles = resolve_bundles(
+                self.cfg.models, seed=self.cfg.seed,
+                step_cache=self.cfg.step_cache, device=self.cfg.device)
         if n_lanes > 1 and not isinstance(executor, LanePool) and (
                 executor is not None or self.cfg.executor == "sequential"):
             raise ValueError("multi-lane sessions take batched executors "
@@ -275,11 +318,22 @@ class StreamingSession:
                 n_lanes, cfg=self.cfg.model_cfg, seed=self.cfg.seed,
                 max_streams=self.cfg.pool_streams or 16,
                 context_backend=self.cfg.context_backend,
-                page_evict=self.cfg.page_evict, device=self.cfg.device)
+                page_evict=self.cfg.page_evict, device=self.cfg.device,
+                bundles=self.bundles)
         self.executor = self.lanes.ex(0)
 
-        policy = fidelity_policy or BMPR(get_profile())
+        if self.bundles is not None and fidelity_policy is None:
+            inner_policies = {b.name: BMPR(b.profile)
+                              for b in self.bundles}
+            policy = inner_policies[self.bundles[0].name]
+        else:
+            inner_policies = None
+            policy = fidelity_policy or BMPR(
+                get_profile(step_cache=self.cfg.step_cache))
         self._profile = getattr(policy, "profile", None) or get_profile()
+        self._bundle_profiles = (
+            {b.name: b.profile for b in self.bundles}
+            if self.bundles is not None else {})
 
         # ---- host calibration (one top-fidelity warm-up chunk) ----------
         # measures this device's top-fidelity chunk latency and fixes the
@@ -302,13 +356,25 @@ class StreamingSession:
                               or self.cfg.budget_factor * self.top_latency)
         time_scale = (self._profile.latency(HIGHEST_QUALITY)
                       / max(self.top_latency, 1e-9))
+        if self.bundles is not None:
+            self._calibrate_bundles(time_scale)
         multi = self.lanes.n_lanes > 1
+        if self.bundles is not None:
+            fid_policy: Any = _ModelRoutedPolicy(
+                {b.name: _HostCalibratedPolicy(
+                    (inner_policies[b.name] if inner_policies is not None
+                     else policy),
+                    self.lanes, b.time_scale, model=b.name)
+                 for b in self.bundles},
+                primary=self.bundles[0].name)
+        else:
+            fid_policy = _HostCalibratedPolicy(policy, self.lanes,
+                                               time_scale)
         self.control = ControlPlane(
             ControlConfig(tick_interval=self.cfg.tick_interval,
                           # cross-worker mechanisms need >1 lane
                           use_rehoming=multi, use_elastic_sp=multi),
-            fidelity_policy=_HostCalibratedPolicy(policy, self.lanes,
-                                                  time_scale))
+            fidelity_policy=fid_policy)
 
         # ---- front door (admission control; autoscale forced off) -------
         self.front_door: Optional[FrontDoor] = None
@@ -325,6 +391,18 @@ class StreamingSession:
                         for i in range(self.lanes.n_lanes)]
         self.worker = self.workers[0]
         self.view = ClusterView({}, self.workers, wpn)
+        if self.bundles is not None:
+            # placement sees per-model weight: a heavy-model stream
+            # occupies more of a worker than a cheap one
+            weights = {b.name: b.placement_weight for b in self.bundles}
+            self.view.stream_weight = (
+                lambda sid: weights.get(self.lanes.model_of.get(sid), 1.0))
+            # spec.model takes the registry arch id or its profile alias
+            # ("self-forcing" -> "ardit-self-forcing")
+            self._model_alias = {}
+            for b in self.bundles:
+                self._model_alias[b.name] = b.name
+                self._model_alias[profile_name_of(b.name)] = b.name
         self.handles: Dict[int, StreamHandle] = {}
         self._order: List[int] = []
         self._events: List[Tuple[float, int, str, Any]] = []
@@ -343,8 +421,6 @@ class StreamingSession:
         to session start (``run()``), scaled by ``arrival_scale``."""
         assert spec.sid not in self.handles, f"duplicate sid {spec.sid}"
         assert spec.sid >= 0, "negative sids are reserved (warm-up)"
-        if getattr(spec, "model", None) is not None:
-            raise NotImplementedError("co-served model bundles " + _WAITS)
         sc = self.cfg.arrival_scale
         h = StreamHandle(self, spec)
         self.handles[spec.sid] = h
@@ -367,10 +443,56 @@ class StreamingSession:
             self._t0 = time.perf_counter()
         return time.perf_counter() - self._t0
 
+    def _calibrate_bundles(self, time_scale: float) -> None:
+        """Per-bundle warm-up: every further co-served model measures its
+        own top-fidelity chunk on lane 0, seeds its lanes' EMAs and
+        carries its own wall <-> profile time scale (a heavy model must
+        not inherit a light model's budget conversion); the playout
+        cadence fits the slowest model's top-fidelity chunk."""
+        self.bundles[0].top_latency = self.top_latency
+        self.bundles[0].time_scale = time_scale
+        for b in self.bundles[1:]:
+            bex = self.lanes.bundle_executors[b.name][0]
+            bex.admit(-1, seed=999)
+            bex.begin_chunk(-1, HIGHEST_QUALITY, 0.0)
+            while -1 in bex.inflight:
+                bex.run_step([-1])
+            b.top_latency = bex.latency_ema[HIGHEST_QUALITY.key]
+            bex.retire(-1, drop_history=True)
+            bstep = b.top_latency / (HIGHEST_QUALITY.steps + 1)
+            for lex in self.lanes.bundle_executors[b.name]:
+                lex.latency_ema[HIGHEST_QUALITY.key] = b.top_latency
+                lex.step_ema[HIGHEST_QUALITY.key] = bstep
+            b.time_scale = (b.profile.latency(HIGHEST_QUALITY)
+                            / max(b.top_latency, 1e-9))
+        self.chunk_seconds = (
+            self.cfg.realtime_budget
+            or self.cfg.budget_factor
+            * max(b.top_latency for b in self.bundles))
+
     # ---- event handlers (mirroring the simulator) --------------------------
+    def _bundle_for(self, sid: int):
+        """The stream's model bundle (None on single-model sessions); a
+        spec without a model rides the session primary."""
+        if self.bundles is None:
+            return None
+        spec_model = getattr(self.handles[sid].spec, "model", None)
+        if spec_model is None:
+            return self.bundles[0]
+        name = self._model_alias.get(spec_model)
+        if name is None:
+            raise KeyError(
+                f"stream {sid} wants model {spec_model!r}, not in the "
+                f"co-serve set {[b.name for b in self.bundles]}")
+        return next(b for b in self.bundles if b.name == name)
+
     def _first_estimate(self, sid: int) -> float:
+        b = self._bundle_for(sid)
+        if b is None:
+            return self.lanes.latency_ema_get(HIGHEST_QUALITY.key,
+                                              self.top_latency)
         return self.lanes.latency_ema_get(HIGHEST_QUALITY.key,
-                                          self.top_latency)
+                                          b.top_latency, model=b.name)
 
     def _on_arrival(self, sid: int, t_arr: float) -> None:
         self._pending_arrivals -= 1
@@ -392,15 +514,20 @@ class StreamingSession:
         spec = self.handles[sid].spec
         ttfc_slack = self.control.initial_slack(first_est)
         home = self.control.choose_home(self.view)
+        bundle = self._bundle_for(sid)
         s = Stream(sid=sid, arrival=t_arr, target_chunks=spec.chunks,
                    chunk_seconds=self.chunk_seconds, home=home,
                    ttfc_slack=ttfc_slack,
                    next_deadline=t_arr + ttfc_slack)
         s.t_next = first_est
+        model = bundle.name if bundle is not None else None
+        s.model = model
         self.view.streams[sid] = s
         self.workers[home].queue.append(sid)
-        self.lanes.admit(sid, home, seed=sid, streams=self.view.streams,
-                         protect=list(self.lanes.ex(home).inflight))
+        self.lanes.admit(
+            sid, home, seed=sid, streams=self.view.streams,
+            protect=list(self.lanes.ex_for(home, model).inflight),
+            model=model)
 
     def _on_prompt_switch(self, sid: int, now: float) -> None:
         s = self.view.streams.get(sid)
@@ -567,8 +694,9 @@ class StreamingSession:
             if (link is not None and link.donor != w.wid
                     and link.donor not in lent
                     and link.donor not in sp_homes
-                    and self.lanes.ex(w.wid).ensure_resident(
-                        r[0], streams, protect=[r[0]])):
+                    and self.lanes.ex_for(
+                        w.wid, self.lanes.model_of.get(r[0]))
+                    .ensure_resident(r[0], streams, protect=[r[0]])):
                 sp_homes[w.wid] = r[0]
                 lent.add(link.donor)
 
@@ -583,11 +711,18 @@ class StreamingSession:
             if w.wid in lent:
                 continue       # step slot lent to another lane's SP2
             ex = self.lanes.ex(w.wid)
+
+            # the stream's own bundle's executor on THIS lane (the lane's
+            # executor itself on single-model sessions)
+            def ex_of(sid: int, lane: int = w.wid) -> Any:
+                return self.lanes.ex_for(lane, self.lanes.model_of.get(sid))
+
             sp_sid = sp_homes.get(w.wid)
             if sp_sid is not None:       # reserved (and already resident)
-                self._begin_if_needed(ex, sp_sid, now)
-                flights = {sp_sid: ex.inflight[sp_sid]}
-                completed, _ = ex.run_step([sp_sid], sp_serve=True)
+                sp_ex = ex_of(sp_sid)
+                self._begin_if_needed(sp_ex, sp_sid, now)
+                flights = {sp_sid: sp_ex.inflight[sp_sid]}
+                completed, _ = sp_ex.run_step([sp_sid], sp_serve=True)
                 any_ran = True
                 now = self._now()
                 for sid in completed:
@@ -607,18 +742,23 @@ class StreamingSession:
             for sid in runnable:
                 if len(sids) >= max_batch + len(glist):
                     break
-                if ex.ensure_resident(sid, streams, protect=sids + [sid]):
+                if ex_of(sid).ensure_resident(sid, streams,
+                                              protect=sids + [sid]):
                     sids.append(sid)
             if not sids:
                 continue
             for sid in sids:
-                self._begin_if_needed(ex, sid, now)
+                self._begin_if_needed(ex_of(sid), sid, now)
             groups = compose_batch(
-                sids, lambda sid: ex.inflight[sid].fidelity,
-                max_batch + len(glist), fuse=self.cfg.fuse_fidelity)
+                sids, lambda sid: ex_of(sid).inflight[sid].fidelity,
+                max_batch + len(glist), fuse=self.cfg.fuse_fidelity,
+                model_of=(self.lanes.model_of.get
+                          if self.lanes.bundle_executors else None))
             for grp in groups:
-                flights = {sid: ex.inflight[sid] for sid in grp}
-                completed, _ = ex.run_step(grp)
+                # one sub-batch = one model's step on one pool
+                grp_ex = ex_of(grp[0])
+                flights = {sid: grp_ex.inflight[sid] for sid in grp}
+                completed, _ = grp_ex.run_step(grp)
                 any_ran = True
                 now = self._now()
                 for sid in completed:
@@ -635,7 +775,11 @@ class StreamingSession:
         # between chunks.  The wall->profile unit conversion lives in
         # _HostCalibratedPolicy.
         budget = max(s.playout_slack(now) - s.remaining, 0.0)
-        dec = self.control.fidelity_policy.select(budget)
+        pol = self.control.fidelity_policy
+        sel = getattr(pol, "select_for", None)
+        dec = (sel(s.model, budget)
+               if sel is not None and s.model is not None
+               else pol.select(budget))
         s.next_fidelity = dec.fidelity
         s.t_next = dec.latency
         s.chunk_started = now
@@ -694,7 +838,9 @@ class StreamingSession:
         s.chunk_started = None
         s.running_on = None
         s.remaining = 0.0
-        s.qualities.append(self._profile.quality(fid))
+        prof = (self._bundle_profiles.get(s.model, self._profile)
+                if s.model is not None else self._profile)
+        s.qualities.append(prof.quality(fid))
         s.fidelity_log.append(fid.key)
         self.fidelity_counts[fid.key] = \
             self.fidelity_counts.get(fid.key, 0) + 1
@@ -732,11 +878,24 @@ class StreamingSession:
     # ---- results -----------------------------------------------------------
     def result(self) -> SessionResult:
         eff_w: Dict[int, List[int]] = {}
+        hits = misses = skipped = 0
         for ex in self.lanes.all_executors:
             for sid, log in getattr(ex, "effective_window_log",
                                     {}).items():
                 if sid >= 0 and log:
                     eff_w.setdefault(sid, []).extend(log)
+            sc = getattr(ex, "stepcache", None)
+            if sc is not None:
+                hits += sc.hits
+                misses += sc.misses
+            skipped += getattr(ex, "cache_skipped_launches", 0)
+        # step-cache counters summed across lanes; empty when no
+        # cache-on chunk ran
+        cache_stats: Dict[str, float] = {}
+        if hits or misses:
+            cache_stats = {"hits": hits, "misses": misses,
+                           "hit_rate": hits / (hits + misses),
+                           "skipped_launches": skipped}
         return SessionResult(
             streams=dict(self.view.streams), engine=self.lanes.engine,
             n_rehomings=self.control.n_rehomings,
@@ -748,7 +907,7 @@ class StreamingSession:
             n_sp_expands_applied=self.lanes.n_sp_expands,
             n_sp_releases_applied=self.lanes.n_sp_releases,
             admission=self.front_door.stats() if self.front_door else {},
-            effective_window=eff_w)
+            effective_window=eff_w, step_cache=cache_stats)
 
     def _served_stream(self, sid: int) -> ServedStream:
         """Back-compat view assembled FROM the per-stream record."""

@@ -175,11 +175,14 @@ def test_oversubscribed_page_evict_matches_jax(inject_jax_draws):
 
 
 def test_waiting_paths_raise():
+    """An unknown context backend raises; the step cache no longer
+    waits: a cache-on chunk builds the manager on first use."""
     cfg = _cfgs(n_layers=2)[1]
     with pytest.raises(ValueError):
         TB.BatchedChunkExecutor(cfg=cfg, device="cpu",
                                 context_backend="gathered")
     ex = TB.BatchedChunkExecutor(cfg=cfg, device="cpu", max_streams=1)
     ex.admit(0, seed=0)
-    with pytest.raises(NotImplementedError):
-        ex.begin_chunk(0, TFid(2, 0.0, 2, "bf16", "aggressive"), 0.0)
+    assert ex.stepcache is None
+    ex.begin_chunk(0, TFid(2, 0.0, 2, "bf16", "aggressive"), 0.0)
+    assert ex.stepcache is not None and 0 in ex.stepcache.states

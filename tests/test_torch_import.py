@@ -24,6 +24,9 @@ import repro_torch.kernels.flash_attention
 import repro_torch.kernels.ssd_scan
 import repro_torch.models.ssm, repro_torch.models.registry
 import repro_torch.launch.profile_step, repro_torch.launch.profile_ssm
+import repro_torch.sched_sim, repro_torch.sched_sim.calibration
+import repro_torch.sched_sim.policies, repro_torch.serve.modelplane
+import repro_torch.models.stepcache
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
 print('BAD', bad)

@@ -12,8 +12,9 @@ the plain version (the same CUDA tensors, ``ref.paged_chunk_attention_ref``);
 every head dim the kernels instantiate (16, 96, 128), query and page
 dtypes (fp32, bf16, fp8-e4m3 pages), GQA 4, the all-visible path,
 explicit masks with and without the extent hint, a hole row and a row
-that sees nothing, and the main path's 2,640-token pages with a 77-token
-sink; every launch is checked to take the path ``kernel_path`` names
+that sees nothing, the main path's 2,640-token pages with a 77-token
+sink, and ``ardit-causal-forcing``'s full-width chunk (2,640 queries,
+16 heads of 96); every launch is checked to take the path ``kernel_path`` names
 (``launches_tc``).  Tolerance: both accumulate in fp32 — m within 1e-4,
 l within 1e-4 relative; the finalized acc / l within 1e-4 on the
 CUDA-core kernel (summation order only) and within 2 bf16 ulps at its
@@ -85,6 +86,12 @@ bf16 ulps at that magnitude in bf16; the fp32 final state within 1e-4
 of its largest magnitude.  A scan's outputs grow with its inputs (unlike
 attention's averages), so the fp32 limit is relative to them; both sides
 accumulate in fp32 and differ in summation order only.
+
+The step cache's two device functions on the card against the same
+functions on the CPU: the hit AXPY ``x - dt * v`` (one multiply-add per
+element on both) and the recorded velocity bit for bit, the fp32 KV
+signature (a mean over 1e7 values) and the delta within 1e-5 relative
+(order of summation only).
 """
 import math
 
@@ -98,6 +105,7 @@ from repro_torch.kernels.fp8_matmul import ref as f8ref
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops, ref
 from repro_torch.models.attention import mha, mha_plain, shard_heads
+from repro_torch.models import stepcache
 from repro_torch.models.kvcache import to_fp8_e4m3
 from repro_torch.kernels.ssd_scan import ops as sops
 from repro_torch.kernels.ssd_scan import ref as sref
@@ -878,3 +886,47 @@ def test_decode_tensor_core_path_never_reads_pages_past_the_length(card):
     torch.cuda.synchronize()
     assert ops.paged_decode_attention.launches_tc == before + 1
     assert torch.equal(again, got) and (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "fp8"])
+def test_kernel_at_causal_forcings_full_width(card, kv_dtype):
+    """``ardit-causal-forcing``'s chunk at full width: 2,640 queries, 16
+    heads of 96 (two 64-column TMA boxes, the second half zero-filled),
+    over a 77-token sink and two 2,640-token pages, on the tensor
+    cores."""
+    B, Sq, H, D, page, n, sink = 1, 2640, 16, 96, 2640, 3, 77
+    q, kp, vp, table, _ = _inputs(card, B, Sq, H, H, D, page, n,
+                                  torch.bfloat16, kv_dtype, seed=96)
+    hint = dict(sink=sink, chunk_tokens=page)
+    assert _path(q, kp) == "wgmma"
+    before = ops.paged_chunk_attention.launches_tc
+    _check(ops.paged_chunk_attention(q, kp, vp, table, None, **hint),
+           ref.paged_chunk_attention_ref(q, kp, vp, table, None, **hint),
+           "wgmma")
+    torch.cuda.synchronize()
+    assert ops.paged_chunk_attention.launches_tc == before + 1
+
+
+@pytest.mark.parametrize("steps", [2, 3, 4])
+def test_step_cache_on_the_card_matches_the_cpu(card, steps):
+    dt = 1.0 / steps
+    g = torch.Generator().manual_seed(steps)
+    x = torch.randn((1, 2640, 16), generator=g)
+    x_new = torch.randn((1, 2640, 16), generator=g)
+    k = torch.randn((30, 2640, 12, 128), generator=g)
+    pools = {}
+    for dev in ("cpu", card):
+        v = torch.randn((3, 1, 2640, 16),
+                        generator=torch.Generator().manual_seed(7)).to(dev)
+        f = torch.zeros((3, 30), device=dev)
+        delta = stepcache._record(v, f, 1, x.to(dev), x_new.to(dev),
+                                  torch.full((), dt, device=dev),
+                                  k.to(dev))
+        hit = stepcache._apply_cached(x.to(dev), v, 1, dt)
+        pools[str(dev)] = (v.cpu(), f.cpu(), float(delta), hit.cpu())
+    (v0, f0, d0, h0), (v1, f1, d1, h1) = pools["cpu"], pools[str(card)]
+    assert torch.equal(v1, v0)
+    assert torch.equal(h1, h0) and h1.dtype == torch.float32
+    torch.testing.assert_close(f1, f0, rtol=1e-5, atol=0)
+    assert d1 == pytest.approx(d0, rel=1e-5)

@@ -81,8 +81,14 @@ def test_session_chunks_match_jax(inject_jax_draws, n, chunks, max_batch,
 
 
 def test_session_waiting_options_raise():
-    for kw in (dict(models=["ardit-self-forcing"]), dict(step_cache=True)):
-        with pytest.raises(NotImplementedError):
+    """Co-served models and the step cache no longer wait; what the
+    reference rejects still raises: a non-ardit co-served model, and
+    ``models`` beside ``model_cfg`` or the sequential executor."""
+    for kw in (dict(models=["mamba2-780m"]),
+               dict(models=["ardit-self-forcing"],
+                    model_cfg=_cfgs(n_layers=2)[1]),
+               dict(models=["ardit-self-forcing"], executor="sequential")):
+        with pytest.raises(ValueError):
             TS.StreamingSession(TS.SessionConfig(device="cpu", **kw))
 
 
