@@ -25,9 +25,15 @@ Phases (any failure raises and the script exits non-zero):
    non-causal, Skv = sink + 0 / 3 / 7 chunks + the chunk) and in every
    mode at modest shapes (causal with q_offset, sink + window, the rho
    keep matrix, GQA, fp32, head dims 16 and 96); each case's kernel path
-   (bf16 at D 96 / 128 on the tensor cores, the rest on the CUDA cores)
-   checked, the tensor-core kernel's registers printed, the same
-   timings with the kernel's and SDPA's TFLOP/s.
+   (bf16 at D 64 / 96 / 128 on the tensor cores, the rest on the CUDA
+   cores) checked, the tensor-core kernel's registers printed, the same
+   timings with the kernel's and SDPA's TFLOP/s; then the token
+   families' prefill_32k attention at B = 2 (granite-moe-1b-a400m causal
+   at 16 / 8 heads of 64, minitron-8b causal at 32 / 8 heads of 128,
+   jamba-v0.1-52b's sink 128 + window 8,192 at 32 / 8 heads of 128): the
+   kernel against one plain call, SDPA (causal with ``enable_gqa``; the
+   window as a boolean mask on the memory-efficient backend) and the
+   bound of the visible pairs.
 4. Integration at the reduced config, card vs CPU: the batched paged
    ``denoise_step_paged``, the sequential ``serve_chunk`` (fidelities
    top / rho 0.5 / W 3 / fp8 over a warm cache), the gather backend's
@@ -51,7 +57,9 @@ Phases (any failure raises and the script exits non-zero):
    fp32 and the reference tests' odd length and chunk (S = 33, chunk 8)
    at the reduced (P, N); each case's kernel path checked (bf16 at (64,
    128) on the tensor cores, the rest on the CUDA cores); the same
-   timings (no library call computes the scan).
+   timings (no library call computes the scan); then jamba-v0.1-52b's
+   Mamba sublayers at full width ((P, N) = (64, 16), 128 heads, x/B/C
+   the model's views) on the CUDA cores, held and timed the same way.
 9. ``mamba2-780m`` at full width through the registry API (random bf16
    weights from a seed): ``prefill`` of 2 x 32,768 tokens, 32 greedy
    ``decode_step``s, a teacher-forced ``prefill`` over prompt +
@@ -135,6 +143,22 @@ Phases (any failure raises and the script exits non-zero):
    not gated: the tolerance was pinned for the reduced CPU session),
    and the per-bundle fits of phase 14's session.
 
+16. The token families at full width through the registry API (run
+   after 12, everything before it freed; random weights from a CUDA
+   generator): ``minitron-8b`` (dense), ``granite-moe-1b-a400m`` (MoE,
+   heads of 64), ``internvl2-26b`` (VLM, 256 image embeddings
+   prepended) and ``jamba-v0.1-52b`` cut to one period of 8 sublayers
+   (hybrid), each with the launch counts set to 0 before and read
+   after every prefill and decode run (flash = attention layers per
+   prefill, on the tensor cores in bf16; ssd_scan = 7 per Jamba period,
+   on the CUDA cores; nothing from decode): a timed prefill (B 2 x
+   32,768; internvl 1 x 8,192) and decode steps (Jamba's past its
+   8,320-token ring), then consistency gates (``FamilyRun.gate``): the
+   last of 512 greedy decode steps against a teacher-forced prefill, in
+   bf16 at the timed length (MoE capacity 8.0; Jamba 1 x 12,288, the
+   ring rolled) and with the weights widened to fp32 at 2 x 4,096
+   (minitron, granite); peak memory per model.
+
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
 it exits non-zero and prints no result.
@@ -197,6 +221,17 @@ TOL_SSD_F32 = 1e-4
 # limit, 7x its reading, holds the two paths' arithmetic.
 TOL_CONSISTENCY = 0.1
 TOL_CONSISTENCY_F32 = 1e-4
+# phase 16's bf16 gates of the MoE models: where the two paths route the
+# compared token to different experts in some MoE sublayer (a near-tie
+# between the k-th and the next expert, which bf16 rounding resolves one
+# way on each path), the gap is that of another expert's output, not of
+# a carried state: jamba-v0.1-52b's one period (top 2 of 16) on an
+# NVIDIA H100 80GB HBM3 (700 W) gave 0.278-0.310 with a flip and
+# 0.018-0.020 without, against 1.37-1.41 to another position's logits.
+# Only then the limit is TOL_CONSISTENCY_FLIP, and at most half the gap
+# to another position's logits (a wrongly carried state gives a gap of
+# that order): granite-moe's is 0.197 there.
+TOL_CONSISTENCY_FLIP = 0.5
 SSM_F32_PREFILL, SSM_F32_STEPS = 8192, 16
 SSM_ARCH = "mamba2-780m"
 # prefill_32k's length with its batch of 32 cut to 2; decode_32k's batch
@@ -215,6 +250,16 @@ KERNEL_D96 = dict(H=16, D=96)
 # the sequential path's attention at full width: one stream, the chunk's
 # 2640 queries over sink + w chunks + the chunk itself
 FLASH_SKV = (77 + 2640, 77 + 3 * 2640 + 2640, 77 + 7 * 2640 + 2640)
+# the flash kernel at the token families' prefill_32k attention (batch
+# cut to 2): name -> (B, S, Hq, Hkv, D, window, sink)
+FLASH_PREFILL = {
+    "granite-moe-1b-a400m causal, heads of 64":
+        (2, 32768, 16, 8, 64, 0, 0),
+    "minitron-8b causal, GQA 4, heads of 128":
+        (2, 32768, 32, 8, 128, 0, 0),
+    "jamba-v0.1-52b sink 128 + window 8192, heads of 128":
+        (2, 32768, 32, 8, 128, 8192, 128),
+}
 SESSION_ARCH = "ardit-self-forcing"
 # phase 13 (iv): playout budgets (x the top-fidelity warm-up chunk) tried
 # in turn until BMPR picks a step-cache level for some chunk
@@ -637,7 +682,93 @@ def phase_flash(record):
             ref.flash_mha_ref(q, k, v, n_kv_heads=hkv, **kw)))
     del q, k, v
     torch.cuda.empty_cache()
+    errs += flash_prefill_shapes(gen, launch)
     record["max_abs_err"] = max(errs)
+
+
+def visible_pairs(S, window, sink):
+    """(query, key) pairs a causal prefill of S tokens computes, with a
+    sliding window and its sink (window 0: plain causal)."""
+    i = np.arange(S, dtype=np.int64)
+    if not window:
+        return int((i + 1).sum())
+    return int((np.minimum(i + 1, window)
+                + np.clip(i - window + 1, 0, sink)).sum())
+
+
+def flash_prefill_shapes(gen, launch):
+    """Phase 3, the token families' prefill attention at full width
+    (``FLASH_PREFILL``): kernel vs plain version, each on the tensor
+    cores; the kernel, one plain call and SDPA timed beside the bound
+    (the visible pairs' operations)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    errs = []
+    for name, (B, S, Hq, Hkv, D, window, sink) in FLASH_PREFILL.items():
+        q, k, v = (torch.randn((B, S, h, D), generator=gen,
+                               device=DEV).to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        kw = dict(n_kv_heads=Hkv, causal=True, window=window, sink=sink,
+                  block_q=512, block_kv=512)
+        out, path = launch(q, k, v, **kw)
+        if path != "wgmma":
+            raise AssertionError(f"{name}: on {path}, not the tensor cores")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ref.flash_mha_ref(q, k, v, **kw)
+        stop.record()
+        sync()
+        plain_ms = start.elapsed_time(stop)
+        errs.append(compare_flash(f"{name} B={B} S={S} ({path})", out,
+                                  want))
+        del want
+        kernel_ms = cuda_ms(lambda: ops.flash_mha(q, k, v, **kw), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            # an explicit boolean mask, the KV heads repeated: the
+            # memory-efficient backend takes both
+            pos = torch.arange(S, device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                (pos[None, :] > pos[:, None] - window)
+                | (pos[None, :] < sink))
+            kt, vt = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kt, vt))
+
+            def library():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        library_ms = cuda_ms(library, 3)
+        lib_err = float((out.float() - library().transpose(1, 2).float())
+                        .abs().max())
+        lib_limit = 8 * ulp_bf16(float(out.float().abs().max()))
+        pairs = visible_pairs(S, window, sink)
+        flops = 4.0 * B * Hq * pairs * D
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  {name}: kernel ({path}) {kernel_ms:.3f} ms, "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; plain (one call) "
+              f"{plain_ms:.1f} ms; SDPA {library_ms:.3f} ms ("
+              f"{'memory-efficient, boolean mask' if window else 'causal'}"
+              f", |d| to the kernel {lib_err:.3g}, limit {lib_limit:.3g});"
+              f" bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e12:.2f} "
+              f"TFLOP over {pairs} visible pairs per head)")
+        if not lib_err <= lib_limit:
+            raise AssertionError(f"{name}: flash kernel disagrees with SDPA"
+                                 f" ({lib_err})")
+        del q, k, v, qt, kt, vt, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return errs
 
 
 def phase_integration():
@@ -1087,6 +1218,31 @@ def phase_ssd(record):
                                           init_state=s0), path),
             ref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
                         Cm.contiguous(), chunk=q_, init_state=s0)))
+    del x, dt, A, Bm, Cm, s0
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b's Mamba sublayers at full width, x/B/C the model's
+    # views of the conv output: (P, N) = (64, 16) on the CUDA cores
+    B, H, P, N = SSM_PREFILL[0], 128, 64, 16
+    x, dt, A, Bm, Cm, _ = ssd_case(gen, B, S, H, P, N, bf16, view=True)
+    name = f"jamba-v0.1-52b B={B} S={S} H={H} P={P} N={N} bf16"
+    errs.append(compare_ssd(f"{name} (cuda_cores)", on_path(
+        name, lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=Q), "cuda_cores"),
+        ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q)))
+    kernel_ms = cuda_ms(lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=Q), 10)
+    plain_ms = cuda_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q), 2)
+    flops = ssd_flops(B, S, H, P, N, Q)
+    nbytes = (2 * B * S * H * P * 2 + dt.numel() * 4 + H * 4
+              + 2 * B * S * N * 2 + B * H * P * N * 4)
+    t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {name}: kernel (cuda_cores) {kernel_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms ("
+          f"{'operations' if t_ops >= t_bytes else 'bytes'}; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), achieved "
+          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
     record["max_abs_err"] = max(errs)
 
 
@@ -1131,9 +1287,6 @@ def phase_ssm(counters):
 
     def greedy(logits):
         return logits[:, :cfg.vocab_size].argmax(-1)[:, None]
-
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
 
     def consistency(label, cfg_, params_, prompt, steps, limit):
         """prefill, ``steps`` greedy decode steps, then a teacher-forced
@@ -1244,6 +1397,257 @@ def phase_ssm(counters):
           f"B={B} decode), {wide_peak / 2**30:.2f} GiB (B={SSM_WIDE_BATCH} "
           f"decode)")
     return counters["ssd"].launches
+
+
+# phase 16: the token families at full width.  Per model: its config
+# replacements (depth cut), the timed prefill (B, S) at the config's own
+# MoE capacity and its decode steps, then the consistency gates: (B,
+# total length, capacity factor or None, param dtype).  A gate prefills
+# the total less GATE_STEPS tokens, decodes GATE_STEPS greedy steps and
+# prefills the whole again, teacher-forced: both prefills are multiples
+# of the attention schedule's 512-token blocks, as ``mha`` requires.
+FAMILY_MODELS = [
+    ("minitron-8b", {}, (2, 32768), 32,
+     [(2, 32768, None, "bfloat16"), (2, 4096, None, "float32")]),
+    ("granite-moe-1b-a400m", {}, (2, 32768), 32,
+     [(2, 32768, 8.0, "bfloat16"), (2, 4096, 8.0, "float32")]),
+    ("internvl2-26b", {}, (1, 8192), 16, [(1, 8192, None, "bfloat16")]),
+    # one period of 8 sublayers of 4 (104 GB in bf16 whole), every width
+    # as published
+    ("jamba-v0.1-52b", {"n_layers": 8}, (2, 32768), 32,
+     [(1, 12288, 8.0, "bfloat16")]),
+]
+GATE_STEPS = 512
+
+
+class FamilyRun:
+    """Phase 16 for one model of ``FAMILY_MODELS``: its config, params,
+    expected launches per prefill and the runs that check them."""
+
+    def __init__(self, arch, cut, counters, totals):
+        from repro_torch.configs.base import get_config
+        from repro_torch.models import hybrid, registry
+
+        self.arch, self.counters, self.totals = arch, counters, totals
+        full = get_config(arch)
+        self.cfg = cfg = dataclasses.replace(full, **cut)
+        self.api = registry.get_api(cfg)
+        if cfg.family == "hybrid":
+            kinds = hybrid.sublayer_kinds(cfg)
+            n_periods = cfg.n_layers // hybrid.period_len(cfg)
+            self.n_attn = n_periods * sum(m == "attn" for m, _ in kinds)
+            self.n_ssd = n_periods * sum(m == "mamba" for m, _ in kinds)
+            print(f"  {arch}: depth cut to {cfg.n_layers} of "
+                  f"{full.n_layers} layers ({n_periods} period: "
+                  f"{self.n_attn} attention, {self.n_ssd} Mamba, "
+                  f"{sum(f == 'moe' for _, f in kinds)} MoE of "
+                  f"{cfg.n_experts} x top {cfg.top_k}, "
+                  f"{sum(f == 'mlp' for _, f in kinds)} MLP sublayers); "
+                  f"every width as published")
+        else:
+            self.n_attn, self.n_ssd = cfg.n_layers, 0
+        t0 = time.perf_counter()
+        self.gen = torch.Generator(device=DEV).manual_seed(0)
+        self.params = self.api.init(cfg, self.gen, DEV)
+        sync()
+        n = sum(t.numel() for t in _leaves(self.params))
+        print(f"  {arch}: {n / 1e9:.3f} B params ({cfg.param_dtype}, "
+              f"{n * 2 / 2**30:.2f} GiB), init "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    def inputs(self, cfg, b, s):
+        """Random tokens and, for a VLM, image embeddings: s positions in
+        all."""
+        n_img = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+        kw = {}
+        if n_img:
+            kw["img_embeds"] = (0.02 * torch.randn(
+                (b, n_img, cfg.d_model), generator=self.gen,
+                device=DEV)).to(self.params["embed"].dtype)
+        return torch.randint(0, cfg.vocab_size, (b, s - n_img),
+                             generator=self.gen, device=DEV), kw
+
+    def prefill(self, label, cfg, tokens, kw, max_len):
+        """One prefill with the launch counts checked: the attention
+        layers' flash launches (on the tensor cores in bf16), the Mamba
+        sublayers' SSD launches (on the CUDA cores), nothing else."""
+        tc = cfg.param_dtype == "bfloat16"
+        reset_counts(self.counters)
+        sync()
+        t0 = time.perf_counter()
+        out = self.api.prefill(cfg, self.params, tokens, max_len=max_len,
+                               **kw)
+        sync()
+        sec = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in self.counters.items()}
+        want = {**{n: 0 for n in self.counters}, "flash_mha": self.n_attn,
+                "ssd": self.n_ssd}
+        tcs = (self.counters["flash_mha"].launches_tc,
+               self.counters["ssd"].launches_tc)
+        if got != want or tcs != (self.n_attn if tc else 0, 0):
+            raise AssertionError(f"{label} prefill: launches {got}, on the "
+                                 f"tensor cores {tcs}; expected {want}")
+        if tc:
+            self.totals["flash_mha"] += self.n_attn
+            self.totals["ssd"] += self.n_ssd
+        if tuple(out[0].shape) != (tokens.shape[0], cfg.padded_vocab) \
+                or not bool(torch.isfinite(out[0]).all()):
+            raise AssertionError(f"{label} prefill: bad logits")
+        return out, sec
+
+    def decode(self, label, cfg, logits, cache, pos, n, trace=None):
+        """``n`` greedy decode steps, no kernel launched; with ``trace``,
+        the routing of the last step's token is recorded there."""
+        reset_counts(self.counters)
+        generated, ms = [], []
+        for i in range(n):
+            tok = logits[:, :cfg.vocab_size].argmax(-1)[:, None]
+            generated.append(tok)
+            if trace is not None and i == n - 1:
+                trace["routes"] = []
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = self.api.decode_step(cfg, self.params, cache,
+                                                 tok, pos)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            pos = pos + 1
+        if any(fn.launches for fn in self.counters.values()):
+            raise AssertionError(f"{label} decode launched a kernel")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{label} decode: non-finite logits")
+        return logits, generated, ms
+
+    def timed(self, B, S, steps):
+        """Prefill B x S at the config's own capacity, then ``steps``
+        greedy decode steps: tokens/s and ms per token."""
+        cfg = self.cfg
+        label = f"{self.arch} {cfg.param_dtype}"
+        tokens, kw = self.inputs(cfg, B, S)
+        (logits, cache, pos), sec = self.prefill(label, cfg, tokens, kw,
+                                                 S + steps)
+        _, _, ms = self.decode(label, cfg, logits, cache, pos, steps)
+        print(f"  {label} prefill B={B} S={S}: {sec:.3f} s "
+              f"({B * S / sec:.0f} tokens/s); decode B={B}: {steps} greedy "
+              f"steps from position {S}, first {ms[0]:.2f} ms, then "
+              f"{sum(ms[1:]) / (steps - 1):.2f} ms per token (step)")
+
+    def gate(self, B, total, cap_factor, dtype, trace):
+        """The last of GATE_STEPS decode steps against a teacher-forced
+        prefill of the same tokens: relative L2 of the logits within
+        TOL_CONSISTENCY (bf16; where the two paths routed the compared
+        token differently, TOL_CONSISTENCY_FLIP and half the gap to
+        another position's logits) or TOL_CONSISTENCY_F32."""
+        cfg = self.cfg
+        if cap_factor is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cap_factor)
+        if dtype != cfg.param_dtype:
+            # the same weights widened: the two paths then differ in fp32
+            # summation order only
+            from repro_torch.models import layers as L
+            cfg = dataclasses.replace(cfg, param_dtype=dtype,
+                                      kv_dtype=dtype)
+            self.params = L.tree_map(lambda t: t.float(), self.params)
+        label = f"{self.arch} {dtype}" + (
+            f" capacity {cap_factor:g}" if cap_factor else "")
+        tokens, kw = self.inputs(cfg, B, total)
+        head = tokens[:, :tokens.shape[1] - GATE_STEPS]
+        (logits, cache, pos), sec_p = self.prefill(label, cfg, head, kw,
+                                                   total)
+        first = logits
+        logits, generated, ms = self.decode(label, cfg, logits, cache, pos,
+                                            GATE_STEPS, trace)
+        routes, trace["routes"] = trace["routes"], []
+        del cache
+        (tf, _, _), sec = self.prefill(f"{label} teacher-forced", cfg,
+                                       torch.cat([head] + generated, 1), kw,
+                                       None)
+        tf_routes, trace["routes"] = trace["routes"], None
+        flips = [j for j, (a, b) in enumerate(zip(routes, tf_routes))
+                 if not torch.equal(a, b)]
+        other = rel(first, tf)
+        if dtype != "bfloat16":
+            limit = TOL_CONSISTENCY_F32
+        elif flips:
+            limit = max(TOL_CONSISTENCY,
+                        min(TOL_CONSISTENCY_FLIP, other / 2))
+        else:
+            limit = TOL_CONSISTENCY
+        gap = rel(logits, tf)
+        agree = float((logits.argmax(-1) == tf.argmax(-1)).float().mean())
+        flip_note = (f"; the compared token routed differently in MoE "
+                     f"sublayer(s) {flips} of {len(routes)}" if flips else
+                     (f"; the same experts in all {len(routes)} MoE "
+                      f"sublayers" if routes else ""))
+        print(f"  {label} gate B={B}: prefill {total - GATE_STEPS} "
+              f"({sec_p:.3f} s), {GATE_STEPS} greedy steps "
+              f"({sum(ms) / len(ms):.2f} ms per token), teacher-forced "
+              f"prefill {total} ({sec:.3f} s, {B * total / sec:.0f} "
+              f"tokens/s): last decode logits vs it: relative L2 {gap:.4g} "
+              f"(limit {limit:g}){flip_note}, greedy token agrees for "
+              f"{agree:.0%} of rows; another position's logits vs it: "
+              f"relative L2 {other:.4g}")
+        if not gap <= limit:
+            raise AssertionError(f"{label}: prefill/decode gap {gap}")
+
+
+def rel(a, b):
+    """Relative L2 distance of ``a`` from ``b``."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_families(counters):
+    """Phase 16: ``FAMILY_MODELS`` at full width through the registry
+    API, random weights from a seed (see ``FamilyRun``): flash launches =
+    the attention layers per prefill, all on the tensor cores in bf16
+    and on the CUDA cores in fp32; ssd_scan launches = the Mamba
+    sublayers per prefill, on the CUDA cores ((P, N) = (64, 16));
+    nothing from decode.  Returns the flash and ssd launches of the bf16
+    prefills."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import layers as L
+
+    totals = {"flash_mha": 0, "ssd": 0}
+    # while a list: the experts each MoE sublayer routes the last token to
+    trace = {"routes": None}
+    route = L.moe_route
+
+    def traced_route(cfg, p, x):
+        out = route(cfg, p, x)
+        if trace["routes"] is not None:
+            trace["routes"].append(out[1][:, -1].sort(-1).values)
+        return out
+
+    L.moe_route = traced_route
+    try:
+        for arch, cut, (B, S), steps, gates in FAMILY_MODELS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = FamilyRun(arch, cut, counters, totals)
+            run.timed(B, S, steps)
+            for gate in gates:
+                run.gate(*gate, trace)
+            cfg = run.cfg
+            ssd_path = ssd_ops.kernel_path(
+                torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state) \
+                if run.n_ssd else "none"
+            print(f"  {arch}: peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"flash launches {run.n_attn} per prefill ("
+                  f"{flash_ops.kernel_path(torch.bfloat16, cfg.head_dim)} "
+                  f"in bf16), ssd_scan {run.n_ssd} per prefill "
+                  f"({ssd_path}), none from decode")
+            del run
+    finally:
+        L.moe_route = route
+    print(f"  phase 16: {totals['flash_mha']} flash launches in the bf16 "
+          f"prefills, all on the tensor cores; {totals['ssd']} ssd_scan "
+          f"launches, on the CUDA cores")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def same_or_ulp(name, got, want):
@@ -2428,6 +2832,11 @@ def main():
     phase_decode(decode, counters)
     print("== phase 12: fp8 matmul kernel vs plain version")
     phase_fp8(fp8, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== phase 16: full-width token families (dense, MoE, VLM, hybrid)"
+          " prefill and decode")
+    phase_families({**counters, "ssd": ssd_ops.ssd})
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s, build included")

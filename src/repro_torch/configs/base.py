@@ -196,11 +196,27 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     # Import every per-arch module for its registration side effect.
-    # The port serves the paper's own AR-DiT family and the Mamba-2
-    # (SSD) family; minitron-8b is registered for its attention shapes
-    # (the decode and fp8 kernels' phases), and the other registry
-    # families wait for their slice (ROADMAP).
     from repro_torch.configs import (  # noqa: F401
-        ardit_self_forcing, ardit_causal_forcing, mamba2_780m, minitron_8b,
+        qwen1_5_32b, minitron_8b, minicpm_2b, internlm2_20b,
+        granite_moe_1b_a400m, qwen3_moe_235b_a22b, internvl2_26b,
+        jamba_v0_1_52b, mamba2_780m, whisper_medium,
+        ardit_self_forcing, ardit_causal_forcing,
     )
     _LOADED = True
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count: the registry's ``init`` on torch's
+    ``meta`` device (shapes and dtypes only, nothing drawn or
+    allocated), summed."""
+    from repro_torch.models import registry as model_registry
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        else:
+            yield tree
+
+    params = model_registry.get_api(cfg).init(cfg, None, device="meta")
+    return sum(t.numel() for t in leaves(params))

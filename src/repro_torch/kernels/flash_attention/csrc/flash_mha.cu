@@ -25,8 +25,8 @@
 //
 // Two kernels; the wrapper picks one by dtype and head dim.
 //
-// bf16 at D = 96 or 128 (every full-width model): flash_mha_wgmma, on the
-// tensor cores.  A block owns 128 queries of one (b, head): a producer
+// bf16 at D = 64, 96 or 128 (every full-width model): flash_mha_wgmma, on
+// the tensor cores.  A block owns 128 queries of one (b, head): a producer
 // warpgroup, of which one thread issues TMA, and two consumer warpgroups
 // of 64 query rows each (setmaxnreg moves the producer's registers to
 // them).  Q arrives once by TMA and stays in shared memory as wgmma's A
@@ -34,8 +34,9 @@
 // by mbarriers (full: TMA bytes landed; empty: all 8 consumer warps are
 // done with the stage).  Rows are loaded through 4-D tensor maps
 // [B, S, H, D] in place, in boxes of 64 head-dim columns with the
-// 128-byte swizzle: D = 128 is two boxes; D = 96 too, the second box's
-// last 32 columns lying outside the tensor and read as zeros.  TMA
+// 128-byte swizzle: D = 64 is one box; D = 128 is two; D = 96 too, the
+// second box's last 32 columns lying outside the tensor and read as
+// zeros.  TMA
 // writes zeros past Sq and Skv as well.  S = Q K^T is an m64n128k16 bf16
 // wgmma chain into fp32 registers (K stored [keys, D] is already the
 // K-major B operand); masks and the online softmax work in the
@@ -347,7 +348,8 @@ constexpr int BN = 128;          // keys per ring stage
 constexpr int STAGES = 3;
 constexpr int THREADS = 384;     // producer warpgroup + 2 consumers
 constexpr int ROW = 128;         // bytes of one swizzled box row: 64 bf16
-constexpr int Q_BYTES = BM * 2 * ROW;    // two 64-column boxes
+// room for two 64-column boxes (D 96 / 128); D 64 fills the first
+constexpr int Q_BYTES = BM * 2 * ROW;
 constexpr int KV_BYTES = BN * 2 * ROW;   // K (or V) of one stage
 constexpr int STAGE_BYTES = 2 * KV_BYTES;
 // 1024 bytes of slack to align the tiles, the barriers and tile starts
@@ -390,8 +392,10 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 2],
     const uint64_t desc = desc_sw128(sv + t * 16 * ROW, BN * ROW, 1024);
     if constexpr (D == 128)
       wgmma_m64n128k16_rs_bf16_tb(o, pa[t], desc, 1);
-    else
+    else if constexpr (D == 96)
       wgmma_m64n96k16_rs_bf16_tb(o, pa[t], desc, 1);
+    else
+      wgmma_m64n64k16_rs_bf16_tb(o, pa[t], desc, 1);
   }
   wgmma_commit();
 }
@@ -609,9 +613,10 @@ flash_mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       tma_prefetch(&tq);
       tma_prefetch(&tk);
       tma_prefetch(&tv);
-      mbar_arrive_expect_tx(qbar, Q_BYTES);
+      constexpr int NB = (D + 63) / 64;   // 64-column boxes of a row
+      mbar_arrive_expect_tx(qbar, BM * NB * ROW);
       tma_load_4d(sq, &tq, qbar, 0, h, i0, b);
-      tma_load_4d(sq + BM * ROW, &tq, qbar, 64, h, i0, b);
+      if (NB == 2) tma_load_4d(sq + BM * ROW, &tq, qbar, 64, h, i0, b);
       const int i_last = min(i0 + BM, p.Sq) - 1;
       int kv_end = p.Skv;
       if (p.causal) kv_end = min(kv_end, p.q_offset + i_last + 1);
@@ -624,11 +629,13 @@ flash_mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         uint8_t* sk = skv + stage * STAGE_BYTES;
         uint8_t* sv = sk + KV_BYTES;
         tile_t0[stage] = t0;
-        mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+        mbar_arrive_expect_tx(&full[stage], 2 * BN * NB * ROW);
         tma_load_4d(sk, &tk, &full[stage], 0, hk, t0, b);
-        tma_load_4d(sk + BN * ROW, &tk, &full[stage], 64, hk, t0, b);
         tma_load_4d(sv, &tv, &full[stage], 0, hk, t0, b);
-        tma_load_4d(sv + BN * ROW, &tv, &full[stage], 64, hk, t0, b);
+        if (NB == 2) {
+          tma_load_4d(sk + BN * ROW, &tk, &full[stage], 64, hk, t0, b);
+          tma_load_4d(sv + BN * ROW, &tv, &full[stage], 64, hk, t0, b);
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -707,13 +714,14 @@ extern "C" int flash_mha_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_t<16>(q, k, v, kp, out, B, p, dtype, s);
+    case 64: return launch_t<64>(q, k, v, kp, out, B, p, dtype, s);
     case 96: return launch_t<96>(q, k, v, kp, out, B, p, dtype, s);
     case 128: return launch_t<128>(q, k, v, kp, out, B, p, dtype, s);
   }
   return -1;
 }
 
-// The tensor-core kernel: bf16 q, k, v and out, D = 96 or 128, the
+// The tensor-core kernel: bf16 q, k, v and out, D = 64, 96 or 128, the
 // arguments of flash_mha_launch (dtype must be 1).  q, k and v must be
 // 16-byte aligned.  Returns as flash_mha_launch, or -4 when a tensor map
 // cannot be encoded (alignment, or a driver without the entry point).
@@ -732,6 +740,7 @@ extern "C" int flash_mha_wgmma_launch(
   const int32_t* kp = static_cast<const int32_t*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64: return tc::launch<64>(q, k, v, kp, out, B, p, s);
     case 96: return tc::launch<96>(q, k, v, kp, out, B, p, s);
     case 128: return tc::launch<128>(q, k, v, kp, out, B, p, s);
   }
@@ -740,8 +749,8 @@ extern "C" int flash_mha_wgmma_launch(
 
 extern "C" const char* flash_mha_error_string(int code) {
   switch (code) {
-    case -1: return "unsupported head dim (16, 96 or 128; 96 or 128 on the "
-                    "tensor cores)";
+    case -1: return "unsupported head dim (16, 64, 96 or 128; 64, 96 or 128 "
+                    "on the tensor cores)";
     case -2: return "unsupported dtype (float32 or bfloat16; bfloat16 on "
                     "the tensor cores)";
     case -3: return "unsupported shape (heads, batch or keep blocks)";

@@ -5,8 +5,8 @@ A CPU tensor takes the plain PyTorch version (``ref.flash_mha_ref``,
 the plain ``mha`` body); a CUDA tensor launches a hand-written CUDA
 kernel of ``csrc/flash_mha.cu`` (built with nvcc at first use) or
 raises.  There is no fallback between the two.  ``kernel_path`` picks
-the kernel from the dtype and head dim alone: bf16 at D 96 or 128 runs
-on the tensor cores (wgmma fed by TMA), everything else on the CUDA
+the kernel from the dtype and head dim alone: bf16 at D 64, 96 or 128
+runs on the tensor cores (wgmma fed by TMA), everything else on the CUDA
 cores.  ``flash_mha.launches`` counts kernel launches and
 ``flash_mha.launches_tc`` the tensor-core ones among them.
 
@@ -32,16 +32,16 @@ from repro_torch.kernels.flash_attention import ref as _ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the configs' head dims: reduced 16, ardit-causal-forcing 96,
-# ardit-self-forcing 128
-_HEAD_DIMS = (16, 96, 128)
+# the configs' head dims: reduced 16; granite-moe, qwen3-moe, minicpm and
+# whisper-medium 64; ardit-causal-forcing 96; the rest 128
+_HEAD_DIMS = (16, 64, 96, 128)
 # the head dims of the tensor-core kernel (every full-width model)
-WGMMA_HEAD_DIMS = (96, 128)
+WGMMA_HEAD_DIMS = (64, 96, 128)
 
 
 def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that takes q/k/v of ``dtype`` at ``head_dim``:
-    ``"wgmma"`` for bf16 at D 96 or 128 (tensor cores, P rounded to bf16
+    ``"wgmma"`` for bf16 at D 64, 96 or 128 (tensor cores, P rounded to bf16
     before P V as in SDPA), else ``"cuda_cores"`` (fp32 FMAs: fp32 inputs
     keep their 1e-4 agreement with the CPU, which TF32 would not; bf16
     at D 16 occurs only in tests)."""

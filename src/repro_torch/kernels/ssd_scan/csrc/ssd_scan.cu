@@ -22,8 +22,9 @@
 //     block per (b, chunk, group of 6 heads), one C B^T per block shared
 //     by its heads, every product on wgmma, the state chained across
 //     chunks through L2 (no round trip of the chunk states);
-//   * the CUDA-core kernels (fp32, and the reduced config's (16, 16)),
-//     the SSD's three-pass form launched by one call:
+//   * the CUDA-core kernels (fp32, jamba-v0.1-52b's (64, 16) and the
+//     reduced configs' (16, 16)), the SSD's three-pass form launched by
+//     one call:
 //     1. chunk_state, grid (NC, H, B): cs, the chunk's own state
 //        contribution (B o dt o exp(cs_last - cs))^T X [P,N] and its decay
 //        exp(cs_last), written to fp32 scratch [B,H,NC,P,N] / [B,H,NC];
@@ -876,6 +877,7 @@ extern "C" int ssd_scan_launch(
          x_bs, x_ts, b_bs, b_ts, c_bs, c_ts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P == 64 && N == 128) return launch_t<64, 128>(a, dtype, s);
+  if (P == 64 && N == 16) return launch_t<64, 16>(a, dtype, s);
   if (P == 16 && N == 16) return launch_t<16, 16>(a, dtype, s);
   return -1;
 }
@@ -916,7 +918,7 @@ extern "C" int ssd_scan_wgmma_launch(
 
 extern "C" const char* ssd_scan_error_string(int code) {
   switch (code) {
-    case -1: return "unsupported (P, N): (64, 128) or (16, 16)";
+    case -1: return "unsupported (P, N): (64, 128), (64, 16) or (16, 16)";
     case -2: return "unsupported dtype (float32 or bfloat16)";
     case -3: return "unsupported shape (chunk length 1-128, B * H <= 65535)";
     case -4: return "tensor map encoding failed (alignment of the views' "

@@ -7,7 +7,8 @@ two.  ``kernel_path`` picks the kernel from the dtype, (P, N) and the
 views' alignment alone: bf16 x/B/C at mamba2-780m's (64, 128) with
 16-byte aligned views run on the tensor cores (``"wgmma"``: one C B^T
 per chunk shared by a group of heads, the state chained across chunks
-through L2), the rest on the CUDA cores (``"cuda_cores"``: three passes).
+through L2), the rest on the CUDA cores (``"cuda_cores"``: three passes;
+jamba-v0.1-52b's (64, 16) among them).
 ``ssd.launches`` counts kernel launches, one per call on the card, so
 one per layer per ``prefill`` / ``forward``; ``ssd.launches_tc`` those on
 the tensor cores.  The one-token ``ssd_decode`` is the plain
@@ -27,8 +28,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (head dim P, state N) pairs the kernel instantiates: mamba2-780m
-# (64, 128) and its reduced config (16, 16)
-_SHAPES = ((64, 128), (16, 16))
+# (64, 128), jamba-v0.1-52b (64, 16) and the reduced configs (16, 16)
+_SHAPES = ((64, 128), (64, 16), (16, 16))
 _MAX_CHUNK = 128
 # the tensor-core kernel's (P, N)
 WGMMA_SHAPE = (64, 128)
@@ -40,8 +41,8 @@ def kernel_path(dtype: torch.dtype, head_dim: int, state_dim: int,
     (``head_dim``, ``state_dim``): ``"wgmma"`` for bf16 at (64, 128)
     whose views TMA can read (``aligned``: bases 16-byte aligned, batch
     and token strides multiples of 8 elements), else ``"cuda_cores"``
-    (fp32 keeps its 1e-4 agreement with the CPU; (16, 16) is the reduced
-    config's)."""
+    (fp32 keeps its 1e-4 agreement with the CPU; (64, 16) is Jamba's and
+    (16, 16) the reduced configs')."""
     if dtype == torch.bfloat16 and (head_dim, state_dim) == WGMMA_SHAPE \
             and aligned:
         return "wgmma"

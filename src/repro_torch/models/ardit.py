@@ -80,44 +80,44 @@ def cache_capacity(cfg: ModelConfig) -> int:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def _init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
+                device="cpu") -> Params:
     d = cfg.d_model
     return {
-        "attn": L.init_attn(cfg, gen, dtype),
-        "mlp": L.init_mlp(cfg, gen, dtype),
+        "attn": L.init_attn(cfg, gen, dtype, device),
+        "mlp": L.init_mlp(cfg, gen, dtype, device),
         # adaLN-zero: 6 modulation vectors per layer
-        "mod": torch.zeros((d, 6 * d), dtype=dtype),
-        "mod_b": torch.zeros((6 * d,), dtype=dtype),
+        "mod": torch.zeros((d, 6 * d), dtype=dtype, device=device),
+        "mod_b": torch.zeros((6 * d,), dtype=dtype, device=device),
     }
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Fresh parameters: the reference's shapes and scales
-    (``layers.dense_init``), adaLN gates zero.  Values are drawn on the
-    CPU from ``generator`` — so they do not depend on the device — one
-    layer at a time, then moved to ``device``.  Layer params keep the
-    stacked ``[L, ...]`` layout."""
+    (``layers.dense_init``), adaLN gates zero.  Values are drawn from
+    ``generator`` on its own device — so they do not depend on the
+    target device — one layer at a time into the stacked ``[L, ...]``
+    layout.  On ``"meta"`` nothing is drawn (``generator`` may be
+    None)."""
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.d_model
 
-    def dev(t):
-        return t.to(device)
+    def dense(shape, **kw):
+        return L.dense_init(generator, shape, dtype, device=device, **kw)
 
-    p = {
-        "in_proj": dev(L.dense_init(generator, (LATENT_CH, d), dtype)),
-        "cond_proj": dev(L.dense_init(generator, (d, d), dtype)),
-        "t_mlp1": dev(L.dense_init(generator, (256, d), dtype)),
-        "t_mlp2": dev(L.dense_init(generator, (d, d), dtype)),
+    return {
+        "in_proj": dense((LATENT_CH, d)),
+        "cond_proj": dense((d, d)),
+        "t_mlp1": dense((256, d)),
+        "t_mlp2": dense((d, d)),
+        "layers": L.init_stacked(
+            cfg.n_layers,
+            lambda: _init_layer(cfg, generator, dtype, device)),
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+        "final_mod": torch.zeros((d, 2 * d), dtype=dtype, device=device),
+        "out_proj": dense((d, LATENT_CH), scale=0.02),
     }
-    layers = [L.tree_map(dev, _init_layer(cfg, generator, dtype))
-              for _ in range(cfg.n_layers)]
-    p["layers"] = L.stack_trees(layers)
-    p["final_norm"] = dev(torch.ones((d,), dtype=dtype))
-    p["final_mod"] = dev(torch.zeros((d, 2 * d), dtype=dtype))
-    p["out_proj"] = dev(L.dense_init(generator, (d, LATENT_CH), dtype,
-                                     scale=0.02))
-    return p
 
 
 def open_gates(p: Params, generator: torch.Generator) -> Params:

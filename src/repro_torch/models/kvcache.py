@@ -1,4 +1,11 @@
-"""Paged sink + ring KV cache helpers (paper SS2.1 "sink+local").
+"""Sink + ring KV cache helpers (paper SS2.1 "sink+local").
+
+Token caches (the registry's transformer and hybrid families): slots
+[0, sink) hold the attention sink and slots [sink, cap) are a ring over
+the sliding window (``capacity``, ``ring_dest``, ``write_token``,
+``n_valid``, ``place_prefill``).  When ``cap >= seq_len`` the ring
+degenerates to a plain linear cache (dest == pos), so the same code
+serves the full cache and the windowed one.
 
 The page-granular pool (``serve/batcher.py::KVPool``) keeps KV as
 [L, n_pages, page_tokens, Hkv, Dh] and each stream owns a page *table*:
@@ -27,6 +34,68 @@ def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
     in the reference."""
     bad = ~(x.abs() <= FP8_E4M3_NAN_ABOVE)
     return torch.where(bad, torch.nan, x).to(torch.float8_e4m3fn)
+
+
+def capacity(seq_len: int, window: int, sink: int) -> int:
+    """Cache capacity in tokens for a stream of ``seq_len``."""
+    if window:
+        return min(seq_len, sink + window)
+    return seq_len
+
+
+def ring_dest(pos: torch.Tensor, cap: int, sink: int) -> torch.Tensor:
+    """Write slot for absolute position ``pos`` [B] (int32)."""
+    ring = cap - sink
+    wrapped = sink + (pos - sink) % max(ring, 1)
+    return torch.where(pos < cap, torch.clamp(pos, max=cap - 1),
+                       wrapped).to(torch.int32)
+
+
+def write_token(cache: torch.Tensor, new: torch.Tensor,
+                dest: torch.Tensor) -> torch.Tensor:
+    """cache [B,cap,H,D]; new [B,1,H,D]; dest [B] -> the cache, written
+    IN PLACE and returned (the reference returns an updated copy; a copy
+    of a full-width cache per token would dominate decode).  A ``dest``
+    past the end writes the last slot, as the reference's
+    ``dynamic_update_slice`` clamps its start; the cast is the
+    reference's (``to_fp8_e4m3`` into an e4m3 cache)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    dest = torch.clamp(dest.long(), 0, cache.shape[1] - 1)
+    new = new[:, 0]
+    if cache.dtype == torch.float8_e4m3fn and new.dtype != cache.dtype:
+        new = to_fp8_e4m3(new)
+    cache[rows, dest] = new.to(cache.dtype)
+    return cache
+
+
+def n_valid(pos: torch.Tensor, cap: int) -> torch.Tensor:
+    """Number of resident (valid) cache entries after writing ``pos``."""
+    return torch.clamp(pos + 1, max=cap)
+
+
+def place_prefill(k: torch.Tensor, cap: int, sink: int,
+                  window: int) -> torch.Tensor:
+    """[B,S,H,D] -> [B,cap,H,D]: full copy if it fits, else sink+ring gather.
+
+    Ring slot r holds the LAST token t < S with (t - sink) % ring == r.
+    Gather (not scatter) so duplicate ring slots resolve deterministically.
+    """
+    b, s = k.shape[:2]
+    if cap >= s:
+        return torch.nn.functional.pad(k, (0, 0) * (k.ndim - 2)
+                                       + (0, cap - s))
+    assert window > 0, (
+        f"cache capacity {cap} < sequence {s} without a sliding window "
+        f"— caller must size max_len to the full prefill length")
+    ring = cap - sink
+    slots = torch.arange(cap, device=k.device)
+    r = slots - sink
+    ring_tok = sink + r + ((s - 1 - sink - r) // ring) * ring
+    tok_idx = torch.where(slots < sink, slots, ring_tok)
+    valid = (tok_idx >= 0) & (tok_idx < s)
+    out = k[:, torch.clamp(tok_idx, 0, s - 1)]
+    shape = (1, cap) + (1,) * (k.ndim - 2)
+    return out * valid.reshape(shape).to(k.dtype)
 
 
 def chunk_slot(chunk_idx, window_chunks: int, sink: int,
@@ -88,7 +157,7 @@ def mask_to_pages(mask: np.ndarray, n_ring: int, sink: int,
     return out
 
 
-def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+def write_cast(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)`` with the reference's cast: an e4m3 destination
     takes ``to_fp8_e4m3(src)``."""
     if dst.dtype == torch.float8_e4m3fn and src.dtype != dst.dtype:
@@ -110,7 +179,7 @@ def pool_write_pages(pool: torch.Tensor, new: torch.Tensor,
     fp8-rounded block lands back in a bf16 pool)."""
     t = new.shape[2]
     for i, pg in enumerate(pages):
-        _write(pool[:, int(pg), :t], new[:, i])
+        write_cast(pool[:, int(pg), :t], new[:, i])
 
 
 def pool_write_pages_heads(pool: torch.Tensor, new: torch.Tensor,
@@ -125,5 +194,5 @@ def pool_write_pages_heads(pool: torch.Tensor, new: torch.Tensor,
     appends touch only that half.  Cast as in ``pool_write_pages``."""
     t, hs = new.shape[2], new.shape[3]
     for i, pg in enumerate(pages):
-        _write(pool[:, int(pg), :t, head_offset:head_offset + hs],
+        write_cast(pool[:, int(pg), :t, head_offset:head_offset + hs],
                new[:, i])

@@ -1,9 +1,12 @@
-"""Shared layer substrate (dense subset): param-tree helpers, norms,
-RoPE, attention projections, MLP.
+"""Shared layer substrate: param-tree helpers, norms, RoPE, the
+attention block, MLP and MoE (forward).
 
 Params are nested dicts of tensors; every apply fn takes the config +
 params explicitly, like the JAX reference.  Stacked-layer params keep
-their leading ``[L, ...]`` axis and the model code loops over it.
+their leading ``[L, ...]`` axis and the model code loops over it.  The
+init helpers take the target ``device``; on ``"meta"`` they draw
+nothing and return meta tensors of the same shapes and dtypes
+(``configs.base.param_count``, ``registry.param_specs``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import mha
 
 Params = Dict[str, Any]
 
@@ -31,11 +35,24 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def stack_trees(trees):
-    """Per-layer trees -> one tree of stacked ``[L, ...]`` tensors."""
-    if isinstance(trees[0], dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def init_stacked(n: int, make) -> Params:
+    """``n`` trees from ``make()`` stacked into ``[n, ...]`` tensors,
+    copied in one tree at a time into tensors allocated once (the peak
+    is the stack plus one tree, not twice the stack)."""
+    def copy_into(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                copy_into(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    first = make()
+    if n == 1:                     # a view: nothing allocated twice
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        copy_into(out, first if i == 0 else make(), i)
+    return out
 
 
 def layer_params(p: Params, i: int) -> Params:
@@ -47,14 +64,24 @@ def layer_params(p: Params, i: int) -> Params:
 # init helpers
 # ---------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape, dtype,
-               scale: Optional[float] = None) -> torch.Tensor:
-    """Normal init scaled by 1/sqrt(fan_in), drawn in float32 on the
-    CPU from ``gen`` (values do not depend on the target device)."""
+def is_meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
+def dense_init(gen: Optional[torch.Generator], shape, dtype,
+               scale: Optional[float] = None,
+               device="cpu") -> torch.Tensor:
+    """Normal init scaled by 1/sqrt(fan_in), drawn in float32 from
+    ``gen`` on the generator's own device (so the values do not depend
+    on the target device), cast to ``dtype`` and moved to ``device``.
+    On ``device="meta"`` nothing is drawn and ``gen`` may be None."""
+    if is_meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * scale).to(dtype)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * scale).to(dtype).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -92,18 +119,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # attention projections
 # ---------------------------------------------------------------------------
 
-def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def init_attn(cfg: ModelConfig, gen: torch.Generator, dtype,
+              device="cpu") -> Params:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, (d, hq * dh), dtype),
-        "wk": dense_init(gen, (d, hkv * dh), dtype),
-        "wv": dense_init(gen, (d, hkv * dh), dtype),
-        "wo": dense_init(gen, (hq * dh, d), dtype),
+        "wq": dense_init(gen, (d, hq * dh), dtype, device=device),
+        "wk": dense_init(gen, (d, hkv * dh), dtype, device=device),
+        "wv": dense_init(gen, (d, hkv * dh), dtype, device=device),
+        "wo": dense_init(gen, (hq * dh, d), dtype, device=device),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((hq * dh,), dtype=dtype)
-        p["bk"] = torch.zeros((hkv * dh,), dtype=dtype)
-        p["bv"] = torch.zeros((hkv * dh,), dtype=dtype)
+        for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
     return p
 
 
@@ -122,22 +149,42 @@ def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = q.reshape(b, s, hq, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
+    # all three are contiguous (RoPE writes fresh tensors, v is a view of
+    # a fresh product), as the flash kernel's wrapper requires: no copy
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
+
+
+def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+               positions: torch.Tensor, q_offset: int = 0,
+               window: int = 0, sink: int = 0, sparsity: float = 0.0,
+               kv_override=None, causal: bool = True,
+               block_q: int = 512, block_kv: int = 512) -> torch.Tensor:
+    """Self-attention (or cross-attention via kv_override=(k,v)) through
+    ``attention.mha``: the flash kernel on the card."""
+    b, s, _ = x.shape
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    if kv_override is not None:
+        k, v = kv_override
+    o = mha(q, k, v, n_kv_heads=cfg.n_kv_heads, causal=causal,
+            q_offset=q_offset, window=window, sink=sink, sparsity=sparsity,
+            block_q=block_q, block_kv=block_kv)
+    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
 # dense MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype,
+             device="cpu") -> Params:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "swiglu":
-        return {"w_gate": dense_init(gen, (d, f), dtype),
-                "w_up": dense_init(gen, (d, f), dtype),
-                "w_down": dense_init(gen, (f, d), dtype)}
-    return {"wi": dense_init(gen, (d, f), dtype),
-            "wo": dense_init(gen, (f, d), dtype)}
+        return {"w_gate": dense_init(gen, (d, f), dtype, device=device),
+                "w_up": dense_init(gen, (d, f), dtype, device=device),
+                "w_down": dense_init(gen, (f, d), dtype, device=device)}
+    return {"wi": dense_init(gen, (d, f), dtype, device=device),
+            "wo": dense_init(gen, (f, d), dtype, device=device)}
 
 
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -147,3 +194,141 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: token-choice top-k with per-sequence capacity (forward)
+# ---------------------------------------------------------------------------
+#
+# The reference dispatches with a scatter-add into the expert slots and
+# combines with a scatter-add back to tokens (``_slot_scatter_to_tokens``,
+# which also serves its dispatch's custom backward).  Here the dispatch
+# gathers each slot's token through the slot map (``_slot_maps``: a pure
+# copy, bit-identical to the reference's ``x * 1`` adds), and the combine
+# gathers each token's k assignments and adds them one at a time in
+# ascending expert order -- the order in which the reference's scatter
+# adds a token's slots -- so neither uses atomics and both are
+# deterministic on the card.  The scatter form waits for training.
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype,
+             device="cpu") -> Params:
+    d, fe, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    return {
+        # the router stays fp32 in every model dtype, as in the reference
+        "router": dense_init(gen, (d, e), torch.float32, device=device),
+        "we_gate": dense_init(gen, (e, d, fe), dtype, device=device),
+        "we_up": dense_init(gen, (e, d, fe), dtype, device=device),
+        "we_down": dense_init(gen, (e, fe, d), dtype, device=device),
+    }
+
+
+def moe_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    return max(1, int(math.ceil(
+        tokens_per_group * cfg.top_k / cfg.n_experts * cfg.capacity_factor)))
+
+
+def moe_route(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """Router of ``moe_block``.  x [B,S,D] -> (probs [B,S,E] fp32, top-k
+    experts [B,S,k], their renormalised gates [B,S,k] fp32, slot [B,S*k]
+    of each assignment in its expert's queue).  Assignments are numbered
+    token-major (``s * k + j``) and an expert's slots are handed out in
+    that order (``cumsum(one_hot) - 1``), so the capacity drops are the
+    reference's."""
+    e, k = cfg.n_experts, cfg.top_k
+    b, s, _ = x.shape
+    logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    a_e = idx.reshape(b, s * k)
+    # the one-hot laid out [B,E,S*k], so the cumsum runs along the
+    # innermost axis (along a middle one it is a slow strided scan)
+    oh = (a_e[:, None, :] == torch.arange(e, device=x.device)[None, :, None])
+    slot = torch.gather(torch.cumsum(oh, dim=2, dtype=torch.int32) - 1, 1,
+                        a_e[:, None, :])
+    return probs, idx, gate_vals, slot[:, 0]
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Boolean one-hot of ``idx`` over ``n`` classes (``F.one_hot``
+    validates its indices on the host, a device sync per call)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
+def _slot_maps(e: int, cap: int, s: int, a_e: torch.Tensor,
+               slot: torch.Tensor, k: int) -> torch.Tensor:
+    """Token of each (e, c) slot, [B,E,cap] (``s`` where the slot is
+    empty).  Assignments past capacity go to a spare column ``cap`` that
+    is sliced off (the reference's ``mode="drop"``); only that column
+    takes more than one write."""
+    b = a_e.shape[0]
+    tok_of = torch.full((b, e, cap + 1), s, dtype=torch.long,
+                        device=a_e.device)
+    a_t = torch.arange(s * k, device=a_e.device) // k         # token of asgn
+    rows = torch.arange(b, device=a_e.device)[:, None]
+    tok_of[rows, a_e, torch.clamp(slot, max=cap)] = a_t.expand(b, -1)
+    return tok_of[..., :cap]
+
+
+def _moe_dispatch(x: torch.Tensor, tok_of: torch.Tensor) -> torch.Tensor:
+    """Token -> slot dispatch [B,S,D] -> [B,E,cap,D]: each slot's token
+    row, zeros in empty slots."""
+    b = x.shape[0]
+    x_pad = torch.cat([x, x.new_zeros((b, 1, x.shape[2]))], dim=1)
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    return x_pad[rows, tok_of]
+
+
+def _moe_combine(out_buf: torch.Tensor, a_e: torch.Tensor,
+                 slot: torch.Tensor, gates: torch.Tensor, cap: int,
+                 k: int) -> torch.Tensor:
+    """Slot -> token combine [B,E,cap,D] -> [B,S,D]: the sum over each
+    token's kept assignments of its expert's output times its gate,
+    added one at a time in ascending expert order in ``out_buf``'s dtype
+    (the reference's scatter-add order).  Dropped assignments add a
+    zero row."""
+    b, e, _, d = out_buf.shape
+    s = a_e.shape[1] // k
+    kept = slot < cap
+    flat = torch.where(kept, a_e * cap + slot, e * cap).view(b, s, k)
+    w = torch.where(kept, gates.reshape(b, s * k), 0.0).view(b, s, k)
+    order = torch.argsort(a_e.view(b, s, k), dim=-1)
+    flat = torch.gather(flat, 2, order)
+    w = torch.gather(w, 2, order).to(out_buf.dtype)
+    src = torch.cat([out_buf.reshape(b, e * cap, d),
+                     out_buf.new_zeros((b, 1, d))], dim=1)
+    rows = torch.arange(b, device=out_buf.device)[:, None]
+    y = src[rows, flat[..., 0]] * w[..., 0, None]
+    for j in range(1, k):
+        y = y + src[rows, flat[..., j]] * w[..., j, None]
+    return y
+
+
+def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Token-choice top-k MoE with per-sequence grouping.
+
+    x: [B,S,D] -> [B,S,D]; the Switch-style load-balancing aux loss is
+    kept in ``moe_block.last_aux``, as in the reference (serving ignores
+    it)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(s, cfg)
+    probs, idx, gate_vals, slot = moe_route(cfg, p, x)
+    me = torch.mean(probs, dim=(0, 1))                         # [E]
+    ce = torch.mean(_one_hot(idx, e).float(), dim=(0, 1, 2))
+    moe_block.last_aux = e * torch.sum(me * ce)
+
+    a_e = idx.reshape(b, s * k)
+    buf = _moe_dispatch(x, _slot_maps(e, cap, s, a_e, slot, k))
+    hg = torch.einsum("becd,edf->becf", buf, p["we_gate"])
+    hu = torch.einsum("becd,edf->becf", buf, p["we_up"])
+    out_buf = torch.einsum("becf,efd->becd", F.silu(hg) * hu, p["we_down"])
+    return _moe_combine(out_buf, a_e, slot, gate_vals, cap, k)
+
+
+moe_block.last_aux = 0.0
+
+
+def ffn_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              use_moe: bool) -> torch.Tensor:
+    return moe_block(cfg, p, x) if use_moe else mlp_block(cfg, p, x)

@@ -39,30 +39,37 @@ def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 # block
 # ---------------------------------------------------------------------------
 
-def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype,
+               device="cpu") -> Params:
     d = cfg.d_model
     di, h, hd, n = dims(cfg)
     g = N_GROUPS
-    # dt bias: init so softplus(dt_bias) spans [1e-3, 1e-1] (Mamba-2 default)
-    u = torch.rand((h,), generator=gen, dtype=torch.float32)
-    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
-                        + math.log(1e-3))
-    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))    # inv softplus
+    f32 = torch.float32
+    if L.is_meta(device):
+        dt_bias = torch.empty((h,), dtype=f32, device="meta")
+    else:
+        # dt bias: init so softplus(dt_bias) spans [1e-3, 1e-1] (Mamba-2
+        # default), drawn on the generator's device
+        u = torch.rand((h,), generator=gen, dtype=f32, device=gen.device)
+        dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                            + math.log(1e-3))
+        dt_bias = (dt_init + torch.log(-torch.expm1(-dt_init))).to(device)
     conv_ch = di + 2 * g * n
     return {
-        "wz": L.dense_init(gen, (d, di), dtype),
-        "wx": L.dense_init(gen, (d, di), dtype),
-        "wB": L.dense_init(gen, (d, g * n), dtype),
-        "wC": L.dense_init(gen, (d, g * n), dtype),
-        "wdt": L.dense_init(gen, (d, h), dtype),
+        "wz": L.dense_init(gen, (d, di), dtype, device=device),
+        "wx": L.dense_init(gen, (d, di), dtype, device=device),
+        "wB": L.dense_init(gen, (d, g * n), dtype, device=device),
+        "wC": L.dense_init(gen, (d, g * n), dtype, device=device),
+        "wdt": L.dense_init(gen, (d, h), dtype, device=device),
         "dt_bias": dt_bias,
-        "A_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32)),
-        "D": torch.ones((h,), dtype=torch.float32),
+        "A_log": torch.log(torch.arange(1, h + 1, dtype=f32, device=device)),
+        "D": torch.ones((h,), dtype=f32, device=device),
         "conv_w": L.dense_init(gen, (conv_ch, cfg.ssm_conv), dtype,
-                               scale=1.0 / math.sqrt(cfg.ssm_conv)),
-        "conv_b": torch.zeros((conv_ch,), dtype=dtype),
-        "norm_w": torch.ones((di,), dtype=dtype),
-        "out": L.dense_init(gen, (di, d), dtype),
+                               scale=1.0 / math.sqrt(cfg.ssm_conv),
+                               device=device),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "norm_w": torch.ones((di,), dtype=dtype, device=device),
+        "out": L.dense_init(gen, (di, d), dtype, device=device),
     }
 
 
@@ -168,32 +175,27 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 # model
 # ---------------------------------------------------------------------------
 
-def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype,
+               device="cpu") -> Params:
     return {
-        "norm": torch.ones((cfg.d_model,), dtype=dtype),
-        "mamba": init_mamba(cfg, gen, dtype),
+        "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "mamba": init_mamba(cfg, gen, dtype, device),
     }
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device="cuda") -> Params:
-    """Fresh parameters: the reference's shapes and scales, drawn on the
-    CPU from ``generator`` (values do not depend on the device) one
-    layer at a time, then moved to ``device``.  Layer params keep the
-    stacked ``[L, ...]`` layout."""
+    """Fresh parameters: the reference's shapes and scales, drawn from
+    ``generator`` on its own device (values do not depend on the target
+    device) one layer at a time into the stacked ``[L, ...]`` layout.
+    On ``"meta"`` nothing is drawn (``generator`` may be None)."""
     dtype = L.DTYPES[cfg.param_dtype]
-
-    def dev(t):
-        return t.to(device)
-
-    embed = dev(L.dense_init(generator, (cfg.padded_vocab, cfg.d_model),
-                             dtype, scale=0.02))
-    layers = [L.tree_map(dev, init_layer(cfg, generator, dtype))
-              for _ in range(cfg.n_layers)]
     return {
-        "embed": embed,
-        "layers": L.stack_trees(layers),
-        "final_norm": dev(torch.ones((cfg.d_model,), dtype=dtype)),
+        "embed": L.dense_init(generator, (cfg.padded_vocab, cfg.d_model),
+                              dtype, scale=0.02, device=device),
+        "layers": L.init_stacked(
+            cfg.n_layers, lambda: init_layer(cfg, generator, dtype, device)),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
 
 

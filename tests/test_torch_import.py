@@ -27,6 +27,8 @@ import repro_torch.launch.profile_step, repro_torch.launch.profile_ssm
 import repro_torch.sched_sim, repro_torch.sched_sim.calibration
 import repro_torch.sched_sim.policies, repro_torch.serve.modelplane
 import repro_torch.models.stepcache
+import repro_torch.models.transformer, repro_torch.models.hybrid
+import repro_torch.configs.base as cb; cb.list_archs()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
 print('BAD', bad)
@@ -59,10 +61,11 @@ def test_no_kernel_built_at_import():
 
 
 def test_entry_points_default_to_the_card():
-    """``BatchedChunkExecutor(cfg)``, and the Mamba-2 family's
-    ``init_params`` and ``init_cache`` through the registry, without
-    ``device`` allocate on the card; on a host without one they raise,
-    as torch does — nothing quietly falls back to the CPU."""
+    """``BatchedChunkExecutor(cfg)``, and the Mamba-2, dense, MoE, VLM
+    and hybrid families' ``init_params`` and ``init_cache`` through the
+    registry, without ``device`` allocate on the card; on a host without
+    one they raise, as torch does — nothing quietly falls back to the
+    CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs.base import get_config
@@ -79,3 +82,11 @@ def test_entry_points_default_to_the_card():
         api.init(mcfg, torch.Generator().manual_seed(0))
     with pytest.raises((AssertionError, RuntimeError)):
         api.init_cache(mcfg, 2, 16)
+    for arch in ("minitron-8b", "granite-moe-1b-a400m", "internvl2-26b",
+                 "jamba-v0.1-52b"):
+        rcfg = get_config(arch).reduced()
+        api = registry.get_api(rcfg)
+        with pytest.raises((AssertionError, RuntimeError)):
+            api.init(rcfg, torch.Generator().manual_seed(0))
+        with pytest.raises((AssertionError, RuntimeError)):
+            api.init_cache(rcfg, 2, 16)

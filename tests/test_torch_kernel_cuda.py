@@ -24,10 +24,11 @@ and the flash kernel do; rows that see nothing are exactly (NEG_INF, 0,
 0).
 
 Flash attention: ``flash_mha`` against ``flash_mha_ref`` over head dims
-16/96/128 x fp32/bf16 x each mode (non-causal at ragged AR-DiT-like
+16/64/96/128 x fp32/bf16 x each mode (non-causal at ragged AR-DiT-like
 lengths, causal with ``q_offset``, sink + window, the rho keep matrix at
-blocks that are not the kernels' tiles, GQA, rows that see nothing), the
-tensor-core kernel (bf16 at D 96 and 128) at lengths that cross and
+blocks that are not the kernels' tiles, GQA 4, causal GQA 2 at
+granite-moe's 16 / 8 heads, rows that see nothing), the
+tensor-core kernel (bf16 at D 64, 96 and 128) at lengths that cross and
 miss its 128-row and 128-key tiles, ``mha``'s dispatch, and the inputs
 the wrapper refuses; every launch is checked to take the path
 ``kernel_path`` names.  Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at
@@ -74,7 +75,8 @@ a 4,096-term sum).  In bf16 one bf16 ulp at each element's magnitude on
 top.
 
 SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
-instantiates x fp32/bf16 x/B/C, ragged S, S < chunk, ``init_state``,
+instantiates (jamba-v0.1-52b's (64, 16) among them) x fp32/bf16 x/B/C,
+ragged S, S < chunk, ``init_state``,
 x/B/C as strided views of one wider tensor (as the model passes them),
 and the inputs the wrapper refuses; bf16 at (64, 128) takes the
 tensor-core kernel (``launches_tc``), including a chained grid of many
@@ -86,6 +88,10 @@ bf16 ulps at that magnitude in bf16; the fp32 final state within 1e-4
 of its largest magnitude.  A scan's outputs grow with its inputs (unlike
 attention's averages), so the fp32 limit is relative to them; both sides
 accumulate in fp32 and differ in summation order only.
+
+The reduced dense, MoE, VLM and hybrid configs (fp32, TF32 off) on the
+card against the same params and inputs on the CPU: prefill logits and
+cache, then three decode steps, within 1e-4.
 
 The step cache's two device functions on the card against the same
 functions on the CPU: the hit AXPY ``x - dt * v`` (one multiply-add per
@@ -244,6 +250,7 @@ FLASH_MODES = {  # Sq, Skv, Hq, Hkv, keyword arguments
     "rho-keep": (384, 384, 4, 2, dict(sparsity=0.7, block_q=96,
                                       block_kv=128)),
     "gqa-4": (70, 150, 8, 2, dict(causal=False)),
+    "gqa-2-causal": (384, 384, 16, 8, dict()),
     "rows-see-nothing": (32, 32, 2, 2, dict(q_offset=-8)),
 }
 
@@ -257,7 +264,7 @@ def flash_limit(want):
 
 
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
-@pytest.mark.parametrize("D", [16, 96, 128])
+@pytest.mark.parametrize("D", [16, 64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernel_matches_plain_version(card, mode, D, dtype):
@@ -289,7 +296,7 @@ FLASH_TC_LENGTHS = [  # Sq, Skv, causal: across and short of 128-wide tiles
 @pytest.mark.parametrize("lengths", FLASH_TC_LENGTHS,
                          ids=[f"{a}x{b}{'c' if c else ''}"
                               for a, b, c in FLASH_TC_LENGTHS])
-@pytest.mark.parametrize("D", [96, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 def test_flash_tensor_core_kernel_at_ragged_lengths(card, lengths, D):
     Sq, Skv, causal = lengths
     g = torch.Generator(device=card).manual_seed(Sq * 7 + Skv + D)
@@ -360,6 +367,8 @@ SSD_CASES = {  # B, S, H, P, N, chunk, init_state
     "mamba2-780m-ragged": (2, 300, 4, 64, 128, 128, False),
     "mamba2-780m-init": (1, 256, 3, 64, 128, 128, True),
     "mamba2-780m-short": (2, 57, 2, 64, 128, 128, True),
+    "jamba-ragged": (2, 300, 4, 64, 16, 128, False),
+    "jamba-init": (1, 256, 3, 64, 16, 128, True),
     "reduced-ragged": (2, 100, 8, 16, 16, 16, False),
     "reduced-init": (2, 48, 8, 16, 16, 16, True),
     "reduced-whole-chunks": (2, 64, 4, 16, 16, 16, False),
@@ -930,3 +939,63 @@ def test_step_cache_on_the_card_matches_the_cpu(card, steps):
     assert torch.equal(h1, h0) and h1.dtype == torch.float32
     torch.testing.assert_close(f1, f0, rtol=1e-5, atol=0)
     assert d1 == pytest.approx(d0, rel=1e-5)
+
+
+FAMILY_ARCHS = ["minitron-8b", "granite-moe-1b-a400m", "internvl2-26b",
+                "jamba-v0.1-52b"]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _snapshot(tree):
+    """A CPU copy (decode writes its cache in place)."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _tree_close(got, want, limit):
+    if isinstance(want, dict):
+        for k in want:
+            _tree_close(got[k], want[k], limit)
+    else:
+        assert float((got.cpu().float() - want.float()).abs().max()) \
+            <= limit
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_reduced_families_on_the_card_match_the_cpu(card, arch):
+    """Prefill (the flash and SSD kernels on the card, their plain
+    versions on the CPU) and three decode steps of the reduced config,
+    same params and inputs, within 1e-4 (fp32, TF32 off)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry
+    cfg = get_config(arch).reduced()
+    api = registry.get_api(cfg)
+    gen = torch.Generator().manual_seed(11)
+    p_cpu = api.init(cfg, gen, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    steps = torch.randint(0, cfg.vocab_size, (3, 2, 1), generator=gen)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["img_embeds"] = 0.02 * torch.randn(
+            (2, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    runs = {}
+    for dev in ("cpu", card):
+        p = _tree_to(p_cpu, dev)
+        logits, cache, pos = api.prefill(
+            cfg, p, tokens.to(dev), max_len=60,
+            **{k: v.to(dev) for k, v in kw.items()})
+        out = [(logits.cpu(), _snapshot(cache))]
+        for tok in steps:
+            logits, cache = api.decode_step(cfg, p, cache, tok.to(dev), pos)
+            pos = pos + 1
+            out.append((logits.cpu(), _snapshot(cache)))
+        runs[str(dev)] = out
+    for (lg, cg), (lw, cw) in zip(runs[str(card)], runs["cpu"]):
+        assert float((lg - lw).abs().max()) <= 1e-4
+        _tree_close(cg, cw, 1e-4)

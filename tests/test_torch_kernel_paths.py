@@ -1,10 +1,11 @@
 """Which hand-written CUDA kernel each wrapper picks, on the CPU.
 
-``flash_attention.ops.kernel_path`` sends bf16 at head dims 96 and 128
-(every full-width model) to the tensor-core kernel and fp32 (the reduced
-configs, held to 1e-4 against the CPU) and bf16 at D 16 to the CUDA-core
-kernel.  ``fp8_matmul.ops.kernel_path`` sends shapes whose K and N are
-nonzero multiples of 16 (TMA's 16-byte row strides; both FFN shapes of
+``flash_attention.ops.kernel_path`` sends bf16 at head dims 64, 96 and
+128 (every full-width model) to the tensor-core kernel and fp32 (the
+reduced configs, held to 1e-4 against the CPU) and bf16 at D 16 to the
+CUDA-core kernel; any other head dim is refused.
+``fp8_matmul.ops.kernel_path`` sends shapes whose K and N are nonzero
+multiples of 16 (TMA's 16-byte row strides; both FFN shapes of
 the chip check) to the tensor-core kernel, the rest (the reference
 tests' K 136 and 40, N 300) to the CUDA-core kernel.
 ``paged_attention.ops.kernel_path`` sends bf16 chunk queries over bf16
@@ -20,7 +21,8 @@ bf16 or e4m3 pages at D 64 and 128 with a group of at most 8 and pages of
 kernel, everything else to the CUDA-core kernel;
 ``ssd_scan.ops.kernel_path`` sends bf16 x/B/C at (P, N) = (64, 128)
 (mamba2-780m) whose views TMA can read to the tensor-core kernel, and
-fp32, the reduced (16, 16) and unaligned views to the CUDA-core passes.
+fp32, Jamba's (64, 16), the reduced (16, 16) and unaligned views to the
+CUDA-core passes; any other (P, N) is refused.
 All decide from the inputs alone.
 """
 import pytest
@@ -36,9 +38,11 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 @pytest.mark.parametrize("dtype,head_dim,path", [
     (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "cuda_cores"),
     (torch.float32, 128, "cuda_cores"),
     (torch.float32, 96, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"),
     (torch.float32, 16, "cuda_cores"),
 ])
 def test_flash_path_by_dtype_and_head_dim(dtype, head_dim, path):
@@ -181,7 +185,8 @@ def test_minitron_decode_takes_the_tensor_cores(kv_dtype):
 
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["tma", "unaligned"])
-@pytest.mark.parametrize("P,N", [(64, 128), (16, 16), (64, 64), (32, 128)])
+@pytest.mark.parametrize("P,N", [(64, 128), (64, 16), (16, 16), (64, 64),
+                                 (32, 128)])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 def test_ssd_path(dtype, P, N, aligned):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -222,3 +227,57 @@ def test_ssd_alignment_of_views():
     odd = torch.zeros((2, 40, 4 * 64 + 257), dtype=BF16)
     off = odd[..., 1:4 * 64 + 1].reshape(2, 40, 4, 64)
     assert not ssd_ops._tma_aligned(off)
+
+
+TOKEN_ARCHS = ["minitron-8b", "internlm2-20b", "qwen1.5-32b", "minicpm-2b",
+               "granite-moe-1b-a400m", "qwen3-moe-235b-a22b",
+               "internvl2-26b", "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
+def test_token_families_prefill_on_the_tensor_cores(arch):
+    """Every dense / MoE / VLM / hybrid config at full width (bf16,
+    heads of 64 or 128) prefills on the tensor-core flash kernel; its
+    reduced config (fp32, heads of 16) on the CUDA cores."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    assert cfg.param_dtype == "bfloat16" and cfg.head_dim in (64, 128)
+    assert flash_ops.kernel_path(BF16, cfg.head_dim) == "wgmma"
+    red = cfg.reduced()
+    assert flash_ops.kernel_path(F32, red.head_dim) == "cuda_cores"
+
+
+def test_jamba_mamba_sublayers_take_the_cuda_core_passes():
+    """jamba-v0.1-52b's SSD at full width, (P, N) = (64, 16) over the
+    model's x/B/C views: the three CUDA-core passes, bf16 or fp32."""
+    from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    hd, n = JAMBA.ssm_head_dim, JAMBA.ssm_state
+    assert (hd, n) == (64, 16) and (hd, n) in ssd_ops._SHAPES
+    heads = JAMBA.ssm_expand * JAMBA.d_model // hd
+    xbc = torch.zeros((2, 64, heads * hd + 2 * n), dtype=BF16)
+    xi, Bp, Cp = torch.split(xbc, [heads * hd, n, n], dim=-1)
+    aligned = ssd_ops._tma_aligned(xi.reshape(2, 64, heads, hd),
+                                   Bp.reshape(2, 64, 1, n),
+                                   Cp.reshape(2, 64, 1, n))
+    for dtype in (BF16, F32):
+        assert ssd_ops.kernel_path(dtype, hd, n, aligned) == "cuda_cores"
+
+
+@pytest.mark.parametrize("D", [32, 48, 80, 256])
+def test_flash_refuses_other_head_dims(D):
+    """A head dim the kernel does not instantiate is refused before any
+    launch (no fallback to the plain version)."""
+    q = torch.zeros((1, 8, 2, D), dtype=BF16)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops._launch(q, q, q, 2, True, 0, 0, 0, 0.0, 8, 8)
+
+
+@pytest.mark.parametrize("P,N", [(64, 64), (32, 16), (128, 16)])
+def test_ssd_refuses_other_shapes(P, N):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    x = torch.zeros((1, 8, 2, P), dtype=BF16)
+    bc = torch.zeros((1, 8, 1, N), dtype=BF16)
+    with pytest.raises(ValueError, match="not in"):
+        ssd_ops._launch(x, torch.zeros((1, 8, 2)), torch.zeros((2,)), bc,
+                        bc, 8, None)

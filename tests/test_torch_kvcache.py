@@ -128,3 +128,55 @@ def test_pool_write_into_fp8_pool_follows_jax(src, heads):
         assert got[0, 3, 0, off, 2] == 448.0
     else:
         assert np.isnan(got[0, 3, 0, off, 2])
+
+
+# ---- the token caches' sink + ring helpers --------------------------------
+
+@pytest.mark.parametrize("seq_len,window,sink", [
+    (24, 0, 0), (24, 8, 4), (12, 8, 4), (5, 8, 4), (32800, 8192, 128),
+    (100, 16, 0)])
+def test_ring_capacity_slots_and_valid_counts(seq_len, window, sink):
+    """``capacity``, ``ring_dest`` and ``n_valid`` over every position up
+    to well past the ring, int32 slots, bit for bit."""
+    cap = TK.capacity(seq_len, window, sink)
+    assert cap == JK.capacity(seq_len, window, sink)
+    pos = np.arange(0, 3 * cap + 5, dtype=np.int32)
+    got = TK.ring_dest(torch.from_numpy(pos), cap, sink)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(JK.ring_dest(jnp.asarray(pos), cap, sink)))
+    np.testing.assert_array_equal(
+        TK.n_valid(torch.from_numpy(pos), cap).numpy(),
+        np.asarray(JK.n_valid(jnp.asarray(pos), cap)))
+
+
+@pytest.mark.parametrize("dest", [[0, 5, 11], [11, 11, 3], [12, 40, 7]],
+                         ids=["inside", "last", "past-the-end"])
+def test_write_token_matches_reference(dest):
+    """One token per row at a per-row slot, in place; a slot past the end
+    writes the last one, as the reference's ``dynamic_update_slice``
+    clamps its start."""
+    rng = np.random.default_rng(len(dest))
+    cache = rng.normal(size=(3, 12, 2, 4)).astype(np.float32)
+    new = rng.normal(size=(3, 1, 2, 4)).astype(np.float32)
+    d = np.asarray(dest, np.int32)
+    t = torch.from_numpy(cache.copy())
+    out = TK.write_token(t, torch.from_numpy(new), torch.from_numpy(d))
+    assert out.data_ptr() == t.data_ptr()
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(JK.write_token(jnp.asarray(cache),
+                                               jnp.asarray(new),
+                                               jnp.asarray(d))))
+
+
+@pytest.mark.parametrize("s,cap,sink,window", [
+    (10, 24, 4, 8), (10, 10, 0, 0), (20, 12, 4, 8), (37, 12, 4, 8),
+    (100, 16, 0, 16), (33, 13, 5, 8)])
+def test_place_prefill_matches_reference(s, cap, sink, window):
+    """A prefill's K/V [B,S,H,D] placed into the cache: padded when it
+    fits, else the sink and the last token of each ring slot gathered."""
+    k = np.random.default_rng(s).normal(size=(2, s, 2, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        TK.place_prefill(torch.from_numpy(k), cap, sink, window).numpy(),
+        np.asarray(JK.place_prefill(jnp.asarray(k), cap, sink, window)))
