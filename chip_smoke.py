@@ -33,7 +33,12 @@ Phases (any failure raises and the script exits non-zero):
    jamba-v0.1-52b's sink 128 + window 8,192 at 32 / 8 heads of 128): the
    kernel against one plain call, SDPA (causal with ``enable_gqa``; the
    window as a boolean mask on the memory-efficient backend) and the
-   bound of the visible pairs.
+   bound of the visible pairs; then whisper-medium's three non-causal
+   shapes at B = 2, 16 heads of 64 (the encoder's 1,500 x 1,500, the
+   prefill's cross-attention 32,768 x 1,500 and a decode step's 1 x
+   1,500: partial tiles on both axes, one live query row), each on the
+   tensor cores against its plain version, timed beside SDPA and the
+   bound.
 4. Integration at the reduced config, card vs CPU: the batched paged
    ``denoise_step_paged``, the sequential ``serve_chunk`` (fidelities
    top / rho 0.5 / W 3 / fp8 over a warm cache), the gather backend's
@@ -82,7 +87,15 @@ Phases (any failure raises and the script exits non-zero):
    migration and one SP expand + release forced through the tick path;
    chunks compared.  Outputs must be bit-identical or, where a library
    GEMM's choice by batch size differs, within 1 bf16 ulp; every paged
-   launch on the tensor cores.
+   launch on the tensor cores.  (iii) Lanes on different devices, a lane
+   on the card beside a lane on the CPU (``LanePool(devices=[cuda,
+   cpu])``): at full width a stream with 2 chunks of context migrates
+   card -> CPU -> card (each a measured PCIe move, its bytes, seconds and
+   GB/s printed, pages bit for bit, the engine's ``bw_intra`` calibrated
+   from them); at the reduced config (fp32) batch-axis SP with the guest
+   on the CPU lane against the card's SP1 run, and a 2-device session
+   that migrates one stream and borrows another against a 1-lane session
+   on the card, within 1e-4 (the card and the CPU round differently).
 11. Paged decode kernel vs plain version: the reference tests' shapes
    (fp32), q and pages of different dtypes (bf16 / fp32 q over e4m3,
    bf16 q over fp32, fp32 q over bf16) and minitron-8b's attention (Hq
@@ -151,13 +164,32 @@ Phases (any failure raises and the script exits non-zero):
    (hybrid), each with the launch counts set to 0 before and read
    after every prefill and decode run (flash = attention layers per
    prefill, on the tensor cores in bf16; ssd_scan = 7 per Jamba period,
-   on the CUDA cores; nothing from decode): a timed prefill (B 2 x
+   on the CUDA cores; nothing from decode but whisper-medium's
+   cross-attention): a timed prefill (B 2 x
    32,768; internvl 1 x 8,192) and decode steps (Jamba's past its
    8,320-token ring), then consistency gates (``FamilyRun.gate``): the
    last of 512 greedy decode steps against a teacher-forced prefill, in
    bf16 at the timed length (MoE capacity 8.0; Jamba 1 x 12,288, the
    ring rolled) and with the weights widened to fp32 at 2 x 4,096
-   (minitron, granite); peak memory per model.
+   (minitron, granite); peak memory per model.  ``whisper-medium``
+   (encoder-decoder, 24 + 24 layers over 1,500 stub audio frames) the
+   same way: prefill 2 x 32,768 + 32 decode steps, gates in bf16 at 2 x
+   32,768 and in fp32 at 2 x 4,096; flash = 72 per prefill (encoder,
+   causal self-attention, cross-attention) and 24 per decode step (the
+   cross-attention; its self-attention is the plain decode attention).
+17. The ring batched cache at full width (run after 15, on phase 5's
+   weights): the batched paged executor serves 2 streams x 2 chunks at
+   top fidelity and one fp8 chunk each; before each chunk the pool's
+   pages are assembled into the ring layout and ``serve_chunk_batched``
+   serves the same chunk from it with the same noise: its latents'
+   relative L2 gap to the executor's (kernel 1 against the plain masked
+   segment) within twice the gap that rounding the context's P to bf16
+   (kernel 1's rounding) makes in the ring path itself, and at least
+   within 2^-6; the ring outside the chunk's new slot unchanged; then
+   the ring on its own from ``init_batched_cache`` (gaps printed: they
+   compound through the context); the ring path launches no kernel.
+
+Every phase prints its seconds.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Without a CUDA device, or outside a checkout of the repository,
@@ -200,8 +232,26 @@ TOL_SDPA = 2e-3
 # fp32 result that differs in summation order only)
 TOL_FLASH_F32 = 1e-4
 FLASH_BF16_ULPS = 2
-# reduced-config steps and chunks, card vs CPU (fp32, TF32 off)
+# reduced-config steps and chunks, card vs CPU (fp32, TF32 off); also
+# phase 10's lanes on the card beside lanes on the CPU (the executor
+# tolerance of the reference's device-lane spec)
 TOL_CARD_CPU = 1e-4
+# phase 17: the ring batched path (``serve_chunk_batched``: the plain
+# masked segment, fp32 softmax) against the batched paged executor
+# (kernel 1 on the tensor cores, P rounded to bf16 before P V) on the
+# same weights, noise and cache, as the relative L2 gap of one chunk's
+# latents.  Phase 2 holds kernel 1 within 2 bf16 ulps of its plain
+# version, a rounding of P to bf16; 30 layers x 5 passes then amplify
+# such a rounding into a few percent of a chunk's latents (an NVIDIA
+# H100 80GB HBM3 at 700 W gave 0.008, 0.025 and 0.021 from the same
+# cache, where 2^-6 had been predicted).  So the limit is measured on
+# the same chunk: the ring path's own response to that rounding (the
+# plain segment with the context's P rounded to bf16 before P V, as
+# kernel 1 rounds it), times RING_SENSITIVITY_FACTOR, and never below
+# TOL_RING_REL.  A wrong slot, mask or offset moves a chunk by the order
+# of the latents (another stream's chunk: ~1.0).
+RING_SENSITIVITY_FACTOR = 2.0
+TOL_RING_REL = 2.0 ** -6
 # SSD kernel vs plain version: y within SSD_BF16_ULPS bf16 ulps at its
 # largest magnitude (bf16), or within 1e-4 of that magnitude (fp32, at
 # least 1e-4 absolute; a scan's outputs grow with its inputs); the fp32
@@ -219,6 +269,11 @@ TOL_SSD_F32 = 1e-4
 # of the logits themselves (printed beside it: the gap to the logits of
 # another position).  The bf16 limit separates only that; the fp32
 # limit, 7x its reading, holds the two paths' arithmetic.
+# whisper-medium's random weights make its logits nearly independent of
+# the position (another position's logits 0.014 from the compared ones
+# in bf16, 0.029 in fp32, on the same card), so its bf16 gate cannot
+# tell a wrongly carried state from rounding; its fp32 gate (1.3e-6
+# there) does.
 TOL_CONSISTENCY = 0.1
 TOL_CONSISTENCY_F32 = 1e-4
 # phase 16's bf16 gates of the MoE models: where the two paths route the
@@ -260,6 +315,16 @@ FLASH_PREFILL = {
     "jamba-v0.1-52b sink 128 + window 8192, heads of 128":
         (2, 32768, 32, 8, 128, 8192, 128),
 }
+# the flash kernel at whisper-medium's three new shapes (B 2, 16 heads of
+# 64, bf16, non-causal): name -> (B, Sq, Skv); the encoder's 1,500 stub
+# audio frames, the prefill's cross-attention over them at prefill_32k's
+# length, and a decode step's one query row over them
+FLASH_WHISPER = {
+    "whisper-medium encoder self-attention": (2, 1500, 1500),
+    "whisper-medium prefill cross-attention": (2, 32768, 1500),
+    "whisper-medium decode-step cross-attention": (2, 1, 1500),
+}
+WHISPER_HEADS, WHISPER_D = 16, 64
 SESSION_ARCH = "ardit-self-forcing"
 # phase 13 (iv): playout budgets (x the top-fidelity warm-up chunk) tried
 # in turn until BMPR picks a step-cache level for some chunk
@@ -683,6 +748,7 @@ def phase_flash(record):
     del q, k, v
     torch.cuda.empty_cache()
     errs += flash_prefill_shapes(gen, launch)
+    errs += flash_whisper_shapes(gen, launch)
     record["max_abs_err"] = max(errs)
 
 
@@ -762,6 +828,70 @@ def flash_prefill_shapes(gen, launch):
               f", |d| to the kernel {lib_err:.3g}, limit {lib_limit:.3g});"
               f" bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e12:.2f} "
               f"TFLOP over {pairs} visible pairs per head)")
+        if not lib_err <= lib_limit:
+            raise AssertionError(f"{name}: flash kernel disagrees with SDPA"
+                                 f" ({lib_err})")
+        del q, k, v, qt, kt, vt, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return errs
+
+
+def flash_whisper_shapes(gen, launch):
+    """Phase 3, whisper-medium's attention at full width
+    (``FLASH_WHISPER``): the non-causal calls whose lengths end in
+    partial tiles on both axes (1,500) and whose query axis may be one
+    row; kernel vs plain version on the tensor cores, the kernel, the
+    plain version and SDPA on the same q/k/v timed beside the bound."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    errs = []
+    H, D = WHISPER_HEADS, WHISPER_D
+    for name, (B, Sq, Skv) in FLASH_WHISPER.items():
+        q = torch.randn((B, Sq, H, D), generator=gen, device=DEV) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, Skv, H, D), generator=gen, device=DEV)
+                .to(torch.bfloat16) for _ in range(2))
+        kw = dict(n_kv_heads=H, causal=False)
+        out, path = launch(q, k, v, **kw)
+        if path != "wgmma":
+            raise AssertionError(f"{name}: on {path}, not the tensor cores")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ref.flash_mha_ref(q, k, v, **kw)
+        stop.record()
+        sync()
+        plain_ms = start.elapsed_time(stop)
+        errs.append(compare_flash(f"{name} B={B} Sq={Sq} Skv={Skv} "
+                                  f"({path})", out, want))
+        del want
+        gc.collect()
+        torch.cuda.empty_cache()
+        iters = 5 if Sq > 1500 else 50
+        kernel_ms = cuda_ms(lambda: ops.flash_mha(q, k, v, **kw), iters)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        library_ms = cuda_ms(library, iters)
+        lib_err = float((out.float() - library().transpose(1, 2).float())
+                        .abs().max())
+        lib_limit = 8 * ulp_bf16(float(out.float().abs().max()))
+        flops = 4.0 * B * H * Sq * Skv * D
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+        t_ops = flops / PEAK_FLOPS[str(q.dtype)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  {name}: kernel ({path}) {kernel_ms:.4f} ms, "
+              f"{flops / kernel_ms / 1e9:.2f} TFLOP/s, "
+              f"{nbytes / kernel_ms / 1e6:.1f} GB/s; plain (one call) "
+              f"{plain_ms:.3f} ms; SDPA {library_ms:.4f} ms (|d| to the "
+              f"kernel {lib_err:.3g}, limit {lib_limit:.3g}); bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)")
         if not lib_err <= lib_limit:
             raise AssertionError(f"{name}: flash kernel disagrees with SDPA"
                                  f" ({lib_err})")
@@ -1416,6 +1546,9 @@ FAMILY_MODELS = [
     # as published
     ("jamba-v0.1-52b", {"n_layers": 8}, (2, 32768), 32,
      [(1, 12288, 8.0, "bfloat16")]),
+    # 24 encoder + 24 decoder layers over 1,500 stub audio frames
+    ("whisper-medium", {}, (2, 32768), 32,
+     [(2, 32768, None, "bfloat16"), (2, 4096, None, "float32")]),
 ]
 GATE_STEPS = 512
 
@@ -1444,8 +1577,20 @@ class FamilyRun:
                   f"{cfg.n_experts} x top {cfg.top_k}, "
                   f"{sum(f == 'mlp' for _, f in kinds)} MLP sublayers); "
                   f"every width as published")
+        elif cfg.family == "encdec":
+            # encoder self-attention, decoder causal self-attention and
+            # cross-attention per prefill; a decode step's cross-attention
+            self.n_attn = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+            self.n_ssd = 0
+            print(f"  {arch}: {cfg.n_enc_layers} encoder + "
+                  f"{cfg.n_dec_layers} decoder layers over "
+                  f"{cfg.n_frontend_tokens} stub audio frames")
         else:
             self.n_attn, self.n_ssd = cfg.n_layers, 0
+        # flash launches per decode step (only encdec's cross-attention;
+        # every family's decode self-attention is the plain one)
+        self.n_decode_attn = cfg.n_dec_layers if cfg.family == "encdec" \
+            else 0
         t0 = time.perf_counter()
         self.gen = torch.Generator(device=DEV).manual_seed(0)
         self.params = self.api.init(cfg, self.gen, DEV)
@@ -1457,12 +1602,14 @@ class FamilyRun:
 
     def inputs(self, cfg, b, s):
         """Random tokens and, for a VLM, image embeddings: s positions in
-        all."""
+        all; for an encoder-decoder also its stub audio frames."""
         n_img = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+        stub = {"vlm": "img_embeds", "encdec": "audio_embeds"}.get(
+            cfg.family)
         kw = {}
-        if n_img:
-            kw["img_embeds"] = (0.02 * torch.randn(
-                (b, n_img, cfg.d_model), generator=self.gen,
+        if stub:
+            kw[stub] = (0.02 * torch.randn(
+                (b, cfg.n_frontend_tokens, cfg.d_model), generator=self.gen,
                 device=DEV)).to(self.params["embed"].dtype)
         return torch.randint(0, cfg.vocab_size, (b, s - n_img),
                              generator=self.gen, device=DEV), kw
@@ -1496,8 +1643,10 @@ class FamilyRun:
         return out, sec
 
     def decode(self, label, cfg, logits, cache, pos, n, trace=None):
-        """``n`` greedy decode steps, no kernel launched; with ``trace``,
-        the routing of the last step's token is recorded there."""
+        """``n`` greedy decode steps, launching only an encoder-decoder's
+        cross-attention (flash, one per decoder layer a step, on the
+        tensor cores in bf16); with ``trace``, the routing of the last
+        step's token is recorded there."""
         reset_counts(self.counters)
         generated, ms = [], []
         for i in range(n):
@@ -1512,8 +1661,16 @@ class FamilyRun:
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
             pos = pos + 1
-        if any(fn.launches for fn in self.counters.values()):
-            raise AssertionError(f"{label} decode launched a kernel")
+        got = {n_: fn.launches for n_, fn in self.counters.items()}
+        want = {**{n_: 0 for n_ in self.counters},
+                "flash_mha": self.n_decode_attn * n}
+        tc = self.counters["flash_mha"].launches_tc
+        if got != want or tc != (want["flash_mha"]
+                                 if cfg.param_dtype == "bfloat16" else 0):
+            raise AssertionError(f"{label} decode: launches {got}, flash on "
+                                 f"the tensor cores {tc}; expected {want}")
+        if cfg.param_dtype == "bfloat16":
+            self.totals["flash_mha_decode"] += want["flash_mha"]
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{label} decode: non-finite logits")
         return logits, generated, ms
@@ -1602,13 +1759,14 @@ def phase_families(counters):
     the attention layers per prefill, all on the tensor cores in bf16
     and on the CUDA cores in fp32; ssd_scan launches = the Mamba
     sublayers per prefill, on the CUDA cores ((P, N) = (64, 16));
-    nothing from decode.  Returns the flash and ssd launches of the bf16
-    prefills."""
+    from decode only an encoder-decoder's cross-attention (one flash
+    launch per decoder layer a step).  Returns the flash launches of the
+    bf16 prefills and of the bf16 decode steps, and the ssd launches."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import layers as L
 
-    totals = {"flash_mha": 0, "ssd": 0}
+    totals = {"flash_mha": 0, "flash_mha_decode": 0, "ssd": 0}
     # while a list: the experts each MoE sublayer routes the last token to
     trace = {"routes": None}
     route = L.moe_route
@@ -1635,16 +1793,20 @@ def phase_families(counters):
                 if run.n_ssd else "none"
             print(f"  {arch}: peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-                  f"flash launches {run.n_attn} per prefill ("
+                  f"flash launches {run.n_attn} per prefill and "
+                  f"{run.n_decode_attn} per decode step ("
                   f"{flash_ops.kernel_path(torch.bfloat16, cfg.head_dim)} "
-                  f"in bf16), ssd_scan {run.n_ssd} per prefill "
-                  f"({ssd_path}), none from decode")
+                  f"in bf16, "
+                  f"{flash_ops.kernel_path(torch.float32, cfg.head_dim)} "
+                  f"in fp32), ssd_scan {run.n_ssd} per prefill "
+                  f"({ssd_path})")
             del run
     finally:
         L.moe_route = route
     print(f"  phase 16: {totals['flash_mha']} flash launches in the bf16 "
-          f"prefills, all on the tensor cores; {totals['ssd']} ssd_scan "
-          f"launches, on the CUDA cores")
+          f"prefills and {totals['flash_mha_decode']} in the bf16 decode "
+          f"steps (whisper-medium's cross-attention), all on the tensor "
+          f"cores; {totals['ssd']} ssd_scan launches, on the CUDA cores")
     gc.collect()
     torch.cuda.empty_cache()
     return totals
@@ -1669,13 +1831,47 @@ def same_or_ulp(name, got, want):
     return err
 
 
+def force_migration_and_sp(sess):
+    """Force one migration of stream 0 (after its first chunk) and one SP
+    expand of stream 1 (after its first chunk) and its release (after
+    its second) through the session's own tick -> apply path."""
+    from repro_torch.core.elastic_sp import SPDecision
+    from repro_torch.core.rehoming import Migration
+
+    pool = sess.lanes
+    state = {"mig": False, "sp": False, "rel": False}
+    orig_tick = sess.control.tick
+
+    def tick(view, now):
+        d = orig_tick(view, now)
+        s0, s1 = view.streams.get(0), view.streams.get(1)
+        if (not state["mig"] and s0 is not None and s0.chunks_done >= 1
+                and not s0.done and not pool.is_inflight(0)):
+            src = pool.lane_of[0]
+            d.migrations.append(Migration(0, src, 1 - src,
+                                          cross_node=False))
+            state["mig"] = True
+        if (not state["sp"] and s1 is not None and s1.chunks_done >= 1
+                and not s1.done
+                and pool.ex(pool.lane_of[1]).pool.resident(1)):
+            d.sp_decisions.append(SPDecision(1, 1 - pool.lane_of[1],
+                                             "expand"))
+            state["sp"] = True
+        elif (state["sp"] and not state["rel"] and s1 is not None
+                and not s1.done and s1.sp_donor is not None
+                and s1.chunks_done >= 2):
+            d.sp_decisions.append(SPDecision(1, s1.sp_donor, "release"))
+            state["rel"] = True
+        return d
+
+    sess.control.tick = tick
+
+
 def phase_lanes(cfg, params, counters):
     """Phase 10: elastic SP and migration at full width, two lanes on
     the one card; see the module docstring."""
     from repro_torch.core.bmpr import StaticFidelity
-    from repro_torch.core.elastic_sp import SPDecision
     from repro_torch.core.fidelity import FidelityConfig
-    from repro_torch.core.rehoming import Migration
     from repro_torch.models import ardit as A
     from repro_torch.serve.lanes import LanePool
     from repro_torch.serve.session import (SessionConfig, StreamingSession,
@@ -1782,7 +1978,7 @@ def phase_lanes(cfg, params, counters):
                 same_or_ulp("batch-axis guest row vs SP1 chunk K",
                             kvb["k"][:, :1], kv1["k"]))
     lanes.sp_release(0)
-    lanes.sp_mode = "solo"
+    lanes.sp_mode = "auto"
 
     # one migration through the host-spill path: pages bit-exact
     ctx = home.pool.gather([0], n_ring)
@@ -1820,34 +2016,7 @@ def phase_lanes(cfg, params, counters):
         for spec in uniform_specs(2, 3):
             sess.submit(spec)
         if force:
-            state = {"mig": False, "sp": False, "rel": False}
-            orig_tick = sess.control.tick
-
-            def tick(view, now):
-                d = orig_tick(view, now)
-                s0, s1 = view.streams.get(0), view.streams.get(1)
-                if (not state["mig"] and s0 is not None
-                        and s0.chunks_done >= 1 and not s0.done
-                        and not pool.is_inflight(0)):
-                    src = pool.lane_of[0]
-                    d.migrations.append(Migration(0, src, 1 - src,
-                                                  cross_node=False))
-                    state["mig"] = True
-                if (not state["sp"] and s1 is not None
-                        and s1.chunks_done >= 1 and not s1.done
-                        and pool.ex(pool.lane_of[1]).pool.resident(1)):
-                    d.sp_decisions.append(
-                        SPDecision(1, 1 - pool.lane_of[1], "expand"))
-                    state["sp"] = True
-                elif (state["sp"] and not state["rel"] and s1 is not None
-                        and not s1.done and s1.sp_donor is not None
-                        and s1.chunks_done >= 2):
-                    d.sp_decisions.append(SPDecision(1, s1.sp_donor,
-                                                     "release"))
-                    state["rel"] = True
-                return d
-
-            sess.control.tick = tick
+            force_migration_and_sp(sess)
         reset()
         t0 = time.perf_counter()
         res = sess.run()
@@ -1884,6 +2053,296 @@ def phase_lanes(cfg, params, counters):
                 two[sid][c], ref[sid][c]))
     gc.collect()
     torch.cuda.empty_cache()
+    return worst
+
+
+def bf16_p_segment(tc):
+    """``attention._segment_attn`` with the probabilities of the context
+    (every key but the chunk's own ``tc``) rounded to bf16 before P V and
+    their sum kept in fp32, as kernel 1 treats them (``paged_mha``'s
+    in-chunk segment stays fp32)."""
+    import math
+
+    def segment(q, k, v, mask, scale):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+        if mask is not None:
+            mask = mask[None, None, None] if mask.ndim == 2 \
+                else mask[:, None, None]
+            s = torch.where(mask, s, -math.inf)
+        m = torch.amax(s, dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        l = torch.sum(p, dim=-1)
+        n = k.shape[1] - tc
+        p[..., :n] = p[..., :n].to(torch.bfloat16).float()
+        return m_safe, l, torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+    return segment
+
+
+def phase_ring(cfg, params, counters):
+    """Phase 17: the ring batched cache at full width on phase 5's
+    weights.  The batched paged executor serves 2 streams x 2 chunks at
+    top fidelity, then one fp8 chunk each (both rows in every step).
+    (i) Per chunk, from the same cache: before each of its chunks the
+    pool's pages are assembled into the ring layout (``KVPool.gather``)
+    and ``serve_chunk_batched`` serves the chunk from that ring with the
+    same noise (the reference's paged-vs-ring test, in bf16 at full
+    width, where kernel 1 stands against the plain masked segment), then
+    again with the context's P rounded to bf16 (``bf16_p_segment``): the
+    latents' gap to the executor's within RING_SENSITIVITY_FACTOR times
+    the gap that rounding makes, and at least within ``TOL_RING_REL``;
+    the ring outside the chunk's new slot unchanged, the new slot's KV
+    gap printed.
+    (ii) The ring on its own from ``init_batched_cache``: each chunk's
+    KV feeds the next, so the gaps grow chunk by chunk; printed, not
+    gated.  The ring path launches no kernel (the plain masked segment,
+    as the reference runs it on the TPU too)."""
+    from repro_torch.models import ardit as A
+    from repro_torch.models import attention, kvcache
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.executor import chunk_noise, cond_noise
+
+    segment_attn = attention._segment_attn
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sids = (0, 1)
+    fids = (A.HIGHEST_QUALITY, A.HIGHEST_QUALITY,
+            A.HIGHEST_QUALITY._replace(quant="fp8"))
+    tc, w = A.chunk_tokens(cfg), cfg.ardit_window_chunks
+    ex = BatchedChunkExecutor(cfg=cfg, params=params, max_streams=2,
+                              device=DEV)
+    for sid in sids:
+        ex.admit(sid, seed=sid)
+
+    def noise_of(c):
+        return torch.cat([chunk_noise(c, sid, tc) for sid in sids]).to(DEV)
+
+    worst, paged_s, ring_s = 0.0, 0.0, []
+    for c, fid in enumerate(fids):
+        k0, v0 = ex.pool.gather(list(sids), w)
+        chunks = np.asarray([ex.pool.chunks[sid] for sid in sids])
+        sync()
+        t0 = time.perf_counter()
+        for sid in sids:
+            ex.begin_chunk(sid, fid, 0.0)
+        while ex.inflight:
+            ex.run_step(list(sids))
+        sync()
+        paged_s += time.perf_counter() - t0
+        reset_counts(counters)
+        ring = {"k": k0.clone(), "v": v0.clone(), "chunks": chunks}
+        t0 = time.perf_counter()
+        x, ring = A.serve_chunk_batched(cfg, params, ring, noise_of(c), fid)
+        sync()
+        ring_s.append(time.perf_counter() - t0)
+        if any(fn.launches for fn in counters.values()):
+            raise AssertionError("the ring path launched a kernel")
+        attention._segment_attn = bf16_p_segment(tc)
+        try:
+            x_p, _ = A.serve_chunk_batched(
+                cfg, params, {"k": k0, "v": v0, "chunks": chunks},
+                noise_of(c), fid)
+        finally:
+            attention._segment_attn = segment_attn
+        pk, pv = ex.pool.gather(list(sids), w)
+        slots = kvcache.chunk_slot(chunks, w, A.COND_TOKENS, tc)
+        for i, sid in enumerate(sids):
+            want = ex.chunks[sid][c][0]
+            gap, sens = rel(x[i], want), rel(x_p[i], x[i])
+            limit = max(TOL_RING_REL, RING_SENSITIVITY_FACTOR * sens)
+            worst = max(worst, gap / limit)
+            lo = int(slots[i])
+            kv_gap = max(rel(ring[n][:, i, lo:lo + tc], p[:, i, lo:lo + tc])
+                         for n, p in (("k", pk), ("v", pv)))
+            kept = all(torch.equal(ring[n][:, i, :lo], p[:, i, :lo])
+                       and torch.equal(ring[n][:, i, lo + tc:],
+                                       p[:, i, lo + tc:])
+                       for n, p in (("k", pk), ("v", pv)))
+            print(f"  (i) chunk {c} ({fid.key}), stream {sid}, from the "
+                  f"pool's context: latents relative L2 {gap:.4g} (limit "
+                  f"{limit:.4g}: the ring's own gap with P rounded to bf16 "
+                  f"{sens:.4g}, x {RING_SENSITIVITY_FACTOR:g}, at least "
+                  f"{TOL_RING_REL:.4g}); new slot {lo}: KV relative L2 "
+                  f"{kv_gap:.4g}; rest of the ring "
+                  f"{'unchanged' if kept else 'CHANGED'}")
+            if not kept:
+                raise AssertionError(f"the ring write of chunk {c} touched "
+                                     f"slots outside {lo}..{lo + tc}")
+            if not gap <= limit:
+                raise AssertionError(f"ring vs paged, chunk {c} stream "
+                                     f"{sid}: relative L2 {gap} > {limit}")
+        del k0, v0, pk, pv, ring, x_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    paged = {sid: list(ex.chunks[sid]) for sid in sids}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_counts(counters)
+    cond = torch.cat([cond_noise(sid, cfg.d_model) for sid in sids]).to(DEV)
+    ring = A.init_batched_cache(cfg, params, cond)
+    for c, fid in enumerate(fids):
+        x, ring = A.serve_chunk_batched(cfg, params, ring, noise_of(c), fid)
+        if tuple(x.shape) != (2, tc, A.LATENT_CH) or \
+                not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"ring chunk {c}: bad latents")
+        print(f"  (ii) the ring on its own, chunk {c} ({fid.key}): "
+              f"latents vs the executor's, relative L2 "
+              + ", ".join(f"stream {sid} {rel(x[i], paged[sid][c][0]):.4g}"
+                          for i, sid in enumerate(sids))
+              + f" (not gated; another stream's chunk: "
+              f"{rel(x[1], paged[0][c][0]):.4g})")
+    got = {n: fn.launches for n, fn in counters.items()}
+    if any(got.values()) or list(ring["chunks"]) != [len(fids)] * 2:
+        raise AssertionError(f"ring: launches {got}, chunks "
+                             f"{ring['chunks']}")
+    print(f"  ring: 2 streams x {len(fids)} chunks in "
+          f"{', '.join(f'{t:.2f}' for t in ring_s)} s a chunk (the plain "
+          f"masked segment over the {A.cache_capacity(cfg)}-token ring, no "
+          f"kernel launched); the paged executor took {paged_s:.2f} s for "
+          f"the same chunks; peak memory {peak:.2f} GiB; worst gap from the "
+          f"same context {worst:.3f} of its limit")
+    del ring, paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_device_pair(cfg, params, counters):
+    """Phase 10 (iii): lanes on different devices, a lane on the card
+    beside a lane on the CPU (``LanePool(devices=[cuda, cpu])``).  At
+    full width (phase 5's weights): a stream with 2 chunks of context
+    migrates card -> CPU -> card, each a measured PCIe move whose pages
+    arrive bit for bit.  At the reduced config (fp32, TF32 off, gates
+    opened): batch-axis SP (``sp_mode="auto"`` takes it for the pair) with
+    the guest on the CPU lane against the never-borrowed stream on the
+    card, and a 2-device session that migrates one stream and borrows
+    another against a 1-lane session on the card, within
+    ``TOL_CARD_CPU``."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.bmpr import StaticFidelity
+    from repro_torch.core.fidelity import FidelityConfig
+    from repro_torch.models import ardit as A
+    from repro_torch.serve.batcher import BatchedChunkExecutor
+    from repro_torch.serve.lanes import LanePool
+    from repro_torch.serve.session import (SessionConfig, StreamingSession,
+                                           uniform_specs)
+
+    pair = [DEV, "cpu"]
+    fid = FidelityConfig(2, 0.0, 2, "bf16")
+
+    def chunks(ex, sid, n, f=fid):
+        out = []
+        for _ in range(n):
+            ex.begin_chunk(sid, f, 0.0)
+            while sid in ex.inflight:
+                ex.run_step([sid])
+            out.append(ex.chunks[sid][-1].cpu())
+        return out
+
+    # ---- full width: measured PCIe migrations -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lp = LanePool(2, cfg=cfg, params=params, max_streams=1, devices=pair)
+    lp.admit(0, 0, seed=0)
+    chunks(lp.ex(0), 0, 2, FidelityConfig(2, 0.0, 7, "bf16"))
+    for src, dst in ((0, 1), (1, 0)):
+        ctx = [t.cpu() for t in lp.ex(src).pool.gather([0], 2)]
+        n = len(lp.engine.measured)
+        if not lp.migrate(0, src, dst):
+            raise AssertionError("migration across the pair not applied")
+        (m,) = lp.engine.measured[n:]
+        got = [t.cpu() for t in lp.ex(dst).pool.gather([0], 2)]
+        if m.kind != "migration" or not lp.ex(dst).pool.resident(0) or \
+                not all(torch.equal(a, b) for a, b in zip(got, ctx)):
+            raise AssertionError("the migrated pages differ")
+        print(f"  full-width migration {lp.lane_devices[src].type} -> "
+              f"{lp.lane_devices[dst].type}: pages bit-exact, {m.n_bytes} "
+              f"bytes in {m.seconds:.4f} s ({m.bytes_per_s / 1e9:.2f} GB/s, "
+              f"measured); engine bw_intra now "
+              f"{lp.engine.bw_intra / 1e9:.2f} GB/s (model "
+              f"{lp.engine.bw_intra_model / 1e9:.2f})")
+    del lp, ctx, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- reduced config: batch-axis SP and a session -----------------------
+    rcfg = dataclasses.replace(get_config(SESSION_ARCH).reduced(),
+                               n_layers=2, ardit_window_chunks=2)
+    g = torch.Generator().manual_seed(0)
+    rp = A.open_gates(A.init_params(rcfg, g, "cpu"), g)
+    paged = counters["paged_chunk_attention"]
+    ref_ex = BatchedChunkExecutor(cfg=rcfg, params=rp, max_streams=2,
+                                  device=DEV)
+    ref_ex.admit(0, seed=0)
+    ref = chunks(ref_ex, 0, 3)
+    lp = LanePool(2, cfg=rcfg, params=rp, max_streams=2, devices=pair)
+    lp.admit(0, 0, seed=0)
+    got = chunks(lp.ex(0), 0, 2)
+    if not lp.sp_expand(0, 1) or lp.sp_link(0).mode != "batch":
+        raise AssertionError("the pair did not expand in batch mode")
+    reset_counts(counters)
+    got += chunks(lp.ex(1), 0, 1)               # the guest row, on the CPU
+    if paged.launches or lp.ex(0).pool.chunks[0] != 3:
+        raise AssertionError("the guest did not run on the CPU lane or its "
+                             "KV did not ship home")
+    lp.sp_release(0)
+    worst = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"  batch-axis SP across the pair (guest on the CPU lane, its "
+          f"chunk KV shipped back to the card): chunks vs the card's SP1 "
+          f"run max |d| {worst:.3g} (limit {TOL_CARD_CPU:g})")
+    if not worst <= TOL_CARD_CPU:
+        raise AssertionError(f"batch-axis SP across the pair: {worst}")
+
+    def serve(devices, force):
+        pool = LanePool(len(devices), cfg=rcfg, params=rp, max_streams=3,
+                        devices=devices)
+        sess = StreamingSession(
+            SessionConfig(model_cfg=rcfg, lanes=len(devices), max_batch=1,
+                          device=DEV, verbose=False),
+            executor=pool, fidelity_policy=StaticFidelity(fid))
+        for spec in uniform_specs(2, 3):
+            sess.submit(spec)
+        if force:
+            force_migration_and_sp(sess)
+        reset_counts(counters)
+        res = sess.run()
+        sync()
+        out = {sid: [c.cpu() for c in sess.handles[sid].chunks]
+               for sid in (0, 1)}
+        return res, out, paged.launches
+
+    _, one, _ = serve([DEV], False)
+    res, two, launches = serve(pair, True)
+    kinds = sorted({m.kind for m in res.engine.measured})
+    print(f"  2-device session (card + CPU): applied migrations "
+          f"{res.n_migrations_applied}, SP expands "
+          f"{res.n_sp_expands_applied}, releases "
+          f"{res.n_sp_releases_applied}; measured moves {kinds}; paged "
+          f"launches on the card lane {launches}")
+    if (res.n_migrations_applied < 1 or res.n_sp_expands_applied < 1
+            or res.n_sp_releases_applied < 1
+            or kinds != ["migration", "sp-expand"] or launches == 0):
+        raise AssertionError("the 2-device session did not migrate, borrow "
+                             "across the pair and launch on the card")
+    for sid in (0, 1):
+        if len(two[sid]) != 3:
+            raise AssertionError(f"stream {sid}: {len(two[sid])} chunks")
+        for c in range(3):
+            err = float((two[sid][c] - one[sid][c]).abs().max())
+            worst = max(worst, err)
+            print(f"  2-device vs 1-lane session, stream {sid} chunk {c}: "
+                  f"max |d| {err:.3g} (limit {TOL_CARD_CPU:g})")
+            if not err <= TOL_CARD_CPU:
+                raise AssertionError(f"2-device session: {err}")
     return worst
 
 
@@ -2799,44 +3258,70 @@ def main():
                 "flash_mha": flash_ops.flash_mha,
                 "paged_decode_attention": paged_ops.paged_decode_attention,
                 "fp8_matmul": fp8_ops.fp8_scaled_matmul}
-    print("== phase 2: paged kernel vs plain version at full-width shapes")
-    phase_kernel(paged)
-    print("== phase 3: flash kernel vs plain version")
-    phase_flash(flash)
-    print("== phase 4: reduced config, card vs CPU")
-    phase_integration()
+    seconds = {}
+
+    def phase(title, fn, *args):
+        """Run one phase under its heading and print its seconds."""
+        print(f"== phase {title}")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[title.split(":")[0]] = time.perf_counter() - t0
+        print(f"  (phase {title.split(':')[0]}: "
+              f"{seconds[title.split(':')[0]]:.1f} s)")
+        return out
+
+    phase("2: paged kernel vs plain version at full-width shapes",
+          phase_kernel, paged)
+    phase("3: flash kernel vs plain version", phase_flash, flash)
+    phase("4: reduced config, card vs CPU", phase_integration)
     cfg, params = full_width_params()
-    print("== phase 5: full-width ardit-self-forcing, batched paged session")
-    paged["launches"] = phase_batched(cfg, params, counters)
-    print("== phase 6: full-width ardit-self-forcing, sequential session")
-    flash["launches"] = phase_sequential(cfg, params, counters)
-    print("== phase 7: full-width ardit-self-forcing, gather-backend session")
-    phase_gather(cfg, params, counters)
-    print("== phase 10: full-width elastic SP and migration, two lanes")
-    phase_lanes(cfg, params, counters)
-    print("== phase 13: full-width step cache")
-    sc_session, sc_specs = phase_stepcache(cfg, params, counters)
-    print(f"== phase 14: full-width co-serving, {SESSION_ARCH} + {CO_ARCH}")
-    co_session, _ = phase_modelplane(cfg, params, counters)
-    print("== phase 15: the simulator calibrated from the card's sessions")
-    phase_calibration(sc_session, sc_specs, co_session)
-    del cfg, params, sc_session, co_session
+    paged["launches"] = phase(
+        "5: full-width ardit-self-forcing, batched paged session",
+        phase_batched, cfg, params, counters)
+    seq_launches = phase(
+        "6: full-width ardit-self-forcing, sequential session",
+        phase_sequential, cfg, params, counters)
+    phase("7: full-width ardit-self-forcing, gather-backend session",
+          phase_gather, cfg, params, counters)
+    phase("10: full-width elastic SP and migration, two lanes on the card",
+          phase_lanes, cfg, params, counters)
+    phase("10 (iii): lanes on different devices, card + CPU",
+          phase_device_pair, cfg, params, counters)
+    sc_session, sc_specs = phase("13: full-width step cache",
+                                 phase_stepcache, cfg, params, counters)
+    co_session, _ = phase(
+        f"14: full-width co-serving, {SESSION_ARCH} + {CO_ARCH}",
+        phase_modelplane, cfg, params, counters)
+    phase("15: the simulator calibrated from the card's sessions",
+          phase_calibration, sc_session, sc_specs, co_session)
+    del sc_session, co_session
+    phase("17: full-width ring batched cache vs the paged executor",
+          phase_ring, cfg, params, counters)
+    del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
-    print("== phase 8: SSD kernel vs plain version")
-    phase_ssd(ssd)
-    print(f"== phase 9: full-width {SSM_ARCH} prefill and decode")
-    ssd["launches"] = phase_ssm({**counters, "ssd": ssd_ops.ssd})
-    print(f"== phase 11: paged decode kernel vs plain version ({DECODE_ARCH} "
-          f"decode_32k)")
-    phase_decode(decode, counters)
-    print("== phase 12: fp8 matmul kernel vs plain version")
-    phase_fp8(fp8, counters)
+    phase("8: SSD kernel vs plain version", phase_ssd, ssd)
+    ssd["launches"] = phase(f"9: full-width {SSM_ARCH} prefill and decode",
+                            phase_ssm, {**counters, "ssd": ssd_ops.ssd})
+    phase(f"11: paged decode kernel vs plain version ({DECODE_ARCH} "
+          f"decode_32k)", phase_decode, decode, counters)
+    phase("12: fp8 matmul kernel vs plain version", phase_fp8, fp8,
+          counters)
     gc.collect()
     torch.cuda.empty_cache()
-    print("== phase 16: full-width token families (dense, MoE, VLM, hybrid)"
-          " prefill and decode")
-    phase_families({**counters, "ssd": ssd_ops.ssd})
+    fam = phase("16: full-width token families (dense, MoE, VLM, hybrid, "
+                "encoder-decoder) prefill and decode", phase_families,
+                {**counters, "ssd": ssd_ops.ssd})
+    # kernel 3 on its paths: the sequential session, then phase 16's bf16
+    # prefills and whisper-medium's bf16 decode steps
+    flash["launches"] = seq_launches + fam["flash_mha"] \
+        + fam["flash_mha_decode"]
+    print(f"flash_mha launches: {seq_launches} (phase 6) + "
+          f"{fam['flash_mha']} (phase 16 prefills) + "
+          f"{fam['flash_mha_decode']} (phase 16 decode steps) = "
+          f"{flash['launches']}")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items()))
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s, build included")

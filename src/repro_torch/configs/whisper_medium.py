@@ -5,8 +5,7 @@ provides precomputed frame embeddings (batch, seq, d_model) to the encoder.
 24 encoder + 24 decoder layers.  Decode shapes exercise the DECODER
 (self-attn KV cache of seq_len + cross-attn over encoder states).
 
-Registered for the registry's config set; the encdec family's model code
-waits for its slice (``models.registry.get_api`` raises, naming it).
+Served through ``models.registry.get_api`` by ``models/encdec.py``.
 """
 from repro_torch.configs.base import ModelConfig, register
 

@@ -132,13 +132,14 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
     lib = _lib()
     tc = kernel_path(q.dtype, d) == "wgmma"
     launch = lib.flash_mha_wgmma_launch if tc else lib.flash_mha_launch
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(),
-        b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
-        block_q, block_kv, 0 if keep is None else keep.shape[1],
-        _DTYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):        # the runtime launches on its device
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if keep is None else keep.data_ptr(), out.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
+            block_q, block_kv, 0 if keep is None else keep.shape[1],
+            _DTYPES[q.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.flash_mha_error_string(err).decode()
         raise RuntimeError(f"flash_mha launch failed: {msg}")

@@ -81,12 +81,9 @@ def _launch(x_q, w_q, sx, sw, out_dtype):
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     tc = kernel_path(k, n) == "wgmma"
-    if tc:
-        err = lib.fp8_matmul_wgmma_launch(
-            xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
-            out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype], stream)
-    else:
-        err = lib.fp8_matmul_launch(
+    launch = lib.fp8_matmul_wgmma_launch if tc else lib.fp8_matmul_launch
+    with torch.cuda.device(dev):        # the runtime launches on its device
+        err = launch(
             xq.data_ptr(), wq.data_ptr(), sxc.data_ptr(), swc.data_ptr(),
             out.data_ptr(), m, n, k, _OUT_DTYPES[out_dtype], stream)
     if err != 0:

@@ -133,10 +133,12 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
             _Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], k_pages.stride(0),
             k_pages.stride(1))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if tc:
-        err = lib.paged_chunk_attention_wgmma_launch(*args, n_total, stream)
-    else:
-        err = lib.paged_chunk_attention_launch(*args, stream)
+    with torch.cuda.device(dev):        # the runtime launches on its device
+        if tc:
+            err = lib.paged_chunk_attention_wgmma_launch(*args, n_total,
+                                                         stream)
+        else:
+            err = lib.paged_chunk_attention_launch(*args, stream)
     if err != 0:
         msg = lib.paged_chunk_attention_error_string(err).decode()
         raise RuntimeError(f"paged_chunk_attention launch failed: {msg}")
@@ -306,17 +308,19 @@ def _launch_decode(q, k_pages, v_pages, block_table, lengths):
         m = torch.empty((b, hq, units), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
         acc = torch.empty((b, hq, units, d), dtype=torch.float32, device=dev)
-        err = lib.paged_decode_attention_mma_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), ln.data_ptr(), out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), b, hq, hkv, d, page, n, n_pages,
-            _KV_DTYPES[k_pages.dtype], unit, stream)
+        with torch.cuda.device(dev):    # the runtime launches on its device
+            err = lib.paged_decode_attention_mma_launch(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                table.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, hq, hkv, d,
+                page, n, n_pages, _KV_DTYPES[k_pages.dtype], unit, stream)
     else:
-        err = lib.paged_decode_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-            page, n, _DECODE_Q_DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype],
-            stream)
+        with torch.cuda.device(dev):
+            err = lib.paged_decode_attention_launch(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                table.data_ptr(), ln.data_ptr(), out.data_ptr(), b, hq,
+                hkv, d, page, n, _DECODE_Q_DTYPES[q.dtype],
+                _KV_DTYPES[k_pages.dtype], stream)
     if err != 0:
         msg = lib.paged_decode_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: {msg}")

@@ -157,7 +157,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    return _launch(x, dt, A, Bm, Cm, chunk, init_state)
+    with torch.cuda.device(x.device):   # the runtime launches on its device
+        return _launch(x, dt, A, Bm, Cm, chunk, init_state)
 
 
 ssd.launches = 0

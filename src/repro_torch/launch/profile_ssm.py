@@ -5,7 +5,8 @@ width on the card with random weights from a seed (``--layers`` cuts
 the depth; a hybrid model's to whole periods), then traces with
 ``torch.profiler`` one ``prefill`` of ``--batch`` x ``--seq`` tokens
 (default 2 x 32,768; a VLM's first ``n_frontend_tokens`` of them are
-image embeddings), 8 ``decode_step``s at that batch after that prefill
+image embeddings; an encoder-decoder also encodes ``n_frontend_tokens``
+stub audio frames), 8 ``decode_step``s at that batch after that prefill
 and, for the SSM family, 8 at batch 128 from ``init_cache`` (its decode
 cost does not depend on the context), each after a warm-up.  For each
 it prints the device time by kernel and by category, the host wall time
@@ -16,6 +17,7 @@ step::
     python -m repro_torch.launch.profile_ssm
     python -m repro_torch.launch.profile_ssm --arch granite-moe-1b-a400m
     python -m repro_torch.launch.profile_ssm --arch jamba-v0.1-52b --layers 8
+    python -m repro_torch.launch.profile_ssm --arch whisper-medium
 """
 from __future__ import annotations
 
@@ -59,13 +61,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=ARCH,
                     help="a registry config the port serves (dense, moe, "
-                         "vlm, hybrid or ssm)")
+                         "vlm, hybrid, encdec or ssm)")
     ap.add_argument("--batch", type=int, default=PROMPT[0])
     ap.add_argument("--seq", type=int, default=PROMPT[1],
                     help="prompt length (a multiple of 512 above 512: the "
                          "blocked attention schedule)")
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (0: full)")
+                    help="cut the depth to this many layers (0: full; "
+                         "an encoder-decoder: each stack)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import get_config
@@ -73,7 +76,10 @@ def main(argv=None) -> None:
 
     cfg = get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cut = {"n_layers": args.layers}
+        if cfg.family == "encdec":
+            cut.update(n_enc_layers=args.layers, n_dec_layers=args.layers)
+        cfg = dataclasses.replace(cfg, **cut)
     api = registry.get_api(cfg)
     if api.prefill is None:
         raise SystemExit(f"{args.arch}: no token serving surface")
@@ -87,6 +93,10 @@ def main(argv=None) -> None:
         kw["img_embeds"] = 0.02 * torch.randn(
             (b, n_img, cfg.d_model), generator=gen, device=dev).to(
                 params["embed"].dtype)
+    if cfg.family == "encdec":
+        kw["audio_embeds"] = 0.02 * torch.randn(
+            (b, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device=dev).to(params["embed"].dtype)
     tokens = torch.randint(0, cfg.vocab_size, (b, s - n_img),
                            generator=gen, device=dev)
     acts = [torch.profiler.ProfilerActivity.CPU,

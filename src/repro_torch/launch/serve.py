@@ -28,6 +28,8 @@ one-line ``Summary.row()`` as the reference launcher::
         --device cpu --streams 2 --chunks 2  # plain versions, on the host
     PYTHONPATH=src python -m repro_torch.launch.serve --real --lanes 2 \\
         --workload burst --streams 4 --chunks 2 --arrival-scale 0.2
+    PYTHONPATH=src python -m repro_torch.launch.serve --real --lanes 2 \\
+        --device-count 2 --workload burst --streams 4   # one card a lane
     PYTHONPATH=src python -m repro_torch.launch.serve --real --batched \\
         --step-cache              # the step cache as a fifth knob
     PYTHONPATH=src python -m repro_torch.launch.serve --real \\
@@ -37,9 +39,11 @@ one-line ``Summary.row()`` as the reference launcher::
 
 ``--lanes N`` serves through N batched executors (one KV pool each, all
 on ``--device``) with re-homing and elastic SP on, as the reference's
-``--lanes`` does.  The reference's ``--device-count`` forces XLA host
-devices; here only its default 0 is taken (lanes on different devices
-wait for their slice).  The model is the reduced ``ardit-self-forcing``
+``--lanes`` does.  ``--device-count N`` round-robins the lanes over the
+first N cards (``cuda:0`` ... ``cuda:N-1``) and stops with an error
+when fewer are visible; it never puts a lane on the CPU (the
+reference's flag forces N XLA host devices, which torch has no
+counterpart of).  The model is the reduced ``ardit-self-forcing``
 config unless ``--arch`` names a registry config (``--arch
 ardit-self-forcing`` is full width); ``--models`` co-serves reduced
 registry configs, each stream tagged round-robin.
@@ -70,9 +74,9 @@ def main() -> None:
                          "is the primary bundle and the report adds "
                          "per-model Summary rows")
     ap.add_argument("--device-count", type=int, default=0,
-                    help="the reference's forced XLA host device count; "
-                         "only 0 here (lanes on different devices are not "
-                         "ported)")
+                    help="round-robin the lanes over this many cards "
+                         "(0: every lane on --device; more than are "
+                         "visible is an error)")
     ap.add_argument("--batched", action="store_true",
                     help="credit-ordered micro-batch executor (default: "
                          "the sequential executor)")
@@ -141,9 +145,17 @@ def main() -> None:
         if args.arch:
             ap.error("--models and --arch are exclusive")
         args.batched = True          # co-serving rides the batched path
+    devices = None
     if args.device_count:
-        ap.error("--device-count: lanes on different devices are not "
-                 "ported; only 0 is taken")
+        if not args.real:
+            ap.error("--device-count only applies to --real")
+        import torch
+        visible = torch.cuda.device_count()
+        if args.device_count > visible:
+            ap.error(f"--device-count {args.device_count}: {visible} "
+                     "card(s) visible")
+        devices = [f"cuda:{i}" for i in range(args.device_count)]
+        args.batched = True          # device lanes ride the batched path
     if args.pool_streams and not (args.real and args.batched):
         ap.error("--pool-streams only applies to --real --batched")
     if multi and not args.real:
@@ -195,6 +207,7 @@ def main() -> None:
         models=model_list or None,
         model_cfg=get_config(args.arch) if args.arch else None,
         device=args.device,
+        devices=devices,
         verbose=True))
     for spec in specs:
         session.submit(spec)

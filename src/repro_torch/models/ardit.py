@@ -21,6 +21,12 @@ attention sees the cached context:
   the same, with the KV heads split between a home and a donor pool,
   each half read through a head-range view of its pool.
 
+The ring batched cache (``init_batched_cache``, ``chunk_step``,
+``append_chunk_kv_batched``, ``serve_chunk_batched``) keeps a batch of
+streams in one fixed-capacity [L, B, cap, Hkv, Dh] ring and reads it
+through per-row visibility masks: ``mha``'s plain masked segment on
+every device, as the reference runs that segment in jnp on the TPU too.
+
 The stacked ``[L, ...]`` layer parameters are consumed by a Python loop
 (the reference's ``lax.scan``).  Training waits for its slice (ROADMAP).
 """
@@ -589,3 +595,72 @@ def batched_context_mask_multi(cfg: ModelConfig, chunks: np.ndarray,
             slot = COND_TOKENS + (c_abs % w_max) * tc + body % tc
             mask[i, slot] = True
     return mask
+
+
+def chunk_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               t: torch.Tensor, ctx_k: Optional[torch.Tensor],
+               ctx_v: Optional[torch.Tensor], q_offset,
+               ctx_mask: Optional[torch.Tensor], sparsity: float = 0.0):
+    """One denoise-step forward of the ring batched path (the
+    reference's jitted entry; eager here): ``chunk_forward`` over the
+    ring with the per-row ``ctx_mask``."""
+    return chunk_forward(cfg, p, x, t, ctx_k, ctx_v, q_offset=q_offset,
+                         sparsity=sparsity, ctx_mask=ctx_mask)
+
+
+def append_chunk_kv_batched(cfg: ModelConfig, cache: Dict[str, Any],
+                            new_kv: Dict[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+    """Ring-write one new chunk of KV per stream at its own slot (IN
+    PLACE into ``cache``'s tensors; the host-side chunk counts advance
+    in the returned dict)."""
+    chunks = np.asarray(cache["chunks"], np.int64)
+    dest = torch.as_tensor(kvcache.chunk_slot(
+        chunks, cfg.ardit_window_chunks, COND_TOKENS, chunk_tokens(cfg)))
+    return {"k": kvcache.write_block_layers(cache["k"], new_kv["k"], dest),
+            "v": kvcache.write_block_layers(cache["v"], new_kv["v"], dest),
+            "chunks": chunks + 1}
+
+
+def serve_chunk_batched(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
+                        noise: torch.Tensor,
+                        fidelity: FidelityConfig = HIGHEST_QUALITY,
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One chunk for every stream of a ring batched cache under one
+    shared fidelity configuration (one same-fidelity sub-batch).
+
+    noise: [B, T_c, LATENT_CH]; streams may sit at different chunk
+    indices.  Per stream, ``serve_chunk``'s function: ``steps`` Euler
+    steps over the denoise mask, then a clean-context pass over the
+    full (unsparsified) window whose KV (rounded through fp8-e4m3 under
+    knob Q, with the reference's overflow semantics) is ring-written
+    into the cache."""
+    tc = chunk_tokens(cfg)
+    dev = noise.device
+    b = noise.shape[0]
+    chunks = np.asarray(cache["chunks"], np.int64)
+    q_offset = torch.as_tensor(COND_TOKENS + chunks * tc,
+                               dtype=torch.int32, device=dev)
+    dn_mask = torch.as_tensor(batched_context_mask(
+        cfg, chunks, fidelity.window, fidelity.sparsity), device=dev)
+
+    grid = sigma_schedule(fidelity.steps)
+    x = noise
+    for i in range(fidelity.steps):
+        t = torch.full((b,), float(grid[i]), dtype=torch.float32,
+                       device=dev)
+        v_pred, _ = chunk_step(cfg, p, x, t, cache["k"], cache["v"],
+                               q_offset, dn_mask)
+        dt = float(grid[i] - grid[i + 1])
+        x = x - dt * v_pred.to(x.dtype)
+
+    # the clean-context pass sees the full (unsparsified) window
+    clean_mask = torch.as_tensor(batched_context_mask(
+        cfg, chunks, fidelity.window), device=dev)
+    t0 = torch.zeros((b,), dtype=torch.float32, device=dev)
+    _, clean_kv = chunk_step(cfg, p, x, t0, cache["k"], cache["v"],
+                             q_offset, clean_mask)
+    if fidelity.quant == "fp8":
+        clean_kv = {k_: kvcache.to_fp8_e4m3(v_)
+                    for k_, v_ in clean_kv.items()}
+    return x, append_chunk_kv_batched(cfg, cache, clean_kv)

@@ -5,7 +5,9 @@ Token caches (the registry's transformer and hybrid families): slots
 the sliding window (``capacity``, ``ring_dest``, ``write_token``,
 ``n_valid``, ``place_prefill``).  When ``cap >= seq_len`` the ring
 degenerates to a plain linear cache (dest == pos), so the same code
-serves the full cache and the windowed one.
+serves the full cache and the windowed one.  The AR-DiT's ring batched
+cache appends a chunk per stream at its ring slot (``chunk_slot``,
+``write_block{,_layers}``).
 
 The page-granular pool (``serve/batcher.py::KVPool``) keeps KV as
 [L, n_pages, page_tokens, Hkv, Dh] and each stream owns a page *table*:
@@ -105,6 +107,36 @@ def chunk_slot(chunk_idx, window_chunks: int, sink: int,
     ring holds ``window_chunks`` chunks of ``chunk_tokens`` each.
     ``chunk_idx`` may be an int or a per-stream integer array/tensor."""
     return sink + (chunk_idx % window_chunks) * chunk_tokens
+
+
+def write_block(cache: torch.Tensor, new: torch.Tensor,
+                dest: torch.Tensor) -> torch.Tensor:
+    """cache [B,cap,...]; new [B,T,...]; dest [B] first-token slot ->
+    the cache, written IN PLACE and returned.
+
+    Block-granular sibling of ``write_token``: a contiguous T-token block
+    per batch row at a per-row slot (the ring batched cache appends one
+    chunk's KV per stream this way), as one indexed write.  A slot past
+    ``cap - T`` writes the last T slots, as the reference's
+    ``dynamic_update_slice`` clamps its start; the cast is the
+    reference's (``to_fp8_e4m3`` into an e4m3 cache)."""
+    write_block_layers(cache[None], new[None], dest)
+    return cache
+
+
+def write_block_layers(cache: torch.Tensor, new: torch.Tensor,
+                       dest: torch.Tensor) -> torch.Tensor:
+    """``write_block`` over a leading layer axis, IN PLACE: cache
+    [L,B,cap,...]; new [L,B,T,...]; dest [B]."""
+    b, t = new.shape[1], new.shape[2]
+    dest = torch.clamp(torch.as_tensor(dest, device=cache.device).long(),
+                       0, cache.shape[2] - t)
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cols = dest[:, None] + torch.arange(t, device=cache.device)[None, :]
+    if cache.dtype == torch.float8_e4m3fn and new.dtype != cache.dtype:
+        new = to_fp8_e4m3(new)
+    cache[:, rows, cols] = new.to(cache.dtype)
+    return cache
 
 
 def pages_per_stream(window_chunks: int) -> int:

@@ -7,9 +7,10 @@ has ``jax.ShapeDtypeStruct``: the same shapes and dtypes, nothing
 allocated.  The port serves ``ardit`` (the paper's model; served through
 ``serve/``, so its prefill / decode entries are None, as in the
 reference), ``ssm`` (Mamba-2), ``dense`` / ``moe`` / ``vlm``
-(``models/transformer.py``) and ``hybrid`` (``models/hybrid.py``).  The
-training losses and the ``encdec`` family wait for their ROADMAP items
-and raise ``NotImplementedError`` naming them.
+(``models/transformer.py``), ``hybrid`` (``models/hybrid.py``) and
+``encdec`` (``models/encdec.py``, whisper-medium).  The training losses
+wait for their ROADMAP item and raise ``NotImplementedError`` naming
+it.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 
 # ROADMAP "Modules to port", "Waiting": the item each missing part waits for
 _TRAINING = "ROADMAP 'Modules to port', Waiting: training"
-_ENCDEC = "ROADMAP 'Modules to port', Waiting: encdec (whisper-medium)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +59,10 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
                         _not_ported("hybrid.train_loss", _TRAINING),
                         M.prefill, M.decode_step, M.init_cache)
     if fam == "encdec":
-        raise NotImplementedError(
-            f"model family 'encdec' is not ported yet ({_ENCDEC})")
+        from repro_torch.models import encdec as M
+        return ModelAPI(M.init_params,
+                        _not_ported("encdec.train_loss", _TRAINING),
+                        M.prefill, M.decode_step, M.init_cache)
     if fam == "ardit":
         from repro_torch.models import ardit as M
         return ModelAPI(M.init_params,

@@ -1,25 +1,36 @@
-"""Multi-lane serving: N lanes under one control plane, on one device.
+"""Multi-lane serving: N device-backed lanes under one control plane.
 
 A *lane* is one execution slot — one ``BatchedChunkExecutor`` with its
 own paged ``KVPool`` — standing in for one Worker of the paper's
-cluster (SS3.1).  All lanes of a ``LanePool`` live on the one
-``device`` it is given (default the card): each has its own pool, and
-the lanes share one params replica and one transfer engine (one metrics
-surface).  ``LanePool`` is the **apply layer** for the cross-worker
-decisions ``core.control_plane.ControlPlane.tick`` emits:
+cluster (SS3.1).  Lane i lives on ``devices[i % len(devices)]`` (the
+reference's round-robin over ``jax.devices()``); without ``devices``
+every lane lives on the one ``device`` (default the card).  Each lane
+has its own pool and its own view of the one params replica (a copy on
+its device), and the lanes share one transfer engine (one metrics
+surface).  A move between lanes on different devices is a real
+``.to(device)`` timed on the spot (:meth:`_measured_put`) and recorded
+on the engine, whose measurements calibrate the model's ``bw_intra``.
+``LanePool`` is the **apply layer** for the cross-worker decisions
+``core.control_plane.ControlPlane.tick`` emits:
 
 * ``rehoming.Migration`` -> :meth:`migrate`: a real cross-lane KV move.
-  The source detaches the stream's pages host-side
+  Lanes on one device detach the stream's pages host-side
   (``KVPool.export_spill``, bit-exact) and the destination adopts them
-  through its normal restore path.  ONE src->dst transfer is charged on
-  the shared ``state_plane.AsyncTransferEngine`` (cross-node bandwidth
-  when the lanes' nodes differ) and the bytes are attributed
-  directionally: source ``transfer_bytes_out``, destination
+  through its normal restore path; lanes on different devices ship the
+  resident page block device to device (measured) and land it resident
+  at once (``KVPool.import_pages``).  Either way ONE src->dst transfer
+  is charged on the shared ``state_plane.AsyncTransferEngine``
+  (cross-node bandwidth when the lanes' nodes differ) and the bytes are
+  attributed directionally: source ``transfer_bytes_out``, destination
   ``transfer_bytes_in``.
 * ``elastic_sp.SPDecision`` -> :meth:`sp_expand` / :meth:`sp_release`,
-  in one of two modes (``SPLink.mode``):
+  in one of two modes (``SPLink.mode``), chosen by ``sp_mode``:
+  ``"auto"`` (the default, as in the reference) takes batch mode for
+  lanes on different devices (the head-split step reads both pools in
+  one call) and solo mode otherwise; ``"batch"`` takes batch mode for
+  lanes on one device too.
 
-  - **solo** (``sp_mode="solo"``, the default): expand copies the
+  - **solo**: expand copies the
     stream's UPPER half KV heads into a page set of the donor lane's
     pool (the App. C.4 head-partition transfer: half the stream's
     bytes) and the executor serves it with the Ulysses head-split
@@ -30,26 +41,27 @@ decisions ``core.control_plane.ControlPlane.tick`` emits:
     dispatched solo, so the donor's step slot is genuinely occupied.
     The home pool stays the full-head system of record; release just
     frees the donor pages.
-  - **batch** (``sp_mode="batch"``): expand copies FULL-head pages into
-    the donor pool and the borrowed stream joins the *batch axis* of
-    the donor's own sub-batch — co-served with the donor's streams in
-    the donor's ordinary ``denoise_step_paged`` call, consuming no solo
-    dispatch slot.  Each completed chunk's KV is appended to the home
-    pool too, which therefore stays the system of record: release frees
-    the donor pages and moves nothing back.
+  - **batch**: expand copies FULL-head pages into the donor pool (a
+    measured move when the donor is on another device) and the
+    borrowed stream joins the *batch axis* of the donor's own sub-batch
+    — co-served with the donor's streams in the donor's ordinary
+    ``denoise_step_paged`` call, consuming no solo dispatch slot.  Each
+    completed chunk's KV is shipped back to the home pool (``KVPool.
+    _write`` lands it on the home device), which therefore stays the
+    system of record: release frees the donor pages and moves nothing
+    back.
 
   Both modes are bit-identical to the SP1 step wherever the
   computation per head does not depend on the number of heads or rows
   in a call (the plain versions on the CPU; on the card, see
-  ``PERF.md``).
+  ``PERF.md``).  Across devices the guest rows round as their donor's
+  device rounds: the card and the CPU agree within the executor
+  tolerance, not bit for bit.
 
 The reference's ``prejit_sp`` warms JAX's compile caches for the
 head-split step; PyTorch runs eagerly and the kernels are instantiated
 per head dim, not per head count, so there is nothing to warm and it
-has no counterpart here.  Lanes on DIFFERENT devices wait for their
-slice (ROADMAP): the direct device-to-device migration, the timed
-``_measured_put`` and batch-axis SP forced by a device difference raise
-``NotImplementedError``.
+has no counterpart here.
 
 **Heterogeneous co-serving** (``bundles=``, ``serve.modelplane``): the
 pool holds one executor + paged ``KVPool`` per *(bundle, lane)*, each
@@ -73,14 +85,14 @@ from repro_torch.models import kvcache
 from repro_torch.serve.batcher import (BatchedChunkExecutor, KVPool, SPGuest,
                                        SPLink, _nbytes)
 
-_CROSS_DEVICE = ("lanes on different devices (direct device-to-device "
-                 "migration, measured puts, device-forced batch SP) wait "
-                 "for their slice (ROADMAP: port queue)")
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class LanePool:
-    """One ``BatchedChunkExecutor`` per lane, all on ``device``, + the
-    decision apply layer.
+    """One ``BatchedChunkExecutor`` per lane + the decision apply layer.
 
     ``lane_of`` maps every admitted stream to its current home lane;
     migrations move it.  Counters (``n_migrations``, ``n_sp_expands``,
@@ -92,27 +104,35 @@ class LanePool:
                  seed: int = 0, max_streams: int = 16,
                  context_backend: str = "paged",
                  engine: Optional[AsyncTransferEngine] = None,
-                 sp_mode: str = "solo", page_evict: bool = False,
+                 sp_mode: str = "auto", page_evict: bool = False,
                  device: Any = "cuda",
+                 devices: Optional[Sequence[Any]] = None,
                  bundles: Optional[Sequence[Any]] = None):
         if n_lanes < 1:
             raise ValueError(f"n_lanes {n_lanes}: at least 1")
-        if sp_mode not in ("solo", "batch"):
-            raise ValueError(f"sp_mode {sp_mode!r}: 'solo' or 'batch'")
+        if sp_mode not in ("auto", "batch"):
+            raise ValueError(f"sp_mode {sp_mode!r}: 'auto' or 'batch'")
+        # lane i on devices[i % n] (the reference's round-robin over its
+        # runtime's devices); without ``devices`` every lane on ``device``
+        self.lane_devices = ([torch.device(devices[i % len(devices)])
+                              for i in range(n_lanes)] if devices
+                             else [torch.device(device)] * n_lanes)
         if bundles:
             cfg, params = bundles[0].cfg, bundles[0].params
         first = BatchedChunkExecutor(cfg=cfg, params=params, seed=seed,
                                      max_streams=max_streams,
                                      context_backend=context_backend,
-                                     engine=engine, device=device,
+                                     engine=engine,
+                                     device=self.lane_devices[0],
                                      page_evict=page_evict)
         executors = [first] + [
             BatchedChunkExecutor(cfg=first.cfg, params=first.params,
                                  max_streams=max_streams,
                                  context_backend=context_backend,
-                                 engine=first.pool.engine, device=device,
+                                 engine=first.pool.engine,
+                                 device=self.lane_devices[lane],
                                  page_evict=page_evict)
-            for _ in range(1, n_lanes)]
+            for lane in range(1, n_lanes)]
         self._init(executors, first.pool.engine, sp_mode)
         if bundles:
             self.bundle_executors[bundles[0].name] = self.executors
@@ -121,9 +141,10 @@ class LanePool:
                     BatchedChunkExecutor(cfg=b.cfg, params=b.params,
                                          max_streams=max_streams,
                                          context_backend=context_backend,
-                                         engine=self.engine, device=device,
+                                         engine=self.engine,
+                                         device=self.lane_devices[lane],
                                          page_evict=page_evict)
-                    for _ in range(n_lanes)]
+                    for lane in range(n_lanes)]
 
     @classmethod
     def wrap(cls, executor: Any) -> "LanePool":
@@ -132,9 +153,10 @@ class LanePool:
         executor, which has no page pool)."""
         self = cls.__new__(cls)
         pool = getattr(executor, "pool", None)
+        self.lane_devices = [executor.device]
         self._init([executor],
                    pool.engine if pool is not None else executor.engine,
-                   "solo")
+                   "auto")
         return self
 
     def _init(self, executors: List[Any], engine: AsyncTransferEngine,
@@ -205,10 +227,10 @@ class LanePool:
     def latency_ema_get(self, key: str, default: float,
                         model: Optional[str] = None) -> float:
         """Measured chunk-latency EMA for a fidelity, averaged over the
-        lanes that have observed it (the lanes share one device, so
-        their EMAs estimate the same quantity).  ``model`` scopes the
-        read to that bundle's executors: fidelity keys collide across
-        co-served models."""
+        lanes that have observed it (their EMAs estimate the same
+        quantity where the lanes' devices are of one kind).  ``model``
+        scopes the read to that bundle's executors: fidelity keys collide
+        across co-served models."""
         exs = (self.bundle_executors.get(model, self.executors)
                if model is not None else self.executors)
         vals = [ex.latency_ema[key] for ex in exs
@@ -254,21 +276,44 @@ class LanePool:
         # model_of is kept: the generated chunks stay in the bundle's
         # executor, so chunks_of / handle reads still route there
 
-    def _same_device(self, a: Any, b: Any) -> None:
-        if getattr(a, "device", None) != getattr(b, "device", None):
-            raise NotImplementedError(_CROSS_DEVICE)
+    # ---- real device moves -------------------------------------------------
+    def _measured_put(self, pages: Dict[str, torch.Tensor], device: Any,
+                      *, cross_node: bool = False,
+                      kind: str = "move") -> Dict[str, torch.Tensor]:
+        """Move a dict of tensors (a stream's ``k`` / ``v`` pages) onto
+        ``device`` with ``.to``, timing the copy wall to wall (the
+        source devices synchronized first, so pending compute does not
+        count; the destination after) and recording the measured move on
+        the shared engine, which calibrates its bandwidth model from the
+        observed bytes/s."""
+        device = torch.device(device)
+        for dev in {t.device for t in pages.values()}:
+            _sync(dev)
+        t0 = time.perf_counter()
+        moved = {n: t.to(device) for n, t in pages.items()}
+        _sync(device)
+        self.engine.record_measured(sum(_nbytes(t) for t in pages.values()),
+                                    time.perf_counter() - t0,
+                                    cross_node=cross_node, kind=kind)
+        return moved
 
     # ---- decision apply: re-homing -----------------------------------------
     def migrate(self, sid: int, src: int, dst: int, *,
                 cross_node: bool = False) -> bool:
-        """Apply one ``rehoming.Migration`` as a real KV move through the
-        host-spill path: the source detaches the stream's pages to host
-        memory and the destination adopts them, landing them in its pool
-        right away when there is room.  The stream's KV is bit-identical
-        after the move.  Returns False (decision dropped) when the
-        stream is mid-chunk, SP-linked or not on ``src`` — states the
-        planner excludes, re-checked here because the executor, not the
-        planner, owns ground truth."""
+        """Apply one ``rehoming.Migration`` as a real KV move.  Returns
+        False (decision dropped) when the stream is mid-chunk, SP-linked
+        or not on ``src`` — states the planner excludes, re-checked here
+        because the executor, not the planner, owns ground truth.
+
+        Lanes on different devices take the DIRECT path: the source's
+        resident pages are handed over as device tensors and moved onto
+        the destination lane's device (measured, recorded on the
+        engine), landing straight in the destination page table — no
+        host round trip.  Lanes on one device (or a parked source
+        stream, or a full destination pool) keep the host-spill path:
+        the pages go to host memory and the destination adopts them,
+        landing them in its pool right away when there is room.  Either
+        way the stream's KV is bit-identical after the move."""
         if self.lane_of.get(sid) != src or src == dst:
             return False
         # same-model-only: both ends are the stream's own bundle's
@@ -277,18 +322,25 @@ class LanePool:
         src_ex, dst_ex = self.ex_for(src, model), self.ex_for(dst, model)
         if sid in src_ex.inflight or sid in src_ex.sp_links:
             return False
-        self._same_device(src_ex, dst_ex)
-        state = src_ex.export_stream(sid, to_host=True)
+        direct = (dst_ex.device != src_ex.device
+                  and src_ex.pool.resident(sid)
+                  and dst_ex.pool.can_admit())
+        state = src_ex.export_stream(sid, to_host=not direct)
         src_ex.pool.transfer_bytes_out += (_nbytes(state["pages"]["k"])
                                            + _nbytes(state["pages"]["v"]))
-        dst_ex.import_stream(sid, state, cross_node=cross_node)
+        if direct:
+            state["pages"] = self._measured_put(
+                state["pages"], dst_ex.device, cross_node=cross_node,
+                kind="migration")
+        dst_ex.import_stream(sid, state, cross_node=cross_node,
+                             direct=direct)
         self.lane_of[sid] = dst
         # land it in the destination pool right away when there is room
         # — the import already charged the src->dst move, so this
         # restore is free; under pressure the stream stays parked and
         # rejoins via ensure_resident (a genuine second movement,
-        # charged then)
-        if dst_ex.pool.can_admit():
+        # charged then).  The direct path is already page-resident.
+        if not direct and dst_ex.pool.can_admit():
             dst_ex.pool.restore(sid, charge=False)
             dst_ex._boundary_cache.clear()
         self.n_migrations += 1
@@ -296,10 +348,13 @@ class LanePool:
 
     # ---- decision apply: elastic SP ----------------------------------------
     def _sp_mode_for(self, home_ex: Any, donor_ex: Any) -> str:
-        """Serving mode of a new SP link: ``sp_mode`` (the reference
-        also forces batch mode across devices, which wait here)."""
-        self._same_device(home_ex, donor_ex)
-        return self.sp_mode
+        """Serving mode of a new SP link.  Lanes on DIFFERENT devices
+        always use batch-axis SP: the head-split step reads both pools in
+        one call, which cannot span two devices.  Lanes on one device
+        take the solo head split unless ``sp_mode`` is "batch"."""
+        if home_ex.device != donor_ex.device:
+            return "batch"
+        return "batch" if self.sp_mode == "batch" else "solo"
 
     def sp_expand(self, sid: int, donor: int,
                   streams: Optional[Dict[int, Stream]] = None) -> bool:
@@ -389,13 +444,17 @@ class LanePool:
 
     def _copy_sp_full(self, home: KVPool, dpool: KVPool, sid: int) -> int:
         """Copy the stream's FULL-head pages into the donor pool's page
-        set (batch-axis SP).  Verbatim copy — the donor then serves the
+        set (batch-axis SP): a measured move when the pools live on
+        different devices.  Verbatim copy — the donor then serves the
         stream with the ordinary SP1 step over bit-identical values."""
         rows = torch.as_tensor(home.table_rows(sid), dtype=torch.long,
                                device=home.device)
-        k, v = home.k[:, rows], home.v[:, rows]
-        dpool._write(dpool.ledger.tables[sid], k, v)
-        return _nbytes(k) + _nbytes(v)
+        pages = {"k": home.k[:, rows], "v": home.v[:, rows]}
+        if dpool.device != home.device:
+            pages = self._measured_put(pages, dpool.device,
+                                       kind="sp-expand")
+        dpool._write(dpool.ledger.tables[sid], pages["k"], pages["v"])
+        return _nbytes(pages["k"]) + _nbytes(pages["v"])
 
     def sp_release(self, sid: int) -> None:
         """Apply one SP release at a safe boundary: drop the link and

@@ -24,12 +24,14 @@ the scaled profile estimate once it exists (online re-profiling).
 
 Multi-lane sessions (``SessionConfig.lanes > 1``): the session owns a
 ``serve.lanes.LanePool`` — one ``BatchedChunkExecutor`` (own paged KV
-pool) per lane, all on ``SessionConfig.device`` (default the card),
-lanes grouped into nodes via ``workers_per_node`` — and the cluster view
-grows one Worker per lane, which turns on the cross-worker mechanisms:
-``rehoming.Migration`` decisions become real cross-lane KV moves and
-``elastic_sp.SPDecision`` a real Ulysses head-split SP2 step over the
-donor lane's pool (released at the next safe boundary).
+pool) per lane, all on ``SessionConfig.device`` (default the card) or
+round-robin over ``SessionConfig.devices``, lanes grouped into nodes via
+``workers_per_node`` — and the cluster view grows one Worker per lane,
+which turns on the cross-worker mechanisms: ``rehoming.Migration``
+decisions become real cross-lane KV moves and ``elastic_sp.SPDecision``
+a real Ulysses head-split SP2 step over the donor lane's pool, or a
+batch-axis borrow between lanes on different devices (released at the
+next safe boundary).
 
 Co-served models (``SessionConfig.models``, ``serve.modelplane``): one
 executor + paged KV pool per (model, lane), each stream routed to its
@@ -76,7 +78,9 @@ class SessionConfig:
     into nodes for Algorithm 1's and SS4.3's intra-node preferences (0 =
     all lanes in one node).
     ``device`` is where the executor's params, KV pool and kernels live
-    (default the card; ``"cpu"`` runs the plain PyTorch versions).
+    (default the card; ``"cpu"`` runs the plain PyTorch versions);
+    ``devices`` (batched executor) round-robins the lanes over these
+    devices instead, lane i on ``devices[i % len(devices)]``.
     ``pool_streams`` caps co-resident streams in the page pool.
     ``tick_interval`` is the control-tick cadence in session seconds; 0
     runs Algorithm 2 at every scheduler iteration.  ``arrival_scale``
@@ -116,6 +120,7 @@ class SessionConfig:
     # forced OFF in a real session
     front_door: Optional[FrontDoorConfig] = None
     device: Any = "cuda"
+    devices: Optional[List[Any]] = None
 
 
 @dataclasses.dataclass
@@ -319,7 +324,7 @@ class StreamingSession:
                 max_streams=self.cfg.pool_streams or 16,
                 context_backend=self.cfg.context_backend,
                 page_evict=self.cfg.page_evict, device=self.cfg.device,
-                bundles=self.bundles)
+                devices=self.cfg.devices, bundles=self.bundles)
         self.executor = self.lanes.ex(0)
 
         if self.bundles is not None and fidelity_policy is None:

@@ -29,7 +29,9 @@ lengths, causal with ``q_offset``, sink + window, the rho keep matrix at
 blocks that are not the kernels' tiles, GQA 4, causal GQA 2 at
 granite-moe's 16 / 8 heads, rows that see nothing), the
 tensor-core kernel (bf16 at D 64, 96 and 128) at lengths that cross and
-miss its 128-row and 128-key tiles, ``mha``'s dispatch, and the inputs
+miss its 128-row and 128-key tiles (whisper-medium's 1,500 encoder
+frames and its one-row decode cross-attention among them), ``mha``'s
+dispatch, and the inputs
 the wrapper refuses; every launch is checked to take the path
 ``kernel_path`` names.  Tolerance: 1e-4 for fp32 outputs; 2 bf16 ulps at
 the output's largest magnitude for bf16 outputs (the CUDA-core kernel
@@ -89,9 +91,9 @@ of its largest magnitude.  A scan's outputs grow with its inputs (unlike
 attention's averages), so the fp32 limit is relative to them; both sides
 accumulate in fp32 and differ in summation order only.
 
-The reduced dense, MoE, VLM and hybrid configs (fp32, TF32 off) on the
-card against the same params and inputs on the CPU: prefill logits and
-cache, then three decode steps, within 1e-4.
+The reduced dense, MoE, VLM, hybrid and encoder-decoder configs (fp32,
+TF32 off) on the card against the same params and inputs on the CPU:
+prefill logits and cache, then three decode steps, within 1e-4.
 
 The step cache's two device functions on the card against the same
 functions on the CPU: the hit AXPY ``x - dt * v`` (one multiply-add per
@@ -290,7 +292,9 @@ def test_flash_kernel_matches_plain_version(card, mode, D, dtype):
 
 FLASH_TC_LENGTHS = [  # Sq, Skv, causal: across and short of 128-wide tiles
     (1, 1, False), (127, 129, False), (129, 255, False), (300, 77, False),
-    (200, 1000, True), (257, 700, True), (300, 77, True)]
+    (200, 1000, True), (257, 700, True), (300, 77, True),
+    # whisper-medium's encoder (1500 frames) and decode-step cross-attention
+    (1500, 1500, False), (1, 1500, False)]
 
 
 @pytest.mark.parametrize("lengths", FLASH_TC_LENGTHS,
@@ -942,7 +946,7 @@ def test_step_cache_on_the_card_matches_the_cpu(card, steps):
 
 
 FAMILY_ARCHS = ["minitron-8b", "granite-moe-1b-a400m", "internvl2-26b",
-                "jamba-v0.1-52b"]
+                "jamba-v0.1-52b", "whisper-medium"]
 
 
 def _tree_to(tree, dev):
@@ -981,8 +985,9 @@ def test_reduced_families_on_the_card_match_the_cpu(card, arch):
     tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
     steps = torch.randint(0, cfg.vocab_size, (3, 2, 1), generator=gen)
     kw = {}
-    if cfg.family == "vlm":
-        kw["img_embeds"] = 0.02 * torch.randn(
+    stub = {"vlm": "img_embeds", "encdec": "audio_embeds"}.get(cfg.family)
+    if stub:
+        kw[stub] = 0.02 * torch.randn(
             (2, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
     runs = {}
     for dev in ("cpu", card):

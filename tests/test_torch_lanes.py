@@ -22,10 +22,13 @@ each chunk with the same number of rows: the sessions serve one stream
 per step (``max_batch=1``), and a batch-axis guest co-served with a
 donor stream is held to the SP1 step co-served the same way.
 
-Left out: the forced-device subprocess matrices
-(``test_device_lanes.py::test_forced_{2,4}_device_parity_matrix``).
-They run the reference with XLA's forced host devices, which torch has
-no counterpart of; lanes on different devices wait for their slice.
+Lanes on different devices: the reference's forced-device matrices
+(``test_device_lanes.py::test_forced_{2,4}_device_parity_matrix``) run
+on XLA's forced host devices, which torch has no counterpart of.  Here
+the same paths (round-robin placement, direct measured migration,
+batch-axis SP forced by the device difference, a session) run on two
+host device objects that compare unequal, bit for bit; the card + CPU
+pair is in ``tests/test_torch_device_lanes_cuda.py``.
 """
 import dataclasses
 
@@ -330,20 +333,10 @@ def _assert_same_chunks(sess, ref, chunks):
                                            f"from the single-lane session")
 
 
-def test_multi_lane_session_applies_decisions_bit_identically():
-    """A 2-lane session that REALLY migrates one stream and REALLY
-    expands + releases SP on another produces, under a fixed fidelity,
-    chunks bit-identical to the single-lane session, and reports the
-    applied counts on the metrics surface."""
-    n, chunks = 2, 3
-    p = open_params(tiny_cfg())
-    ref = _ref_chunks([chunks] * n, p)
-    sess = session(2, n + 1, p, max_batch=1)
-    assert sess.lanes.n_lanes == 2 and sess.control.config.use_elastic_sp
-    for spec in specs([chunks] * n):
-        sess.submit(spec)
-    # force one migration and one SP expand/release through the SAME
-    # tick -> apply path the control plane uses
+def _force_migration_and_sp(sess):
+    """Force one migration of stream 0 and one SP expand + release of
+    stream 1 through the SAME tick -> apply path the control plane
+    uses."""
     state = {"mig": False, "sp": False, "rel": False}
     orig_tick = sess.control.tick
 
@@ -370,6 +363,21 @@ def test_multi_lane_session_applies_decisions_bit_identically():
         return d
 
     sess.control.tick = tick
+
+
+def test_multi_lane_session_applies_decisions_bit_identically():
+    """A 2-lane session that REALLY migrates one stream and REALLY
+    expands + releases SP on another produces, under a fixed fidelity,
+    chunks bit-identical to the single-lane session, and reports the
+    applied counts on the metrics surface."""
+    n, chunks = 2, 3
+    p = open_params(tiny_cfg())
+    ref = _ref_chunks([chunks] * n, p)
+    sess = session(2, n + 1, p, max_batch=1)
+    assert sess.lanes.n_lanes == 2 and sess.control.config.use_elastic_sp
+    for spec in specs([chunks] * n):
+        sess.submit(spec)
+    _force_migration_and_sp(sess)
     res = sess.run()
     assert res.n_migrations_applied >= 1
     assert res.n_sp_expands_applied >= 1
@@ -687,21 +695,180 @@ def test_direct_export_import_pages_bit_exact():
         np.testing.assert_array_equal(a, b)
 
 
-def test_lanes_on_other_devices_wait():
-    """The cross-device paths (direct migration, device-forced batch SP)
-    raise until their slice, instead of quietly taking another path."""
+# ---------------------------------------------------------------------------
+# lanes on different devices
+# ---------------------------------------------------------------------------
+
+# two device objects that compare unequal while both are the host: every
+# cross-device path (direct migration, measured moves, batch-axis SP
+# forced by the device difference) runs here on real data; the card +
+# CPU pair runs the same paths in tests/test_torch_device_lanes_cuda.py
+PAIR = ["cpu", "cpu:0"]
+
+
+def test_sp_mode_auto_takes_batch_across_devices():
+    """``sp_mode="auto"`` (the default, as in the reference): the solo
+    head split for lanes on one device, batch-axis SP for a device pair
+    (the donor's device stubbed with ``torch.device("meta")``), whatever
+    ``sp_mode`` says; an unknown mode (the port's former "solo", which
+    "auto" is on one device) raises."""
     lp = lanes(2, max_streams=3)
+    home, donor = lp.ex(0), lp.ex(1)
+    assert lp.sp_mode == "auto"
+    assert lp._sp_mode_for(home, donor) == "solo"
+    lp.sp_mode = "batch"
+    assert lp._sp_mode_for(home, donor) == "batch"
+    donor.device = torch.device("meta")
+    for mode in ("auto", "batch"):
+        lp.sp_mode = mode
+        assert lp._sp_mode_for(home, donor) == "batch"
+    for bad in ("solo", "heads"):
+        with pytest.raises(ValueError, match="sp_mode"):
+            lanes(2, sp_mode=bad)
+
+
+def test_lanes_round_robin_over_devices():
+    """``devices=`` puts lane i on ``devices[i % n]`` (executor, pool and
+    its params view); without it every lane sits on ``device``."""
+    cfg = tiny_cfg()
+    lp = LanePool(3, cfg=cfg, params=open_params(cfg), max_streams=2,
+                  devices=PAIR)
+    want = [torch.device(d) for d in PAIR + PAIR[:1]]
+    assert lp.lane_devices == want
+    assert [ex.device for ex in lp.executors] == want
+    assert [ex.pool.device for ex in lp.executors] == want
+    assert lanes(2, max_streams=2).lane_devices == [torch.device(DEV)] * 2
+
+
+def test_measured_put_records_bytes_and_calibrates():
+    """``_measured_put`` moves pages with ``.to`` and records their bytes
+    and seconds on the shared engine (kind as given); the first
+    measured move sets ``bw_intra`` to its rate."""
+    lp = lanes(2, max_streams=2)
+    pages = {"k": torch.ones((3, 4)), "v": torch.ones(5, dtype=torch.bfloat16)}
+    moved = lp._measured_put(pages, torch.device("cpu:0"), kind="migration")
+    assert all(torch.equal(moved[n], pages[n]) for n in pages)
+    (m,) = lp.engine.measured
+    assert m.n_bytes == 3 * 4 * 4 + 5 * 2 and m.kind == "migration"
+    assert m.seconds > 0 and not m.cross_node
+    assert lp.engine.bw_intra == pytest.approx(m.bytes_per_s)
+
+
+def test_direct_migration_across_devices_bit_exact():
+    """Lanes on different devices take the DIRECT path: the resident
+    pages move device to device (one measured move of the page bytes),
+    land resident at once in the destination's table, and the stream
+    continues bit-identically to a never-moved run."""
+    cfg = tiny_cfg()
+    p = open_params(cfg)
+    ref_ex = BatchedChunkExecutor(cfg=cfg, params=p, max_streams=3,
+                                  device=DEV)
+    ref_ex.admit(4, seed=4)
+    ref = gen_chunks(ref_ex, 4, 3)
+    lp = LanePool(2, cfg=cfg, params=p, max_streams=3, devices=PAIR)
+    lp.admit(4, 0, seed=4)
+    got = gen_chunks(lp.ex(0), 4, 2)
+    ctx = [t.clone() for t in lp.ex(0).pool.gather([4], 2)]
+    n_log = len(lp.engine.log)
+    assert lp.migrate(4, 0, 1)
+    assert lp.lane_of[4] == 1 and lp.n_migrations == 1
+    dst = lp.ex(1)
+    assert dst.pool.resident(4) and not dst.pool.spilled(4)
+    assert all(torch.equal(a, b) for a, b in zip(dst.pool.gather([4], 2),
+                                                 ctx))
+    (m,) = lp.engine.measured
+    pps = dst.pool.pages_per_stream
+    page_bytes = 2 * lp.ex(0).pool.k[:, :pps].numel() * 4
+    assert m.kind == "migration" and m.n_bytes == page_bytes
+    assert dst.pool.transfer_bytes_in == page_bytes
+    assert lp.ex(0).pool.transfer_bytes_out == page_bytes
+    assert len(lp.engine.log) == n_log + 1     # ONE src->dst transfer
+    lp.ex(0).pool.ledger.check()
+    dst.pool.ledger.check()
+    got += gen_chunks(dst, 4, 1)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_axis_sp_across_devices():
+    """On a device pair ``sp_mode="auto"`` expands in batch mode: the
+    full-head pages land in the donor's pool by one measured move, the
+    guest row's chunk equals the never-borrowed run's bit for bit (the
+    host rounds alike on both "devices"), its KV ships back to the home
+    pool, and release frees the donor pages."""
+    cfg = tiny_cfg()
+    p = open_params(cfg)
+    ref_ex = BatchedChunkExecutor(cfg=cfg, params=p, max_streams=3,
+                                  device=DEV)
+    ref_ex.admit(0, seed=0)
+    ref = gen_chunks(ref_ex, 0, 3)
+    lp = LanePool(2, cfg=cfg, params=p, max_streams=3, devices=PAIR)
     lp.admit(0, 0, seed=0)
-    gen_chunks(lp.ex(0), 0, 1)
-    lp.ex(1).device = torch.device("meta")
-    with pytest.raises(NotImplementedError, match="different devices"):
-        lp.migrate(0, 0, 1)
-    with pytest.raises(NotImplementedError, match="different devices"):
-        lp.sp_expand(0, 1)
-    with pytest.raises(ValueError, match="sp_mode"):
-        lanes(2, sp_mode="auto")
-    assert lp.lane_of[0] == 0 and lp.ex(0).pool.resident(0)
-    assert lp.sp_link(0) is None
+    got = gen_chunks(lp.ex(0), 0, 2)
+    assert lp.sp_expand(0, 1)
+    link = lp.sp_link(0)
+    assert link.mode == "batch" and lp.serving_ex(0) is lp.ex(1)
+    (m,) = lp.engine.measured
+    assert m.kind == "sp-expand" and m.n_bytes > 0
+    got += gen_chunks(lp.ex(1), 0, 1)
+    assert lp.ex(0).pool.chunks[0] == 3        # shipped back home
+    lp.sp_release(0)
+    assert lp.sp_link(0) is None and not lp.ex(1).pool.resident(0)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
+    for ex in lp.executors:
+        ex.pool.ledger.check()
+
+
+def test_device_pair_session_matches_one_lane():
+    """A session over lanes on two devices that really migrates one
+    stream (directly, measured) and really borrows another on the batch
+    axis (``sp_mode="auto"``) completes bit-identical to the 1-lane
+    session, the moves measured on the engine."""
+    n, chunks = 2, 3
+    cfg = tiny_cfg()
+    p = open_params(cfg)
+    ref = _ref_chunks([chunks] * n, p)
+    sess = StreamingSession(
+        SessionConfig(lanes=2, model_cfg=cfg, pool_streams=n + 1,
+                      max_batch=1, verbose=False, device=DEV),
+        executor=LanePool(2, cfg=cfg, params=p, max_streams=n + 1,
+                          devices=PAIR),
+        fidelity_policy=StaticFidelity(FID))
+    for spec in specs([chunks] * n):
+        sess.submit(spec)
+    _force_migration_and_sp(sess)
+    res = sess.run()
+    assert res.n_migrations_applied >= 1
+    assert res.n_sp_expands_applied >= 1 and res.n_sp_releases_applied >= 1
+    kinds = {m.kind for m in res.engine.measured}
+    assert kinds == {"migration", "sp-expand"}, kinds
+    _assert_same_chunks(sess, ref, [chunks] * n)
+    for ex in sess.lanes.executors:
+        ex.pool.ledger.check()
+        assert not ex.sp_guests and not ex.sp_links
+    # the session's own pool takes the same placement from its config
+    own = StreamingSession(SessionConfig(lanes=2, model_cfg=cfg,
+                                         verbose=False, device=DEV,
+                                         devices=PAIR))
+    assert own.lanes.lane_devices == [torch.device(d) for d in PAIR]
+
+
+def test_device_count_needs_the_cards(monkeypatch, capsys):
+    """``launch/serve.py --device-count N`` stops with an error when
+    fewer than N cards are visible (it never puts a lane on the CPU),
+    and outside ``--real``."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for argv, msg in (
+            (["--real", "--lanes", "2", "--device-count", "2"],
+             "--device-count 2: 1 card(s) visible"),
+            (["--sim", "--device-count", "1"],
+             "--device-count only applies to --real")):
+        monkeypatch.setattr("sys.argv", ["serve"] + argv)
+        with pytest.raises(SystemExit):
+            serve.main()
+        assert msg in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

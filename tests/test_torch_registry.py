@@ -5,8 +5,8 @@ config the port registers (the reference's twelve).
   every config builds params through ``registry.init_fn`` (on the CPU,
   from a torch generator) and survives one reduced step — a chunk of
   ``serve_chunk`` for the AR-DiT family (the live co-serve path), a
-  prefill for the token families (the simulated co-serve families).
-  ``encdec`` raises ``NotImplementedError`` naming its ROADMAP item.
+  prefill for the token families (the simulated co-serve families;
+  ``encdec`` with its stub audio frames).
 * ``input_specs`` / ``cache_specs`` / ``param_specs`` at full size:
   meta tensors with the shapes and dtypes of the reference's
   ``ShapeDtypeStruct``s (``jax.eval_shape``), for every config and
@@ -44,8 +44,9 @@ def test_the_port_registers_the_references_configs():
 def _batch(cfg, b, s, gen):
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
     kw = {}
-    if cfg.family == "vlm":
-        kw["img_embeds"] = 0.02 * torch.randn(
+    stub = {"vlm": "img_embeds", "encdec": "audio_embeds"}.get(cfg.family)
+    if stub:
+        kw[stub] = 0.02 * torch.randn(
             (b, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
     return tokens, kw
 
@@ -54,10 +55,6 @@ def _batch(cfg, b, s, gen):
 def test_registry_smoke_every_config(arch):
     cfg = get_config(arch).reduced()
     gen = torch.Generator().manual_seed(0)
-    if cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match="encdec"):
-            registry.init_fn(cfg)
-        return
     params = registry.init_fn(cfg)(gen, device="cpu")
     leaves = list(_leaves(params))
     assert leaves and all(t.device.type == "cpu" for t in leaves)
@@ -119,10 +116,7 @@ def test_input_and_cache_specs_match_reference(arch):
                     JR.input_specs(jcfg, jshape))
         if shape.kind != "decode":
             continue
-        if cfg.family == "encdec":
-            with pytest.raises(NotImplementedError, match="encdec"):
-                registry.cache_specs(cfg, shape)
-        elif cfg.family == "ardit":      # no token cache, as there
+        if cfg.family == "ardit":      # no token cache, as there
             with pytest.raises(AssertionError):
                 registry.cache_specs(cfg, shape)
         else:
@@ -133,12 +127,6 @@ def test_input_and_cache_specs_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_specs_and_count_match_reference(arch):
     cfg, jcfg = get_config(arch), JB.get_config(arch)
-    if cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match="encdec"):
-            registry.param_specs(cfg)
-        with pytest.raises(NotImplementedError, match="encdec"):
-            param_count(cfg)
-        return
     _same_specs(registry.param_specs(cfg), JR.param_specs(jcfg))
     assert param_count(cfg) == JB.param_count(jcfg)
     assert param_count(cfg.reduced()) == JB.param_count(jcfg.reduced())

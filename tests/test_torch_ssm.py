@@ -291,8 +291,8 @@ def test_prefill_decode_equals_forward(model):
 def test_registry_api():
     """``ssm`` serves prefill / decode / init_cache (training raises,
     naming its ROADMAP item); ``ardit`` has no token serving surface, as
-    in the reference; the one unported family, ``encdec``, raises
-    NotImplementedError naming its ROADMAP item; an unknown family
+    in the reference; ``encdec`` serves through ``models.encdec`` (its
+    training raising, like every family's); an unknown family
     ValueError."""
     cfg = get_config(ARCH).reduced()
     api = registry.get_api(cfg)
@@ -310,7 +310,11 @@ def test_registry_api():
         and ardit.init_cache is None
     with pytest.raises(NotImplementedError, match="training"):
         ardit.loss(None, None, None)
-    with pytest.raises(NotImplementedError, match="Waiting: encdec"):
-        registry.get_api(dataclasses.replace(cfg, family="encdec"))
+    from repro_torch.models import encdec
+    enc = registry.get_api(get_config("whisper-medium"))
+    assert enc.prefill is encdec.prefill and \
+        enc.decode_step is encdec.decode_step
+    with pytest.raises(NotImplementedError, match="Waiting: training"):
+        enc.loss(None, None, None)
     with pytest.raises(ValueError, match="unknown family"):
         registry.get_api(dataclasses.replace(cfg, family="rnn"))
