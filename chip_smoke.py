@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit from nvidia-smi; build every CUDA kernel
-   of the port from ``src/repro_torch/kernels/*/csrc`` with nvcc (five
+   of the port from ``src/repro_torch/kernels/*/csrc`` with nvcc (six
    sources, one nvcc per source, started together).
 2. Paged kernel vs plain version on the card at the batched path's
    full-width shapes (ardit-self-forcing: Sq = 2640, Hq = Hkv = 12, D =
@@ -189,6 +189,29 @@ Phases (any failure raises and the script exits non-zero):
    the ring on its own from ``init_batched_cache`` (gaps printed: they
    compound through the context); the ring path launches no kernel.
 
+18. The flash kernel's backward (``flash_mha_bwd.cu``, run after 16 with
+   everything before it freed) against its plain version on the same q,
+   k, v, output, log-sum-exp and output gradient: at minicpm-2b's
+   training attention (B 2, S 4,096, 36 heads of 64, causal) and
+   ardit-self-forcing's (B 1, 2,640 queries over 2,717 and 5,357 keys,
+   12 heads of 128) in bf16 after the tensor-core forward, then GQA 4,
+   sink + window, the rho keep matrix, q_offset, whisper-medium's 1,500
+   keys, D 96, rows that see nothing, fp32 at D 16 and 64; two calls bit
+   for bit; the forward's lse against the plain version's; the
+   backward's time beside its bound, the plain version and SDPA's
+   backward on its flash backend; the gap to the fp32 gradient of the
+   plain forward printed.
+19. Training (after 18, on fresh parameters): (i) the reduced dense,
+   MoE, VLM, encoder-decoder and AR-DiT configs, card against CPU (loss
+   and every gradient leaf, kernel 3's forward and backward launches
+   against the layers); mamba2-780m and jamba-v0.1-52b raise the SSD
+   wrapper's autograd guard; (ii) ``launch/train.py``'s ``main`` at full
+   width: minicpm-2b 3 steps at 2 x 4,096 on one fixed batch (the loss
+   must fall) and ardit-self-forcing 2 steps at 1 x 2 chunks; s/step,
+   tokens/s, peak memory, kernel 3's launches per step, every forward
+   on the tensor cores; (iii) a checkpoint on the card: save, restore
+   bit for bit (bf16 leaves included), continue.
+
 Every phase prints its seconds.
 
 Then one ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -202,6 +225,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -325,6 +349,51 @@ FLASH_WHISPER = {
     "whisper-medium decode-step cross-attention": (2, 1, 1500),
 }
 WHISPER_HEADS, WHISPER_D = 16, 64
+# phase 18, the flash kernel's backward at the training shapes of phase
+# 19: name -> (B, Sq, Skv, heads, D, causal); minicpm-2b's attention at
+# --batch 2 --seq 4096, and ardit-self-forcing's chunk of 2,640 queries
+# over the sink and itself (the first chunk) or the sink, the first
+# chunk and itself (the second)
+BWD_MAIN = "minicpm-2b training attention, causal, 36 heads of 64"
+BWD_TRAIN_SHAPES = {
+    BWD_MAIN: (2, 4096, 4096, 36, 64, True),
+    "ardit-self-forcing training attention, Skv 2,717": (
+        1, 2640, 77 + 2640, 12, 128, False),
+    "ardit-self-forcing training attention, Skv 5,357": (
+        1, 2640, 77 + 2 * 2640, 12, 128, False),
+}
+# backward kernel vs plain version on the same inputs (o and lse from the
+# forward kernel): both sum in fp32, in other orders; fp32 gradients
+# within TOL_BWD_F32 of each gradient's largest magnitude, bf16 ones
+# within BWD_BF16_ULPS bf16 ulps at it (each rounds one fp32 sum); the
+# forward's lse within TOL_LSE of the plain version's (fp32 in both,
+# exp2.approx and summation order on the card)
+TOL_BWD_F32 = 1e-4
+BWD_BF16_ULPS = 4
+TOL_LSE = 2e-4
+# phase 19 (i): the reduced configs, card against CPU: name -> family
+TRAIN_PARITY_ARCHS = ("minitron-8b", "granite-moe-1b-a400m", "internvl2-26b",
+                      "whisper-medium", "ardit-self-forcing")
+TRAIN_GUARDED_ARCHS = ("mamba2-780m", "jamba-v0.1-52b")
+# phase 19 (ii): launch/train.py's arguments at full width.  minicpm-2b
+# at the launcher's default lr 3e-4 (and at 1e-4, 3e-5) does not fall
+# over 3 steps from a random init on an NVIDIA H100 80GB HBM3 (700 W):
+# Adam's first steps move every weight by about the lr along a
+# near-rank-1 gradient, which at d 2,304 and 40 layers blows up the
+# logits (12.10 -> 13.23 -> 17.89 at 3e-4); 1e-5 falls (12.10 -> 11.69
+# -> 10.20), as does 3e-6
+TRAIN_FULL = {
+    "minicpm-2b": ["--arch", "minicpm-2b", "--full", "--batch", "2",
+                   "--seq", "4096", "--steps", "3", "--fixed-batch",
+                   "--lr", "1e-5"],
+    "ardit-self-forcing": ["--arch", "ardit-self-forcing", "--full",
+                           "--batch", "1", "--seq", "5280", "--steps", "2",
+                           "--fixed-batch"],
+}
+# card vs CPU gradients at the reduced configs (fp32, TF32 off): loss and
+# every gradient leaf within TOL_TRAIN of the CPU's largest magnitude of
+# that leaf (summation order only, as phase 4's 1e-4)
+TOL_TRAIN = 1e-4
 SESSION_ARCH = "ardit-self-forcing"
 # phase 13 (iv): playout budgets (x the top-fidelity warm-up chunk) tried
 # in turn until BMPR picks a step-cache level for some chunk
@@ -899,6 +968,348 @@ def flash_whisper_shapes(gen, launch):
         gc.collect()
         torch.cuda.empty_cache()
     return errs
+
+
+def bwd_grads_close(name, got, want, dtype):
+    """dq, dk, dv of the backward kernel against the plain version's on
+    the same inputs: fp32 within TOL_BWD_F32 of each gradient's largest
+    magnitude, bf16 within BWD_BF16_ULPS bf16 ulps at it."""
+    errs = []
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        top = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        limit = (TOL_BWD_F32 * max(top, 1e-30) if dtype == torch.float32
+                 else BWD_BF16_ULPS * ulp_bf16(top))
+        errs.append((label, err, limit))
+        if not err <= limit or g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: backward kernel {label} disagrees "
+                                 f"with the plain version ({err} > {limit})")
+    print(f"  {name}: " + "  ".join(f"|{lab}| {e:.3g} (limit {lim:.3g})"
+                                    for lab, e, lim in errs))
+    return max(e for _, e, _ in errs)
+
+
+def phase_flash_bwd(record):
+    """Phase 18: the flash kernel's backward (``csrc/flash_mha_bwd.cu``)
+    against its plain version ``flash_mha_bwd_ref`` on the same q, k, v,
+    output, log-sum-exp and output gradient, at the two training shapes
+    of phase 19 and in every mode at modest shapes; two calls give the
+    same bits; the forward's lse against the plain version's; timings of
+    the backward (forward excluded) beside its bound, the plain version
+    and SDPA's backward on its flash backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(2468)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def case(name, B, Sq, Skv, Hq, Hkv, D, dtype, kw, timed=False):
+        q = torch.randn((B, Sq, Hq, D), generator=gen, device=DEV).to(dtype)
+        k, v = (torch.randn((B, Skv, Hkv, D), generator=gen, device=DEV)
+                .to(dtype) for _ in range(2))
+        dout = torch.randn((B, Sq, Hq, D), generator=gen, device=DEV) \
+            .to(dtype)
+        mode = {**dict(n_kv_heads=Hkv, causal=True, q_offset=0, window=0,
+                       sink=0, sparsity=0.0, block_q=128, block_kv=128),
+                **kw}
+        mode["block_q"] = min(mode["block_q"], Sq)
+        mode["block_kv"] = min(mode["block_kv"], Skv)
+        out, lse = ops._launch(q, k, v, with_lse=True, **mode)
+        _, lse0 = ref.flash_mha_ref(q, k, v, return_lse=True, **mode)
+        dead = torch.isinf(lse0)
+        if not torch.equal(torch.isinf(lse), dead):
+            raise AssertionError(f"{name}: rows that see nothing differ")
+        err_lse = float((lse - lse0)[~dead].abs().max()) \
+            if (~dead).any() else 0.0
+        if not err_lse <= TOL_LSE:
+            raise AssertionError(f"{name}: forward lse off by {err_lse}")
+        got = ops.flash_mha_bwd(q, k, v, out, lse, dout, **mode)
+        again = ops.flash_mha_bwd(q, k, v, out, lse, dout, **mode)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
+        want = ref.flash_mha_bwd_ref(q, k, v, out, lse, dout, **mode)
+        blocks = ops.bwd_blocks(B, Sq, Skv, Hq, Hkv)
+        path = ops.kernel_path(dtype, D)
+        err = bwd_grads_close(
+            f"{name} (forward {path}; {blocks[0]} dK/dV + {blocks[1]} dQ "
+            f"blocks; lse |d| {err_lse:.2g}; {int(dead.sum())} dead rows)",
+            got, want, dtype)
+        del want, again
+        if not timed:
+            return err, None
+        # the gap of the kernel's gradient to the fp32 gradient of the
+        # plain forward (P kept in fp32 there, rounded to bf16 before P V
+        # by the tensor-core forward): printed, not gated
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        o32, l32 = ref.flash_mha_ref(q32, k32, v32, return_lse=True, **mode)
+        exact = ref.flash_mha_bwd_ref(q32, k32, v32, o32, l32,
+                                      dout.float(), **mode)
+        gaps = [float((g.float() - w).abs().max() / w.abs().max())
+                for g, w in zip(got, exact)]
+        print(f"    gap to the fp32 gradient of the plain forward (relative "
+              f"to each gradient's largest magnitude): dq {gaps[0]:.3g}, dk "
+              f"{gaps[1]:.3g}, dv {gaps[2]:.3g}")
+        del q32, k32, v32, o32, l32, exact
+        torch.cuda.empty_cache()
+        kernel_ms = cuda_ms(lambda: ops.flash_mha_bwd(
+            q, k, v, out, lse, dout, **mode), 5)
+        plain_ms = cuda_ms(lambda: ref.flash_mha_bwd_ref(
+            q, k, v, out, lse, dout, **mode), 1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            o_sdpa = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=mode["causal"])
+        dot = dout.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qt, kt, vt), dot, retain_graph=True), 5)
+        vis = ref.visibility(Sq, Skv, **{a: x for a, x in mode.items()
+                                         if a != "n_kv_heads"})
+        pairs = Sq * Skv if vis is None else int(vis.sum())
+        flops = 10.0 * B * Hq * pairs * D
+        # q, k, v, o, dout and lse read once; dq, dk, dv written once
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"    backward: kernel {kernel_ms:.3f} ms "
+              f"({flops / kernel_ms / 1e9:.2f} TFLOP/s of the bound's "
+              f"operations); plain {plain_ms:.3f} ms; SDPA backward (flash "
+              f"backend) {library_ms:.3f} ms; bound {bound_ms:.3f} ms "
+              f"({bound_by}; {flops / 1e9:.1f} GFLOP, {pairs} visible pairs "
+              f"a head, {nbytes / 1e6:.1f} MB)")
+        del qt, kt, vt, o_sdpa
+        torch.cuda.empty_cache()
+        return err, dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+
+    errs = []
+    timing = {}
+    # the two training shapes of phase 19 (bf16, tensor-core forward)
+    for name, shape in BWD_TRAIN_SHAPES.items():
+        B, Sq, Skv, H, D, causal = shape
+        err, t = case(name, B, Sq, Skv, H, H, D, bf16,
+                      dict(causal=causal), timed=True)
+        errs.append(err)
+        timing[name] = t
+        gc.collect()
+        torch.cuda.empty_cache()
+    # every mode at modest shapes: (name, B, Sq, Skv, Hq, Hkv, D, dtype,
+    # keyword arguments)
+    cases = [
+        ("GQA G=4 causal D=128 bf16", 2, 512, 512, 16, 4, 128, bf16, {}),
+        ("sink 77 + window 256 bf16", 1, 1024, 1024, 12, 12, 128, bf16,
+         dict(window=256, sink=77)),
+        ("rho 0.7 keep matrix 96 x 160 bf16", 1, 1920, 1920, 12, 12, 128,
+         bf16, dict(sparsity=0.7, block_q=96, block_kv=160)),
+        ("causal q_offset 1024 bf16", 2, 512, 1536, 12, 12, 128, bf16,
+         dict(q_offset=1024)),
+        ("whisper-medium 1,500 keys non-causal bf16", 2, 1500, 1500, 16, 16,
+         64, bf16, dict(causal=False)),
+        ("D=96 non-causal bf16 (causal-forcing)", 1, 660, 2057, 16, 16, 96,
+         bf16, dict(causal=False)),
+        ("rows that see nothing (window past the keys) fp32 D=16", 1, 64,
+         40, 4, 2, 16, f32, dict(q_offset=32, window=16)),
+        ("D=16 non-causal fp32 (reduced)", 2, 48, 269, 4, 4, 16, f32,
+         dict(causal=False)),
+        ("D=16 sink + window fp32", 1, 256, 256, 4, 4, 16, f32,
+         dict(window=64, sink=16)),
+        ("D=64 causal fp32", 1, 512, 512, 8, 8, 64, f32, {}),
+        ("D=64 GQA 2 non-causal fp32", 2, 200, 333, 8, 4, 64, f32,
+         dict(causal=False)),
+    ]
+    for name, b_, sq, skv, hq, hkv, d, dt, kw in cases:
+        err, _ = case(name, b_, sq, skv, hq, hkv, d, dt, kw)
+        errs.append(err)
+    torch.cuda.empty_cache()
+    record.update(timing[BWD_MAIN], max_abs_err=max(errs))
+    return timing
+
+
+def flash_train_launches(cfg, n_chunks=2):
+    """Kernel 3's (forward, backward) launches of one train_loss and its
+    backward: remat recomputes each checkpointed layer's forward; the
+    AR-DiT (no remat) runs a noised and a clean pass per chunk, and the
+    clean pass's last attention layer feeds only its discarded
+    prediction (no backward), the last chunk's clean pass nothing."""
+    if cfg.family == "ardit":
+        L = cfg.n_layers
+        return (2 * n_chunks * L, n_chunks * L + (n_chunks - 1) * (L - 1))
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers + 4 * cfg.n_dec_layers,
+                cfg.n_enc_layers + 2 * cfg.n_dec_layers)
+    return 2 * cfg.n_layers, cfg.n_layers
+
+
+def phase_train():
+    """Phase 19: training on the card.  (i) At the reduced configs, card
+    against CPU on the same parameters and batch (loss and every gradient
+    leaf), kernel 3's forward and backward launches checked against the
+    layers; the SSD families raise the guard's error.  (ii) Full width
+    through ``launch/train.py``'s ``main``: minicpm-2b and
+    ardit-self-forcing, s/step, tokens/s, peak memory and kernel 3's
+    launches per step.  (iii) A checkpoint on the card: save, restore,
+    continue, bit for bit (a bf16 leaf included)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import ardit as A
+    from repro_torch.models import registry
+    from repro_torch.models.convert import params_to
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop, optimizer as opt
+
+    fm = flash_ops.flash_mha
+
+    def reset_flash():
+        fm.launches = fm.launches_tc = fm.launches_bwd = 0
+
+    print("  (i) reduced configs, card vs CPU (fp32, TF32 off)")
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = registry.get_api(cfg).init(cfg, gen, device="cpu")
+        seq = 24
+        if cfg.family == "ardit":
+            params = A.open_gates(params, gen)
+            seq = 2 * A.chunk_tokens(cfg)
+        batch = dp.global_batch(cfg, ShapeConfig("t", "train", seq, 2), 0)
+        loss_fn = loop.loss_for(cfg)
+        l_cpu, g_cpu = loop.value_and_grad(loss_fn, params,
+                                           loop.to_device(batch, "cpu"))
+        reset_flash()
+        l_card, g_card = loop.value_and_grad(
+            loss_fn, params_to(params, DEV), loop.to_device(batch, DEV))
+        sync()
+        want_fwd, want_bwd = flash_train_launches(cfg)
+        if (fm.launches, fm.launches_bwd) != (want_fwd, want_bwd):
+            raise AssertionError(
+                f"{arch}: kernel 3 launched {fm.launches} forward / "
+                f"{fm.launches_bwd} backward, want {want_fwd} / {want_bwd}")
+        err_l = abs(float(l_card) - float(l_cpu))
+        worst, where = 0.0, None
+        cpu_leaves = dict(opt.leaves_with_path(g_cpu))
+        for path, g in opt.leaves_with_path(g_card):
+            w = cpu_leaves[path]
+            rel_err = float((g.cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            if rel_err > worst:
+                worst, where = rel_err, "/".join(path)
+        print(f"    {arch}: loss {float(l_card):.6f} (|d| to the CPU "
+              f"{err_l:.3g}), worst gradient leaf {where} at {worst:.3g} of "
+              f"its largest magnitude (limit {TOL_TRAIN:g}); kernel 3: "
+              f"{fm.launches} forward, {fm.launches_bwd} backward launches")
+        if not (err_l <= TOL_TRAIN * abs(float(l_cpu)) and
+                worst <= TOL_TRAIN):
+            raise AssertionError(f"{arch}: card gradients disagree with the "
+                                 f"CPU's ({err_l}, {worst} at {where})")
+    for arch in TRAIN_GUARDED_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = registry.get_api(cfg).init(
+            cfg, torch.Generator().manual_seed(0), device=DEV)
+        batch = dp.global_batch(cfg, ShapeConfig("t", "train", 24, 2), 0)
+        try:
+            loop.value_and_grad(loop.loss_for(cfg), params,
+                                loop.to_device(batch, DEV))
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+            print(f"    {arch}: training raises the guard's error: {e}")
+        else:
+            raise AssertionError(f"{arch}: training through the SSD kernel "
+                                 f"did not raise")
+
+    print("  (ii) full width through launch/train.py")
+    full = {}
+    for arch, argv in TRAIN_FULL.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_flash()
+        t0 = time.perf_counter()
+        out = launch_train.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        cfg = get_config(arch)
+        steps = len(out["loss"])
+        args = launch_train.parse_args(argv)
+        n_chunks = args.seq // A.chunk_tokens(cfg) \
+            if cfg.family == "ardit" else 0
+        want_fwd, want_bwd = flash_train_launches(cfg, n_chunks)
+        per_fwd, per_bwd = fm.launches / steps, fm.launches_bwd / steps
+        tokens = args.batch * args.seq
+        warm = out["seconds"][1:]
+        print(f"    {arch}: losses {[round(x, 4) for x in out['loss']]}; "
+              f"s/step {[round(x, 3) for x in out['seconds']]} (after the "
+              f"first: {sum(warm) / len(warm):.3f} s, "
+              f"{tokens * len(warm) / sum(warm):.0f} tokens/s); peak "
+              f"{max(out['peak_gib']):.2f} GiB; kernel 3 per step "
+              f"{per_fwd:g} forward ({fm.launches_tc} of {fm.launches} on "
+              f"the tensor cores), {per_bwd:g} backward; {wall:.1f} s with "
+              f"the init")
+        if (per_fwd, per_bwd) != (want_fwd, want_bwd):
+            raise AssertionError(f"{arch}: kernel 3 per step {per_fwd} / "
+                                 f"{per_bwd}, want {want_fwd} / {want_bwd}")
+        if fm.launches_tc != fm.launches:
+            raise AssertionError(f"{arch}: a bf16 forward off the tensor "
+                                 f"cores")
+        if not all(np.isfinite(out["loss"]) & np.isfinite(out["grad_norm"])):
+            raise AssertionError(f"{arch}: non-finite loss or gradient norm")
+        full[arch] = dict(out, launches=fm.launches,
+                          launches_bwd=fm.launches_bwd, tokens=tokens)
+    losses = full["minicpm-2b"]["loss"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"minicpm-2b: the loss did not fall on one "
+                             f"fixed batch ({losses})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("  (iii) checkpoint on the card (minicpm-2b reduced, bf16 params)")
+    cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
+                              param_dtype="bfloat16")
+    params = registry.get_api(cfg).init(
+        cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    state = loop.TrainState(params, opt.init_opt_state(params))
+    step = loop.make_train_step(cfg, opt.OptConfig(lr=1e-3, warmup_steps=1,
+                                                   total_steps=10))
+    shape = ShapeConfig("t", "train", 32, 2)
+    for s in range(2):
+        state, _ = step(state, dp.global_batch(cfg, shape, s))
+    with tempfile.TemporaryDirectory() as d:
+        saved = [t.clone() for _, t in ckpt._flatten_with_names(state)]
+        pending = ckpt.save(d, 2, state, blocking=False)
+        state, _ = step(state, dp.global_batch(cfg, shape, 2))  # in place
+        pending.join()
+        fresh = registry.get_api(cfg).init(
+            cfg, torch.Generator(device=DEV).manual_seed(1), device=DEV)
+        back = ckpt.restore(d, ckpt.latest_step(d),
+                            loop.TrainState(fresh, opt.init_opt_state(fresh)))
+    leaves = [t for _, t in ckpt._flatten_with_names(back)]
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for a, b in zip(saved, leaves))
+    n_bf16 = sum(t.dtype == torch.bfloat16 for t in leaves)
+    # the step after the restore against the uninterrupted run's: within
+    # a bf16 ulp of each leaf's largest magnitude (the embedding's
+    # backward may add repeated tokens' rows in another order), printed
+    # with whether it is bit for bit
+    cont, _ = step(back, dp.global_batch(cfg, shape, 2))
+    gaps = [float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for (_, a), (_, b) in zip(opt.leaves_with_path(cont.params),
+                                      opt.leaves_with_path(state.params))]
+    print(f"    restored {len(leaves)} leaves ({n_bf16} bf16) bit for bit: "
+          f"{same}; the step after it against the uninterrupted run's: "
+          f"largest gap {max(gaps):.3g} of a leaf's magnitude (bit for bit: "
+          f"{max(gaps) == 0.0})")
+    if not (same and n_bf16 and max(gaps) <= 2.0 ** -8):
+        raise AssertionError("checkpoint on the card: restore not bit for "
+                             "bit, or the continued run diverged")
+    return full
 
 
 def phase_integration():
@@ -3207,7 +3618,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     sources = [paged_ops.SOURCE, paged_ops.DECODE_SOURCE, flash_ops.SOURCE,
-               ssd_ops.SOURCE, fp8_ops.SOURCE]
+               flash_ops.BWD_SOURCE, ssd_ops.SOURCE, fp8_ops.SOURCE]
     t0 = time.perf_counter()
     build.build(sources)
     print(f"  built {', '.join(s.name for s in sources)} in "
@@ -3250,6 +3661,11 @@ def main():
                         "paged_decode_attention.cu",
               "replaces": "src/repro/kernels/paged_attention/kernel.py:84",
               "path": "mma"}
+    flash_bwd = {"name": "flash_mha_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_mha_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:132",
+                 "path": "cuda_cores"}
     fp8 = {"name": "fp8_matmul", "route": "cuda",
            "source": "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu",
            "replaces": "src/repro/kernels/fp8_matmul/kernel.py:42",
@@ -3312,14 +3728,25 @@ def main():
     fam = phase("16: full-width token families (dense, MoE, VLM, hybrid, "
                 "encoder-decoder) prefill and decode", phase_families,
                 {**counters, "ssd": ssd_ops.ssd})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("18: flash kernel backward vs plain version", phase_flash_bwd,
+          flash_bwd)
+    train = phase("19: training (reduced configs card vs CPU, full-width "
+                  "minicpm-2b and ardit-self-forcing, a checkpoint)",
+                  phase_train)
+    train_fwd = sum(r["launches"] for r in train.values())
+    flash_bwd["launches"] = sum(r["launches_bwd"] for r in train.values())
     # kernel 3 on its paths: the sequential session, then phase 16's bf16
-    # prefills and whisper-medium's bf16 decode steps
+    # prefills and whisper-medium's bf16 decode steps, then phase 19's
+    # full-width training
     flash["launches"] = seq_launches + fam["flash_mha"] \
-        + fam["flash_mha_decode"]
+        + fam["flash_mha_decode"] + train_fwd
     print(f"flash_mha launches: {seq_launches} (phase 6) + "
           f"{fam['flash_mha']} (phase 16 prefills) + "
-          f"{fam['flash_mha_decode']} (phase 16 decode steps) = "
-          f"{flash['launches']}")
+          f"{fam['flash_mha_decode']} (phase 16 decode steps) + "
+          f"{train_fwd} (phase 19 (ii) training) = {flash['launches']}; "
+          f"flash_mha_bwd launches (phase 19 (ii)): {flash_bwd['launches']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -3329,8 +3756,8 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (paged, decode, flash, ssd,
-                                            fp8)]}))
+                                  for r in (paged, decode, flash, flash_bwd,
+                                            ssd, fp8)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,11 @@
 // far above the H100's ~295 bf16 FLOP/byte ridge: operations-bound,
 // 0.348 ms at the 989 TFLOP/s bf16 tensor-core peak.
 //
+// For training, both kernels also write each row's log-sum-exp of its
+// scaled visible scores, lse = m + log l in fp32 (-inf for a row that
+// sees nothing), when given an lse buffer; flash_mha_bwd.cu recomputes
+// P from it.  Serving passes null and launches exactly as before.
+//
 // Two kernels; the wrapper picks one by dtype and head dim.
 //
 // bf16 at D = 64, 96 or 128 (every full-width model): flash_mha_wgmma, on
@@ -73,6 +78,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <math.h>
 
 #include "hopper.cuh"
 
@@ -130,7 +136,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int32_t* __restrict__ keep,
-                 T* __restrict__ out, Params p) {
+                 T* __restrict__ out, float* __restrict__ lse, Params p) {
   constexpr int QS = D + 4;          // padded row strides (bank spread)
   constexpr int KS = D + 1;
   constexpr int PS = BLOCK_N + 1;
@@ -293,12 +299,15 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // ---- finalize: acc / l, rows that see nothing give 0 -------------------
+  // ---- finalize: acc / l, rows that see nothing give 0 (lse -inf) ------
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty + 16 * r;
     if (i >= p.Sq) continue;
     const float inv = l_i[r] == 0.f ? 0.f : 1.f / l_i[r];
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * p.Hq + h) * p.Sq + i] =
+          l_i[r] == 0.f ? -INFINITY : m_i[r] + logf(l_i[r]);
     const int64_t row = (static_cast<int64_t>(b) * p.Sq + i) * p.Hq + h;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -308,8 +317,8 @@ flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v,
-           const int32_t* keep, void* out, int B, const Params& p,
-           cudaStream_t stream) {
+           const int32_t* keep, void* out, float* lse, int B,
+           const Params& p, cudaStream_t stream) {
   auto kern = flash_mha_kernel<D, T>;
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
@@ -321,17 +330,17 @@ int launch(const void* q, const void* k, const void* v,
   dim3 grid((p.Sq + BLOCK_M - 1) / BLOCK_M, p.Hq, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), keep, static_cast<T*>(out), p);
+      static_cast<const T*>(v), keep, static_cast<T*>(out), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_t(const void* q, const void* k, const void* v,
-             const int32_t* keep, void* out, int B, const Params& p,
-             int dtype, cudaStream_t stream) {
+             const int32_t* keep, void* out, float* lse, int B,
+             const Params& p, int dtype, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch<D, float>(q, k, v, keep, out, B, p, stream);
-    case 1: return launch<D, __nv_bfloat16>(q, k, v, keep, out, B, p,
+    case 0: return launch<D, float>(q, k, v, keep, out, lse, B, p, stream);
+    case 1: return launch<D, __nv_bfloat16>(q, k, v, keep, out, lse, B, p,
                                             stream);
   }
   return -2;
@@ -446,7 +455,8 @@ __device__ __forceinline__ void mask_tile(float (&s)[NS], const Params& p,
 template <int D>
 __device__ __forceinline__ void consume(
     const Params& p, const int32_t* __restrict__ keep,
-    __nv_bfloat16* __restrict__ out, const uint8_t* sq, const uint8_t* skv,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    const uint8_t* sq, const uint8_t* skv,
     uint64_t* full, uint64_t* empty, uint64_t* qbar,
     const volatile int* tile_t0, int i0, int h, int b) {
   constexpr int NO = D / 2;        // O values per thread (m64nD)
@@ -560,12 +570,16 @@ __device__ __forceinline__ void consume(
     release(empty, prev, lane);
   }
 
-  // finalize: O / l, rows that see nothing give 0, rows past Sq unstored
+  // finalize: O / l, rows that see nothing give 0 (lse -inf), rows past
+  // Sq unstored; m is in the log2 domain, lse in the natural one
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = row0 + 8 * r;
     if (i >= p.Sq) continue;
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * p.Hq + h) * p.Sq + i] =
+          l[r] == 0.f ? -INFINITY : (m[r] + log2f(l[r])) / LOG2E;
     __nv_bfloat16* dst =
         out + ((static_cast<int64_t>(b) * p.Sq + i) * p.Hq + h) * D + col0;
 #pragma unroll
@@ -581,7 +595,8 @@ flash_mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const int32_t* __restrict__ keep,
-                       __nv_bfloat16* __restrict__ out, Params p) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, Params p) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -647,7 +662,8 @@ flash_mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<D>(p, keep, out, sq, skv, full, empty, qbar, tile_t0, i0, h, b);
+    consume<D>(p, keep, out, lse, sq, skv, full, empty, qbar, tile_t0, i0, h,
+               b);
   }
 }
 
@@ -668,8 +684,10 @@ inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const int32_t* keep,
-           void* out, int B, const Params& p, cudaStream_t stream) {
-  if (p.Skv == 0) {                // every row sees nothing
+           void* out, float* lse, int B, const Params& p,
+           cudaStream_t stream) {
+  if (p.Skv == 0) {                // every row sees nothing (the wrapper
+                                   // fills lse with -inf)
     return static_cast<int>(cudaMemsetAsync(
         out, 0, 2ull * B * p.Sq * p.Hq * D, stream));
   }
@@ -685,7 +703,7 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((p.Sq + BM - 1) / BM, p.Hq, B);
   kern<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      tq, tk, tv, keep, static_cast<__nv_bfloat16*>(out), p);
+      tq, tk, tv, keep, static_cast<__nv_bfloat16*>(out), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -696,12 +714,15 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
 // keep: null, or int32 [Sq/block_q, n_kv_blocks] with n_kv_blocks =
-// Skv/block_kv.  Returns 0, a cudaError_t code, or -1 / -2 / -3 for an
+// Skv/block_kv.  lse: null (serving), or fp32 [B, Hq, Sq] that receives
+// each row's log-sum-exp of its scaled visible scores (-inf for a row
+// that sees nothing), which the backward (flash_mha_bwd.cu) reads.  Returns 0, a cudaError_t code, or -1 / -2 / -3 for an
 // unsupported head dim / dtype / shape.  Launches on `stream`; never
 // synchronises.
 extern "C" int flash_mha_launch(
     const void* q, const void* k, const void* v, const void* keep,
-    void* out, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+    void* out, void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+    int causal,
     int q_offset, int window, int sink, int block_q, int block_kv,
     int n_kv_blocks, int dtype, void* stream) {
   if (B == 0 || Sq == 0) return 0;
@@ -711,12 +732,13 @@ extern "C" int flash_mha_launch(
   Params p{Sq, Skv, Hq, Hkv, causal, q_offset, window, sink, block_q,
            block_kv, n_kv_blocks, 1.0f / sqrtf(static_cast<float>(D))};
   const int32_t* kp = static_cast<const int32_t*>(keep);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_t<16>(q, k, v, kp, out, B, p, dtype, s);
-    case 64: return launch_t<64>(q, k, v, kp, out, B, p, dtype, s);
-    case 96: return launch_t<96>(q, k, v, kp, out, B, p, dtype, s);
-    case 128: return launch_t<128>(q, k, v, kp, out, B, p, dtype, s);
+    case 16: return launch_t<16>(q, k, v, kp, out, lp, B, p, dtype, s);
+    case 64: return launch_t<64>(q, k, v, kp, out, lp, B, p, dtype, s);
+    case 96: return launch_t<96>(q, k, v, kp, out, lp, B, p, dtype, s);
+    case 128: return launch_t<128>(q, k, v, kp, out, lp, B, p, dtype, s);
   }
   return -1;
 }
@@ -727,7 +749,8 @@ extern "C" int flash_mha_launch(
 // cannot be encoded (alignment, or a driver without the entry point).
 extern "C" int flash_mha_wgmma_launch(
     const void* q, const void* k, const void* v, const void* keep,
-    void* out, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+    void* out, void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+    int causal,
     int q_offset, int window, int sink, int block_q, int block_kv,
     int n_kv_blocks, int dtype, void* stream) {
   if (dtype != 1) return -2;
@@ -738,11 +761,12 @@ extern "C" int flash_mha_wgmma_launch(
   Params p{Sq, Skv, Hq, Hkv, causal, q_offset, window, sink, block_q,
            block_kv, n_kv_blocks, 1.0f / sqrtf(static_cast<float>(D))};
   const int32_t* kp = static_cast<const int32_t*>(keep);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return tc::launch<64>(q, k, v, kp, out, B, p, s);
-    case 96: return tc::launch<96>(q, k, v, kp, out, B, p, s);
-    case 128: return tc::launch<128>(q, k, v, kp, out, B, p, s);
+    case 64: return tc::launch<64>(q, k, v, kp, out, lp, B, p, s);
+    case 96: return tc::launch<96>(q, k, v, kp, out, lp, B, p, s);
+    case 128: return tc::launch<128>(q, k, v, kp, out, lp, B, p, s);
   }
   return -1;
 }

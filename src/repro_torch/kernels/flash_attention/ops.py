@@ -10,6 +10,13 @@ runs on the tensor cores (wgmma fed by TMA), everything else on the CUDA
 cores.  ``flash_mha.launches`` counts kernel launches and
 ``flash_mha.launches_tc`` the tensor-core ones among them.
 
+Gradients: whenever grad mode is on and q, k or v requires grad,
+``flash_mha`` goes through ``FlashMHA``, whose forward also keeps the
+rows' log-sum-exp and whose backward is a hand-written kernel too
+(``csrc/flash_mha_bwd.cu``, fp32 on the CUDA cores; three launches per
+call, counted once in ``flash_mha.launches_bwd``), or on the CPU the
+plain ``ref.flash_mha_bwd_ref``.
+
 The modes are those of the reference's ``flash_mha_pallas``: causal with
 ``q_offset``, sink + sliding window, the static rho block keep matrix
 (``keep_matrix``, at the caller's ``block_q`` x ``block_kv``
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +38,10 @@ import torch
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha_bwd.cu"
+# the backward kernel's tiles: one dK/dV block per BWD_BLOCK keys of a
+# KV head, one dQ block per BWD_BLOCK queries of a query head
+BWD_BLOCK = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the configs' head dims: reduced 16; granite-moe, qwen3-moe, minicpm and
@@ -81,12 +93,30 @@ def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if lib.flash_mha_launch.argtypes is None:
         for fn in (lib.flash_mha_launch, lib.flash_mha_wgmma_launch):
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 \
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.flash_mha_error_string.argtypes = [ctypes.c_int]
         lib.flash_mha_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    lib = load(BWD_SOURCE)
+    if lib.flash_mha_bwd_launch.argtypes is None:
+        lib.flash_mha_bwd_launch.argtypes = [ctypes.c_void_p] * 11 \
+            + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        lib.flash_mha_bwd_launch.restype = ctypes.c_int
+        lib.flash_mha_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_mha_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bwd_blocks(b: int, sq: int, skv: int, hq: int,
+               hkv: int) -> Tuple[int, int]:
+    """Blocks of the backward's (dK/dV, dQ) launches."""
+    return (b * hkv * -(-skv // BWD_BLOCK), b * hq * -(-sq // BWD_BLOCK))
 
 
 def _check_mode(sq: int, skv: int, causal: bool, window: int, sink: int,
@@ -104,10 +134,9 @@ def _check_mode(sq: int, skv: int, causal: bool, window: int, sink: int,
             f"into blocks of {block_q} x {block_kv}")
 
 
-def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
-            block_q, block_kv):
+def _check(q, k, v, n_kv_heads):
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
@@ -122,13 +151,34 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
                          f"(n_kv_heads {n_kv_heads}; D in {_HEAD_DIMS})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    keep = None
-    if sparsity > 0.0:
-        keep = torch.as_tensor(keep_matrix(
-            sq // block_q, skv // block_kv, causal=causal,
-            q_offset=q_offset, window=window, sink=sink, sparsity=sparsity,
-            block_q=block_q, block_kv=block_kv)).to(dev)
+
+
+def _keep(sq, skv, causal, q_offset, window, sink, sparsity, block_q,
+          block_kv, dev) -> Optional[torch.Tensor]:
+    if sparsity <= 0.0:
+        return None
+    return torch.as_tensor(keep_matrix(
+        sq // block_q, skv // block_kv, causal=causal, q_offset=q_offset,
+        window=window, sink=sink, sparsity=sparsity, block_q=block_q,
+        block_kv=block_kv)).to(dev)
+
+
+def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
+            block_q, block_kv, with_lse=False):
+    """The forward kernel; with ``with_lse`` returns (out, lse [B,Hq,Sq]
+    fp32) for the backward."""
+    _check(q, k, v, n_kv_heads)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    keep = _keep(sq, skv, causal, q_offset, window, sink, sparsity,
+                 block_q, block_kv, dev)
     out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        if skv == 0:                   # every row sees nothing
+            lse.fill_(-float("inf"))
     lib = _lib()
     tc = kernel_path(q.dtype, d) == "wgmma"
     launch = lib.flash_mha_wgmma_launch if tc else lib.flash_mha_launch
@@ -136,6 +186,7 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if keep is None else keep.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
             block_q, block_kv, 0 if keep is None else keep.shape[1],
             _DTYPES[q.dtype],
@@ -145,7 +196,79 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
         raise RuntimeError(f"flash_mha launch failed: {msg}")
     flash_mha.launches += 1
     flash_mha.launches_tc += int(tc)
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_mha_bwd(q, k, v, o, lse, dout, *, n_kv_heads, causal=True,
+                  q_offset=0, window=0, sink=0, sparsity=0.0, block_q=128,
+                  block_kv=128):
+    """The backward kernel on CUDA tensors (every argument contiguous,
+    q/k/v/o/dout of one dtype, lse fp32 [B,Hq,Sq] from the forward
+    kernel): (dq, dk, dv).  The mode arguments are the forward's, with
+    the block sizes as ``flash_mha`` clipped them."""
+    _check(q, k, v, n_kv_heads)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t in (("o", o), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous like q")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 [B,Hq,Sq] on {dev}")
+    keep = _keep(sq, skv, causal, q_offset, window, sink, sparsity,
+                 block_q, block_kv, dev)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        err = lib.flash_mha_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            None if keep is None else keep.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
+            block_q, block_kv, 0 if keep is None else keep.shape[1],
+            _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.flash_mha_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_mha backward launch failed: {msg}")
+    flash_mha.launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashMHA(torch.autograd.Function):
+    """``flash_mha`` with a gradient: the forward kernel writing each
+    row's log-sum-exp and the backward kernel on CUDA tensors; the plain
+    ``flash_mha_ref(return_lse=True)`` and ``flash_mha_bwd_ref`` on CPU
+    tensors.  Saves q, k, v, the output and lse; the mode arguments get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_kv_heads, causal, q_offset, window, sink,
+                sparsity, block_q, block_kv):
+        mode = dict(n_kv_heads=n_kv_heads, causal=causal,
+                    q_offset=q_offset, window=window, sink=sink,
+                    sparsity=sparsity, block_q=block_q, block_kv=block_kv)
+        if q.device.type == "cpu":
+            out, lse = _ref.flash_mha_ref(q, k, v, return_lse=True, **mode)
+        else:
+            out, lse = _launch(q, k, v, n_kv_heads, causal, q_offset, window,
+                               sink, sparsity, block_q, block_kv,
+                               with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mode = mode
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        bwd = _ref.flash_mha_bwd_ref if q.device.type == "cpu" \
+            else flash_mha_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, **ctx.mode)
+        return (dq, dk, dv) + (None,) * 8
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -161,16 +284,21 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_offset, window, sink = int(q_offset), int(window), int(sink)
     block_q, block_kv = min(block_q, sq), min(block_kv, skv)
     _check_mode(sq, skv, causal, window, sink, sparsity, block_q, block_kv)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_mha: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashMHA.apply(q, k, v, n_kv_heads, causal, q_offset, window,
+                              sink, sparsity, block_q, block_kv)
     if q.device.type == "cpu":
         return _ref.flash_mha_ref(
             q, k, v, n_kv_heads=n_kv_heads, causal=causal,
             q_offset=q_offset, window=window, sink=sink, sparsity=sparsity,
             block_q=block_q, block_kv=block_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mha: no kernel for device {q.device}")
     return _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink,
                    sparsity, block_q, block_kv)
 
 
 flash_mha.launches = 0
 flash_mha.launches_tc = 0
+flash_mha.launches_bwd = 0

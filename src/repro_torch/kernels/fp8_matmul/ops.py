@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.common.grad import no_grad_through
 from repro_torch.kernels.fp8_matmul import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fp8_matmul.cu"
@@ -112,6 +113,7 @@ def fp8_scaled_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     if x_q.device.type != "cuda":
         raise ValueError(f"fp8_scaled_matmul: no kernel for device "
                          f"{x_q.device}")
+    no_grad_through("fp8_scaled_matmul", x_q, w_q, sx, sw)
     return _launch(x_q, w_q, sx, sw, out_dtype)
 
 

@@ -27,6 +27,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.common.grad import no_grad_through
 from repro_torch.kernels.paged_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_chunk_attention.cu"
@@ -175,6 +176,7 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: no kernel for device "
                          f"{q.device}")
+    no_grad_through("paged_chunk_attention", q, k_pages, v_pages)
     return _launch(q, k_pages, v_pages, block_table, page_mask, sink,
                    chunk_tokens)
 
@@ -343,6 +345,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
+    no_grad_through("paged_decode_attention", q, k_pages, v_pages)
     return _launch_decode(q, k_pages, v_pages, block_table, lengths)
 
 

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.common.grad import no_grad_through
 from repro_torch.kernels.ssd_scan import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -157,6 +158,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
+    no_grad_through("ssd", x, dt, A, Bm, Cm, init_state)
     with torch.cuda.device(x.device):   # the runtime launches on its device
         return _launch(x, dt, A, Bm, Cm, chunk, init_state)
 

@@ -28,7 +28,9 @@ through per-row visibility masks: ``mha``'s plain masked segment on
 every device, as the reference runs that segment in jnp on the TPU too.
 
 The stacked ``[L, ...]`` layer parameters are consumed by a Python loop
-(the reference's ``lax.scan``).  Training waits for its slice (ROADMAP).
+(the reference's ``lax.scan``).  ``train_loss`` is the reference's
+flow-matching loss over a chunk sequence (no remat, as there); on the
+card its attention is the flash kernel with its backward.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (mha, merge_head_shards, paged_mha,
                                          shard_heads, sparse_keep_list)
-from repro_torch.models.layers import DTYPES, layer_params
+from repro_torch.models.layers import DTYPES
 
 Params = Dict[str, Any]
 
@@ -213,8 +215,7 @@ def _dit_forward(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
     silu_t = F.silu(temb)
 
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        lp = layer_params(p, li)
+    for li, lp in enumerate(L.unstack(p["layers"], cfg.n_layers)):
         mod = silu_t @ lp["mod"] + lp["mod_b"]                    # [B,6D]
         sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
         a_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh1, sc1)
@@ -541,9 +542,8 @@ def cond_kv(cfg: ModelConfig, p: Params, cond: torch.Tensor,
     cond = cond.to(p["cond_proj"].dtype) @ p["cond_proj"]
     positions = torch.arange(COND_TOKENS, device=cond.device)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        _, k, v = L.attn_qkv(cfg, layer_params(p, li)["attn"], cond,
-                             positions)
+    for lp in L.unstack(p["layers"], cfg.n_layers):
+        _, k, v = L.attn_qkv(cfg, lp["attn"], cond, positions)
         ks.append(k)
         vs.append(v)
     return torch.stack(ks).to(dt), torch.stack(vs).to(dt)
@@ -664,3 +664,40 @@ def serve_chunk_batched(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
         clean_kv = {k_: kvcache.to_fp8_e4m3(v_)
                     for k_, v_ in clean_kv.items()}
     return x, append_chunk_kv_batched(cfg, cache, clean_kv)
+
+
+# ---------------------------------------------------------------------------
+# training: causal-forcing style denoising over a chunk sequence
+# ---------------------------------------------------------------------------
+
+def train_loss(cfg: ModelConfig, p: Params,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Flow-matching loss over a sequence of chunks with causal context.
+
+    batch: latents [B, n_chunks, T_c, LATENT_CH], cond [B, 77, d_model],
+    t [B, n_chunks] denoise times, noise (same shape as latents).
+    Chunks run in a Python loop over a growing context, the
+    teacher-forced analogue of ``serve_chunk``'s rolling window: the
+    noised chunk's velocity against the rectified-flow target
+    ``eps - x0``, then a clean pass whose KV joins the context through
+    the functional ``append_chunk_kv`` (``torch.cat``, so gradients flow
+    through the context into earlier chunks)."""
+    lat, cond = batch["latents"], batch["cond"]
+    t_all, noise = batch["t"], batch["noise"]
+    n_chunks = lat.shape[1]
+    cache = init_cache(cfg, p, cond)
+    total = torch.zeros((), dtype=torch.float32, device=lat.device)
+    for c in range(n_chunks):
+        x0, eps, t = lat[:, c], noise[:, c], t_all[:, c]
+        x_t = (1.0 - t[:, None, None]) * x0 + t[:, None, None] * eps
+        target = eps - x0                       # rectified-flow velocity
+        ctx_k, ctx_v = visible_context(cfg, cache, cfg.ardit_window_chunks)
+        q_offset = COND_TOKENS + c * chunk_tokens(cfg)
+        pred, _ = chunk_forward(cfg, p, x_t, t, ctx_k, ctx_v,
+                                q_offset=q_offset)
+        total = total + torch.mean((pred.float() - target.float()) ** 2)
+        # the clean pass provides the causal context for the next chunk
+        _, clean_kv = chunk_forward(cfg, p, x0, torch.zeros_like(t),
+                                    ctx_k, ctx_v, q_offset=q_offset)
+        cache = append_chunk_kv(cfg, cache, clean_kv)
+    return total / n_chunks

@@ -38,14 +38,19 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, s, n_kv, hq // n_kv, d)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """fp32, or float64 for a float64 input (the CPU gradient checks)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _segment_attn(q, k, v, mask, scale):
     """One (q-block, kv-segment) flash step.
 
     q: [B,bq,Hkv,G,D]; k/v: [B,skv,Hkv,D]; mask: [bq,skv] or
     [B,bq,skv] bool, or None.  Returns unnormalized partials
-    (s_max, p_sum, p_v) in fp32.
+    (s_max, p_sum, p_v) in fp32 (float64 for float64 inputs).
     """
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _wide(q), _wide(k)) * scale
     if mask is not None:
         mask = mask[None, None, None] if mask.ndim == 2 \
             else mask[:, None, None]
@@ -57,7 +62,7 @@ def _segment_attn(q, k, v, mask, scale):
     if mask is not None:
         p = torch.where(mask, p, 0.0)
     l = torch.sum(p, dim=-1)                                  # [B,H,G,bq]
-    pv = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p, _wide(v))
     return m_safe, l, pv
 
 
@@ -75,6 +80,14 @@ def _finalize(acc, dtype):
     _, l, o = acc
     l = torch.where(l == 0.0, 1.0, l)               # fully-masked rows -> 0
     return (o / l[..., None]).to(dtype)             # [B,H,G,bq,D]
+
+
+def _lse(acc) -> torch.Tensor:
+    """Log-sum-exp of each row's scaled visible scores, m + log l
+    [B,H,G,bq]; -inf for a row that sees nothing (l = 0)."""
+    m, l, _ = acc
+    return torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                       -math.inf)
 
 
 def _init_acc(b, h, g, bq, d, device=None):
@@ -181,11 +194,14 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               n_kv_heads: int, causal: bool = True, q_offset: int = 0,
               window: int = 0, sink: int = 0, sparsity: float = 0.0,
               kv_mask: Optional[torch.Tensor] = None, block_q: int = 512,
-              block_kv: int = 512) -> torch.Tensor:
+              block_kv: int = 512, return_lse: bool = False):
     """``mha`` in plain PyTorch on any device (the reference's jnp
     body): the direct path, or the static block schedules — the causal
     block-triangular schedule with the optional rho keep list, and sink
-    + sliding window as per-q-block static KV segments."""
+    + sliding window as per-q-block static KV segments.  With
+    ``return_lse`` it returns ``(out, lse)``, lse [B,Hq,Sq] the fp32
+    log-sum-exp of each row's scaled visible scores (-inf for a row that
+    sees nothing): what the flash kernel's backward recomputes P from."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     dtype = q.dtype
@@ -206,8 +222,10 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_mask is not None:
             km = kv_mask[:, None, :]                     # [B,1,Skv]
             mask = km if mask is None else mask[None] & km
-        out = _finalize(_segment_attn(qg, k, v, mask, scale), dtype)
-        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+        acc = _segment_attn(qg, k, v, mask, scale)
+        out = _finalize(acc, dtype).permute(0, 3, 1, 2, 4).reshape(
+            b, sq, hq, d)
+        return (out, _lse(acc).reshape(b, hq, sq)) if return_lse else out
     assert kv_mask is None, "kv_mask is only supported on the direct path"
 
     # ---- blocked paths -----------------------------------------------------
@@ -217,7 +235,7 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_q = sq // block_q
     g = hq // n_kv_heads
 
-    outs = []
+    outs, lses = [], []
     for i in range(n_q):
         q_blk = qg[:, i * block_q:(i + 1) * block_q]
         q_lo = q_offset + i * block_q
@@ -262,7 +280,9 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
         outs.append(_finalize(acc, dtype).permute(0, 3, 1, 2, 4).reshape(
             b, block_q, hq, d))
-    return torch.cat(outs, dim=1)
+        lses.append(_lse(acc).reshape(b, hq, block_q))
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(lses, dim=2)) if return_lse else out
 
 
 def shard_heads(x: torch.Tensor, n_kv_heads: int, lo: int,

@@ -15,8 +15,10 @@ the cross-attention (``_cross_attn``, non-causal over the precomputed
 one query row; its self-attention is the plain
 ``attention.decode_attention``, as in the reference and the other
 families.  The stacked ``enc_layers`` / ``dec_layers`` parameters are
-consumed by Python loops (the reference's ``lax.scan``); ``train_loss``
-waits for training (ROADMAP).
+consumed by Python loops (the reference's ``lax.scan``).  Training:
+``forward(remat=True)`` checkpoints each decoder layer with its
+cross-attention K/V (the encoder is not checkpointed, as in the
+reference) and ``train_loss`` is the reference's cross-entropy.
 """
 from __future__ import annotations
 
@@ -95,8 +97,7 @@ def encode(cfg: ModelConfig, p: Params,
     states [B, T_a, D]."""
     h = audio_embeds.to(L.DTYPES[cfg.param_dtype])
     positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(p["enc_layers"], i)
+    for lp in L.unstack(p["enc_layers"], cfg.n_enc_layers):
         a_in = L.rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
         h = h + L.attn_block(cfg, lp["attn"], a_in, positions=positions,
                              causal=False)
@@ -151,22 +152,38 @@ def _dec_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor, *,
 
 
 def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
-            audio_embeds: torch.Tensor, *,
-            sparsity: float = 0.0) -> torch.Tensor:
-    """Decoder hidden states [B, S, D] over the whole token sequence."""
+            audio_embeds: torch.Tensor, *, sparsity: float = 0.0,
+            remat: bool = False) -> torch.Tensor:
+    """Decoder hidden states [B, S, D] over the whole token sequence.
+    ``remat`` recomputes each decoder layer (its cross K/V included) in
+    the backward pass."""
     enc = encode(cfg, p, audio_embeds)
     h = p["embed"][tokens.long()]
     positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(p["dec_layers"], i)
-        ck, cv = _cross_kv(cfg, lp["cross"], enc)
-        h = _dec_layer(cfg, lp, h, positions=positions, cross_k=ck,
-                       cross_v=cv, sparsity=sparsity)
+    for lp in L.unstack(p["dec_layers"], cfg.n_dec_layers):
+
+        def body(hh, lp=lp):
+            ck, cv = _cross_kv(cfg, lp["cross"], enc)
+            return _dec_layer(cfg, lp, hh, positions=positions, cross_k=ck,
+                              cross_v=cv, sparsity=sparsity)
+
+        h = L.remat_call(remat, body, h)
     return h
 
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(h, p["final_norm"], cfg.norm_eps) @ p["lm_head"]
+
+
+def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
+               remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy of the decoder over the encoded
+    ``audio_embeds``; ``remat`` as the reference (on)."""
+    from repro_torch.models.transformer import chunked_ce
+    h = forward(cfg, p, batch["tokens"], batch["audio_embeds"], remat=remat)
+    return chunked_ce(
+        lambda hb: L.rmsnorm(hb, p["final_norm"], cfg.norm_eps) @ p["lm_head"],
+        h, batch["targets"], batch.get("loss_mask"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",

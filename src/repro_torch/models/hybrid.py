@@ -13,7 +13,8 @@ decode time); prefill attention is ``attention.mha`` in its sink +
 window schedule (the flash kernel on the card), the Mamba sublayers run
 ``ssm.mamba_block`` (the SSD kernel on the card) and decode
 ``ssm.mamba_decode`` and the plain ``attention.decode_attention``.
-``train_loss`` waits for training (ROADMAP).
+``train_loss`` trains through the plain SSD on the CPU; on the card the
+SSD kernel has no backward yet and its wrapper raises under grad.
 """
 from __future__ import annotations
 
@@ -127,14 +128,17 @@ def _period_fwd(cfg: ModelConfig, pp: Params, h: torch.Tensor, *,
 
 
 def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
-            sparsity: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden [B,S,D], moe_aux scalar)."""
+            sparsity: float = 0.0, remat: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (hidden [B,S,D], moe_aux scalar).
+    ``remat`` recomputes each period in the backward pass."""
     h = p["embed"][tokens.long()]
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers // period_len(cfg)):
-        h, a = _period_fwd(cfg, _period(p, i), h, positions=positions,
-                           sparsity=sparsity)
+    for pp in L.unstack(p["periods"], cfg.n_layers // period_len(cfg)):
+        h, a = L.remat_call(
+            remat, lambda hh, pp=pp: _period_fwd(
+                cfg, pp, hh, positions=positions, sparsity=sparsity), h)
         aux = aux + a
     return h, aux
 
@@ -142,6 +146,18 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
     return h @ p["lm_head"]
+
+
+def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
+               aux_weight: float = 0.01, remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy plus the MoE aux loss times
+    ``aux_weight``; ``remat`` as the reference (on)."""
+    from repro_torch.models.transformer import chunked_ce
+    h, aux = forward(cfg, p, batch["tokens"], remat=remat)
+    loss = chunked_ce(
+        lambda hb: L.rmsnorm(hb, p["final_norm"], cfg.norm_eps) @ p["lm_head"],
+        h, batch["targets"], batch.get("loss_mask"))
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import mha
@@ -29,10 +30,11 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # param trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def init_stacked(n: int, make) -> Params:
@@ -58,6 +60,25 @@ def init_stacked(n: int, make) -> Params:
 def layer_params(p: Params, i: int) -> Params:
     """Layer ``i``'s view of the stacked ``[L, ...]`` layer params."""
     return tree_map(lambda t: t[i], p["layers"])
+
+
+def unstack(stack: Params, n: int) -> list:
+    """The ``n`` per-layer views of stacked ``[n, ...]`` params, one
+    ``unbind`` per leaf: autograd then stacks the layers' gradients once,
+    where ``n`` ``t[i]`` selects would each scatter one layer's gradient
+    into a zero tensor of the whole stack and sum ``n`` such stacks."""
+    views = tree_map(lambda t: t.unbind(0), stack)
+    return [tree_map(lambda ts, i=i: ts[i], views) for i in range(n)]
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant: tensors ``fn`` closes
+    over, such as a layer's parameter views, get their gradients too),
+    the reference's ``jax.checkpoint`` of a scanned layer body."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +229,11 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # gathers each token's k assignments and adds them one at a time in
 # ascending expert order -- the order in which the reference's scatter
 # adds a token's slots -- so neither uses atomics and both are
-# deterministic on the card.  The scatter form waits for training.
+# deterministic on the card.  Autograd through the dispatch gather sums
+# each slot's gradient back into its token: the function of the
+# reference's custom backward (``_moe_dispatch_bwd``, a slot scatter to
+# tokens), routing and capacity masks constant; no custom Function is
+# needed (the CPU tests hold the gradients to JAX's at 1e-5).
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype,
              device="cpu") -> Params:

@@ -8,9 +8,8 @@ allocated.  The port serves ``ardit`` (the paper's model; served through
 ``serve/``, so its prefill / decode entries are None, as in the
 reference), ``ssm`` (Mamba-2), ``dense`` / ``moe`` / ``vlm``
 (``models/transformer.py``), ``hybrid`` (``models/hybrid.py``) and
-``encdec`` (``models/encdec.py``, whisper-medium).  The training losses
-wait for their ROADMAP item and raise ``NotImplementedError`` naming
-it.
+``encdec`` (``models/encdec.py``, whisper-medium); every family's
+``loss`` is its ``train_loss``, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,9 +19,6 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-
-# ROADMAP "Modules to port", "Waiting": the item each missing part waits for
-_TRAINING = "ROADMAP 'Modules to port', Waiting: training"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,40 +30,28 @@ class ModelAPI:
     init_cache: Optional[Callable]    # (cfg, batch, max_len, device)
 
 
-def _not_ported(what: str, item: str) -> Callable:
-    def fn(*_args, **_kwargs):
-        raise NotImplementedError(f"{what} is not ported yet ({item})")
-    return fn
-
-
 def get_api(cfg: ModelConfig) -> ModelAPI:
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as M
-        return ModelAPI(M.init_params,
-                        _not_ported("transformer.train_loss", _TRAINING),
-                        M.prefill, M.decode_step, M.init_cache)
+        return ModelAPI(M.init_params, M.train_loss, M.prefill,
+                        M.decode_step, M.init_cache)
     if fam == "ssm":
         from repro_torch.models import ssm as M
         return ModelAPI(
-            M.init_params, _not_ported("ssm.train_loss", _TRAINING),
-            M.prefill, M.decode_step,
+            M.init_params, M.train_loss, M.prefill, M.decode_step,
             lambda cfg, b, _ml, device="cuda": M.init_state(cfg, b, device))
     if fam == "hybrid":
         from repro_torch.models import hybrid as M
-        return ModelAPI(M.init_params,
-                        _not_ported("hybrid.train_loss", _TRAINING),
-                        M.prefill, M.decode_step, M.init_cache)
+        return ModelAPI(M.init_params, M.train_loss, M.prefill,
+                        M.decode_step, M.init_cache)
     if fam == "encdec":
         from repro_torch.models import encdec as M
-        return ModelAPI(M.init_params,
-                        _not_ported("encdec.train_loss", _TRAINING),
-                        M.prefill, M.decode_step, M.init_cache)
+        return ModelAPI(M.init_params, M.train_loss, M.prefill,
+                        M.decode_step, M.init_cache)
     if fam == "ardit":
         from repro_torch.models import ardit as M
-        return ModelAPI(M.init_params,
-                        _not_ported("ardit.train_loss", _TRAINING),
-                        None, None, None)
+        return ModelAPI(M.init_params, M.train_loss, None, None, None)
     raise ValueError(f"unknown family {fam!r}")
 
 

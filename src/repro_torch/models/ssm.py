@@ -8,7 +8,9 @@ component (z, x, B, C, dt); depthwise causal conv over (x,B,C); SSD scan
 the CPU); gated RMSNorm; out projection.  The stacked ``[L, ...]`` layer
 parameters are consumed by a Python loop (the reference's ``lax.scan``);
 the reference's ``shard`` annotations are identity on one device and are
-dropped.  ``train_loss`` waits for training (ROADMAP).
+dropped.  ``train_loss`` trains through the plain SSD on the CPU; on the
+card the SSD kernel has no backward yet, so its wrapper raises under
+grad (as ``ssd_pallas``, which has no VJP, fails on the TPU).
 """
 from __future__ import annotations
 
@@ -203,20 +205,35 @@ def _embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["embed"][tokens.long()]
 
 
-def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens [B,S] -> final hidden states [B,S,D] (before the norm)."""
+def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
+            remat: bool = False) -> torch.Tensor:
+    """tokens [B,S] -> final hidden states [B,S,D] (before the norm).
+    ``remat`` recomputes each layer in the backward pass."""
     h = _embed(p, tokens)
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(p, i)
-        x = L.rmsnorm(h, lp["norm"], cfg.norm_eps)
-        h = h + mamba_block(cfg, lp["mamba"], x)
+    for lp in L.unstack(p["layers"], cfg.n_layers):
+
+        def body(hh, lp=lp):
+            x = L.rmsnorm(hh, lp["norm"], cfg.norm_eps)
+            return hh + mamba_block(cfg, lp["mamba"], x)
+
+        h = L.remat_call(remat, body, h)
     return h
 
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
     return h @ p["embed"].T
+
+
+def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
+               remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy, tied embeddings; ``remat`` as the
+    reference (on)."""
+    from repro_torch.models.transformer import chunked_ce
+    h = forward(cfg, p, batch["tokens"], remat=remat)
+    return chunked_ce(
+        lambda hb: L.rmsnorm(hb, p["final_norm"], cfg.norm_eps) @ p["embed"].T,
+        h, batch["targets"], batch.get("loss_mask"))
 
 
 def init_state(cfg: ModelConfig, batch: int,

@@ -9,8 +9,11 @@ through ``attention.mha`` at the reference's blocks of 512, so on the
 card it is the flash kernel (``kernels/flash_attention``) in the mode
 ``attention.flash_mode`` computes; decode attention is the plain
 ``attention.decode_attention`` on every device, as in the reference
-(whose decode never calls a Pallas kernel).  ``chunked_ce`` and
-``train_loss`` wait for training (ROADMAP).
+(whose decode never calls a Pallas kernel).  Training: ``forward``
+with ``remat`` checkpoints each layer (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``) and rounds the layer boundary's
+gradient through bf16 under ``cfg.bf16_backward``; ``chunked_ce`` and
+``train_loss`` as in the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.precision import bf16_cotangent
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models.attention import decode_attention, mha
@@ -105,19 +109,80 @@ def _layer_fwd(cfg: ModelConfig, lp: Params, h: torch.Tensor, *,
 
 def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
             img_embeds: Optional[torch.Tensor] = None,
-            window: int = 0, sink: int = 0, sparsity: float = 0.0
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden [B,S,D], moe_aux scalar)."""
+            window: int = 0, sink: int = 0, sparsity: float = 0.0,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (hidden [B,S,D], moe_aux scalar).
+    ``remat`` recomputes each layer in the backward pass."""
     h = _embed(cfg, p, tokens, img_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     window = window or cfg.attn_window
     sink = sink or cfg.attn_sink
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        h, a = _layer_fwd(cfg, L.layer_params(p, i), h, positions=positions,
-                          window=window, sink=sink, sparsity=sparsity)
+    for lp in L.unstack(p["layers"], cfg.n_layers):
+
+        def body(hh, lp=lp):
+            hh, a = _layer_fwd(cfg, lp, hh, positions=positions,
+                               window=window, sink=sink, sparsity=sparsity)
+            if cfg.bf16_backward:
+                hh = bf16_cotangent(hh)
+            return hh, a
+
+        h, a = L.remat_call(remat, body, h)
         aux = aux + a
     return h, aux
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def chunked_ce(logits_fn, h: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], block: int = 1024
+               ) -> torch.Tensor:
+    """Cross-entropy computed in blocks of ``block`` positions along S,
+    to bound the logits working set: the sum of each block's masked
+    losses and of its mask, then one divide (the reference's order),
+    the remainder block last."""
+    b, s, _ = h.shape
+    block = min(block, s)
+    n = s // block
+    rem = s - n * block
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=h.device)
+
+    def ce_block(h_blk, t_blk, m_blk):
+        logits = logits_fn(h_blk).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t_blk.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * m_blk), torch.sum(m_blk)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    spans = [(i * block, (i + 1) * block) for i in range(n)]
+    if rem:
+        spans.append((n * block, s))
+    for lo, hi in spans:
+        s_, c_ = ce_block(h[:, lo:hi], targets[:, lo:hi], mask[:, lo:hi])
+        tot, cnt = tot + s_, cnt + c_
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
+               aux_weight: float = 0.01, remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy (VLM: text positions only) plus the MoE
+    load-balancing aux loss times ``aux_weight``; tied embeddings
+    (minicpm-2b) unembed with ``embed``.  ``remat`` as the reference
+    (on)."""
+    img = batch.get("img_embeds")
+    h, aux = forward(cfg, p, batch["tokens"], img_embeds=img, remat=remat)
+    if img is not None:                 # loss only on text positions
+        h = h[:, img.shape[1]:]
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    loss = chunked_ce(lambda hb: L.rmsnorm(hb, p["final_norm"],
+                                           cfg.norm_eps) @ w,
+                      h, batch["targets"], batch.get("loss_mask"))
+    return loss + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,10 @@ on the engine, whose measurements calibrate the model's ``bw_intra``.
   attributed directionally: source ``transfer_bytes_out``, destination
   ``transfer_bytes_in``.
 * ``elastic_sp.SPDecision`` -> :meth:`sp_expand` / :meth:`sp_release`,
-  in one of two modes (``SPLink.mode``), chosen by ``sp_mode``:
-  ``"auto"`` (the default, as in the reference) takes batch mode for
-  lanes on different devices (the head-split step reads both pools in
-  one call) and solo mode otherwise; ``"batch"`` takes batch mode for
+  in one of two modes (``SPLink.mode``), chosen by ``sp_mode``, as in
+  the reference: ``"auto"`` (the default) and ``"solo"`` take batch mode
+  for lanes on different devices (the head-split step reads both pools
+  in one call) and solo mode otherwise; ``"batch"`` takes batch mode for
   lanes on one device too.
 
   - **solo**: expand copies the
@@ -110,8 +110,9 @@ class LanePool:
                  bundles: Optional[Sequence[Any]] = None):
         if n_lanes < 1:
             raise ValueError(f"n_lanes {n_lanes}: at least 1")
-        if sp_mode not in ("auto", "batch"):
-            raise ValueError(f"sp_mode {sp_mode!r}: 'auto' or 'batch'")
+        if sp_mode not in ("auto", "solo", "batch"):
+            raise ValueError(
+                f"sp_mode {sp_mode!r}: 'auto', 'solo' or 'batch'")
         # lane i on devices[i % n] (the reference's round-robin over its
         # runtime's devices); without ``devices`` every lane on ``device``
         self.lane_devices = ([torch.device(devices[i % len(devices)])
@@ -351,7 +352,8 @@ class LanePool:
         """Serving mode of a new SP link.  Lanes on DIFFERENT devices
         always use batch-axis SP: the head-split step reads both pools in
         one call, which cannot span two devices.  Lanes on one device
-        take the solo head split unless ``sp_mode`` is "batch"."""
+        take the solo head split unless ``sp_mode`` is "batch" ("auto"
+        and "solo" alike, as in the reference)."""
         if home_ex.device != donor_ex.device:
             return "batch"
         return "batch" if self.sp_mode == "batch" else "solo"

@@ -163,10 +163,21 @@ def test_init_cache_matches_reference():
         assert not bool(got[name].any())
 
 
-def test_training_loss_waits():
-    cfg, _, _, _ = _model()
-    with pytest.raises(NotImplementedError, match="encdec.train_loss"):
-        registry.get_api(cfg).loss(cfg, None, {})
+def test_training_loss_is_a_finite_scalar():
+    """The registry's ``loss`` is ``encdec.train_loss``: a finite fp32
+    scalar at the reduced config (its gradients against JAX's are in
+    tests/test_torch_train.py)."""
+    cfg, _, params, _ = _model()
+    api = registry.get_api(cfg)
+    assert api.loss is encdec.train_loss
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    audio = torch.from_numpy((0.02 * rng.standard_normal(
+        (B, cfg.n_frontend_tokens, cfg.d_model))).astype(np.float32))
+    loss = api.loss(cfg, params, {"tokens": tokens, "targets": tokens,
+                                  "audio_embeds": audio})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert bool(torch.isfinite(loss))
 
 
 # ---- the reference's serving-consistency test, on the port alone ---------

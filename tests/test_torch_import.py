@@ -28,6 +28,11 @@ import repro_torch.sched_sim, repro_torch.sched_sim.calibration
 import repro_torch.sched_sim.policies, repro_torch.serve.modelplane
 import repro_torch.models.stepcache
 import repro_torch.models.transformer, repro_torch.models.hybrid
+import repro_torch.models.encdec, repro_torch.models.ardit
+import repro_torch.data.pipeline, repro_torch.distributed.precision
+import repro_torch.train.optimizer, repro_torch.train.loop
+import repro_torch.train.checkpoint, repro_torch.launch.train
+import repro_torch.kernels.common.grad, repro_torch.kernels.fp8_matmul
 import repro_torch.configs.base as cb; cb.list_archs()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
@@ -65,7 +70,8 @@ def test_entry_points_default_to_the_card():
     and hybrid families' ``init_params`` and ``init_cache`` through the
     registry, without ``device`` allocate on the card; on a host without
     one they raise, as torch does — nothing quietly falls back to the
-    CPU."""
+    CPU.  ``launch/train.py`` trains on the card unless ``--device cpu``
+    is given, and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs.base import get_config
@@ -75,6 +81,10 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((AssertionError, RuntimeError)):
         BatchedChunkExecutor(cfg)
     assert SessionConfig().device == "cuda"
+    from repro_torch.launch import train
+    assert train.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--steps", "1"])
     from repro_torch.models import registry
     mcfg = get_config("mamba2-780m").reduced()
     api = registry.get_api(mcfg)

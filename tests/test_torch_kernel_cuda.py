@@ -38,6 +38,18 @@ the output's largest magnitude for bf16 outputs (the CUDA-core kernel
 rounds the same fp32 result once; the tensor-core kernel also rounds P
 to bf16 before P V, as SDPA does, and stays within the same limit).
 
+Flash attention's backward (``flash_mha_bwd``, ``csrc/flash_mha_bwd.cu``)
+against ``flash_mha_bwd_ref`` on the same q, k, v, output, log-sum-exp
+and output gradient from the forward kernel, over the same modes, head
+dims and dtypes, two calls bit for bit, the forward's lse within 2e-4 of
+the plain version's; ``flash_mha`` under grad (``FlashMHA``: a
+``grad_fn``, one backward launch); the SSD, fp8 and paged wrappers
+raising under grad; a reduced config's training gradients on the card
+against the CPU's.  Tolerance: fp32 gradients within 1e-4 of each
+gradient's largest magnitude, bf16 ones within 4 bf16 ulps at it (each
+side rounds one fp32 sum, in another order); 1e-4 of each leaf's
+largest magnitude for the training gradients.
+
 Paged chunk attention on head-range views ``pool[..., lo:hi, :]`` (the
 elastic SP2 shards): the kernel reads the view in place and gives
 exactly the partials it gives on a contiguous copy of the view, and the
@@ -1004,3 +1016,160 @@ def test_reduced_families_on_the_card_match_the_cpu(card, arch):
     for (lg, cg), (lw, cw) in zip(runs[str(card)], runs["cpu"]):
         assert float((lg - lw).abs().max()) <= 1e-4
         _tree_close(cg, cw, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel's backward, and the guard of the kernels without one
+# ---------------------------------------------------------------------------
+
+def _bwd_mode(Sq, Skv, Hkv, kw):
+    """``flash_mha``'s mode for ``kw``, block sizes clipped as it clips
+    them."""
+    mode = {**dict(n_kv_heads=Hkv, causal=True, q_offset=0, window=0,
+                   sink=0, sparsity=0.0, block_q=128, block_kv=128), **kw}
+    mode["block_q"] = min(mode["block_q"], Sq)
+    mode["block_kv"] = min(mode["block_kv"], Skv)
+    return mode
+
+
+def bwd_limit(want):
+    """fp32: 1e-4 of the gradient's largest magnitude; bf16: 4 bf16 ulps
+    at it (each side rounds one fp32 sum, in another order)."""
+    top = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        return 1e-4 * max(top, 1e-30)
+    return 4.0 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+@pytest.mark.parametrize("D", [16, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_matches_plain_version(card, mode, D, dtype):
+    """``flash_mha_bwd`` (``csrc/flash_mha_bwd.cu``) against
+    ``flash_mha_bwd_ref`` on the same q, k, v, output, lse and output
+    gradient from the forward kernel (tensor cores for bf16 at D 64 /
+    96 / 128); the forward's lse against the plain version's; two calls
+    bit for bit."""
+    Sq, Skv, Hq, Hkv, kw = FLASH_MODES[mode]
+    g = torch.Generator(device=card).manual_seed(7 * Sq + D)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device=card).to(dtype)
+    k = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
+    v = torch.randn((2, Skv, Hkv, D), generator=g, device=card).to(dtype)
+    do = torch.randn((2, Sq, Hq, D), generator=g, device=card).to(dtype)
+    m = _bwd_mode(Sq, Skv, Hkv, kw)
+    out, lse = fops._launch(q, k, v, with_lse=True, **m)
+    _, lse0 = fref.flash_mha_ref(q, k, v, return_lse=True, **m)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse0))
+    fin = torch.isfinite(lse0)
+    if fin.any():
+        assert float((lse - lse0)[fin].abs().max()) <= 2e-4
+    before = fops.flash_mha.launches_bwd
+    got = fops.flash_mha_bwd(q, k, v, out, lse, do, **m)
+    again = fops.flash_mha_bwd(q, k, v, out, lse, do, **m)
+    torch.cuda.synchronize()
+    assert fops.flash_mha.launches_bwd == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fref.flash_mha_bwd_ref(q, k, v, out, lse, do, **m)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= bwd_limit(w), (mode, D, dtype, name, err)
+    if mode == "rows-see-nothing":
+        assert float(got[0][:, :8].float().abs().max()) == 0.0
+
+
+def test_flash_autograd_on_the_card(card):
+    """Under grad ``flash_mha``'s output has a ``grad_fn`` (``FlashMHA``)
+    and ``backward`` launches the backward kernel once, giving its
+    gradients (GQA: the group's heads summed into dK / dV)."""
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+               for s in ((2, 200, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64)))
+    do = torch.randn((2, 200, 8, 64), generator=g, device=card) \
+        .to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fops.flash_mha.launches_bwd
+    out = fops.flash_mha(*leaves, n_kv_heads=2, causal=False)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert fops.flash_mha.launches_bwd == before + 1
+    with torch.no_grad():
+        o, lse = fops._launch(q, k, v, with_lse=True,
+                              **_bwd_mode(200, 300, 2, dict(causal=False)))
+        want = fops.flash_mha_bwd(q, k, v, o, lse, do, **_bwd_mode(
+            200, 300, 2, dict(causal=False)))
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    with torch.no_grad():
+        assert fops.flash_mha(*leaves, n_kv_heads=2,
+                              causal=False).grad_fn is None
+
+
+def test_kernels_without_a_backward_raise_under_grad(card):
+    """The SSD, fp8 and both paged wrappers raise before they launch when
+    grad mode is on and an input requires grad (their outputs would leave
+    autograd); under ``torch.no_grad()`` they launch."""
+    x, dt, A, Bm, Cm, _ = ssd_inputs(card, 1, 64, 2, 16, 16, torch.float32,
+                                     False, 0)
+    xq = to_fp8_e4m3(torch.randn((32, 64), device=card))
+    wq = to_fp8_e4m3(torch.randn((64, 32), device=card))
+    sx = torch.ones((32, 1), device=card)
+    sw = torch.ones((1, 32), device=card)
+    q, kp, vp, table, mask = _inputs(card, 1, 16, 4, 4, 16, 8, 2,
+                                     torch.float32, torch.float32, 0)
+    dq, dkp, dvp, dtable, lengths = _decode_inputs(
+        card, 2, 4, 4, 16, 8, 2, 6, torch.float32, 0)
+    calls = {
+        "ssd": lambda: sops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=16),
+        "fp8_scaled_matmul": lambda: f8ops.fp8_scaled_matmul(
+            xq, wq, sx.requires_grad_(), sw),
+        "paged_chunk_attention": lambda: ops.paged_chunk_attention(
+            q.requires_grad_(), kp, vp, table, mask),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            dq.requires_grad_(), dkp, dvp, dtable, lengths),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel "
+                                               "has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "ardit-self-forcing"])
+def test_training_gradients_on_the_card_match_the_cpu(card, arch):
+    """A reduced config's loss and gradients on the card (fp32: kernel 3
+    on the CUDA cores, its backward) within 1e-4 of each leaf's largest
+    magnitude of the CPU's, on the same parameters and batch."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import ardit, registry
+    from repro_torch.models.convert import params_to
+    from repro_torch.train import loop, optimizer as opt
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = registry.get_api(cfg).init(cfg, gen, device="cpu")
+        seq = 24
+        if cfg.family == "ardit":
+            params = ardit.open_gates(params, gen)
+            seq = 2 * ardit.chunk_tokens(cfg)
+        batch = dp.global_batch(cfg, ShapeConfig("t", "train", seq, 2), 0)
+        fn = loop.loss_for(cfg)
+        l0, g0 = loop.value_and_grad(fn, params, loop.to_device(batch, "cpu"))
+        before = fops.flash_mha.launches_bwd
+        l1, g1 = loop.value_and_grad(fn, params_to(params, card),
+                                     loop.to_device(batch, card))
+        assert fops.flash_mha.launches_bwd > before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert abs(float(l1) - float(l0)) <= 1e-4 * abs(float(l0))
+    want = dict(opt.leaves_with_path(g0))
+    for path, t in opt.leaves_with_path(g1):
+        w = want[path]
+        assert float((t.cpu() - w).abs().max()) <= 1e-4 * max(
+            float(w.abs().max()), 1e-30), path

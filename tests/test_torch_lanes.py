@@ -710,8 +710,8 @@ def test_sp_mode_auto_takes_batch_across_devices():
     """``sp_mode="auto"`` (the default, as in the reference): the solo
     head split for lanes on one device, batch-axis SP for a device pair
     (the donor's device stubbed with ``torch.device("meta")``), whatever
-    ``sp_mode`` says; an unknown mode (the port's former "solo", which
-    "auto" is on one device) raises."""
+    ``sp_mode`` says ("solo" included, as in the reference); an unknown
+    mode raises."""
     lp = lanes(2, max_streams=3)
     home, donor = lp.ex(0), lp.ex(1)
     assert lp.sp_mode == "auto"
@@ -719,12 +719,36 @@ def test_sp_mode_auto_takes_batch_across_devices():
     lp.sp_mode = "batch"
     assert lp._sp_mode_for(home, donor) == "batch"
     donor.device = torch.device("meta")
-    for mode in ("auto", "batch"):
+    for mode in ("auto", "solo", "batch"):
         lp.sp_mode = mode
         assert lp._sp_mode_for(home, donor) == "batch"
-    for bad in ("solo", "heads"):
-        with pytest.raises(ValueError, match="sp_mode"):
+    for bad in ("heads", "SOLO"):
+        with pytest.raises(ValueError, match="'auto', 'solo' or 'batch'"):
             lanes(2, sp_mode=bad)
+
+
+def test_sp_mode_solo_is_auto_on_one_device():
+    """``sp_mode="solo"`` (the reference's third value) on lanes of one
+    device builds the same SP link as ``"auto"`` (solo mode, the same
+    donor) and serves the same chunks, bit for bit, through expand,
+    appends under SP and release."""
+    params = open_params(tiny_cfg())
+    got = {}
+    for mode in ("auto", "solo"):
+        lp = lanes(2, params=params, max_streams=3, sp_mode=mode)
+        assert lp.sp_mode == mode
+        ex0 = lp.ex(0)
+        lp.admit(0, 0, seed=0)
+        chunks = gen_chunks(ex0, 0, 1)
+        assert lp.sp_expand(0, 1)
+        link = lp.sp_link(0)
+        chunks += gen_chunks(ex0, 0, 2, sp=True)
+        lp.sp_release(0)
+        chunks += gen_chunks(ex0, 0, 1)
+        got[mode] = ((link.mode, link.donor), chunks)
+    assert got["solo"][0] == got["auto"][0] == ("solo", 1)
+    for c, (a, b) in enumerate(zip(got["auto"][1], got["solo"][1])):
+        np.testing.assert_array_equal(a, b, err_msg=f"chunk {c}")
 
 
 def test_lanes_round_robin_over_devices():

@@ -289,11 +289,11 @@ def test_prefill_decode_equals_forward(model):
 
 
 def test_registry_api():
-    """``ssm`` serves prefill / decode / init_cache (training raises,
-    naming its ROADMAP item); ``ardit`` has no token serving surface, as
-    in the reference; ``encdec`` serves through ``models.encdec`` (its
-    training raising, like every family's); an unknown family
-    ValueError."""
+    """``ssm`` serves prefill / decode / init_cache and trains through
+    ``ssm.train_loss``; ``ardit`` has no token serving surface, as in the
+    reference, and trains through ``ardit.train_loss``; ``encdec`` serves
+    through ``models.encdec`` and trains through ``encdec.train_loss``;
+    an unknown family ValueError."""
     cfg = get_config(ARCH).reduced()
     api = registry.get_api(cfg)
     assert api.init is ssm.init_params and api.prefill is ssm.prefill
@@ -303,18 +303,16 @@ def test_registry_api():
     assert tuple(cache["ssm"].shape) == (4, 3, 8, 16, 16)
     assert cache["ssm"].dtype == torch.float32
     assert not any(bool(t.any()) for t in cache.values())
-    with pytest.raises(NotImplementedError, match="training"):
-        api.loss(cfg, None, None)
+    assert api.loss is ssm.train_loss
+    from repro_torch.models import ardit as A
     ardit = registry.get_api(get_config("ardit-self-forcing"))
     assert ardit.prefill is None and ardit.decode_step is None \
         and ardit.init_cache is None
-    with pytest.raises(NotImplementedError, match="training"):
-        ardit.loss(None, None, None)
+    assert ardit.loss is A.train_loss
     from repro_torch.models import encdec
     enc = registry.get_api(get_config("whisper-medium"))
     assert enc.prefill is encdec.prefill and \
         enc.decode_step is encdec.decode_step
-    with pytest.raises(NotImplementedError, match="Waiting: training"):
-        enc.loss(None, None, None)
+    assert enc.loss is encdec.train_loss
     with pytest.raises(ValueError, match="unknown family"):
         registry.get_api(dataclasses.replace(cfg, family="rnn"))
