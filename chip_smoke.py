@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit from nvidia-smi; build every CUDA kernel
-   of the port from ``src/repro_torch/kernels/*/csrc`` with nvcc (six
+   of the port from ``src/repro_torch/kernels/*/csrc`` with nvcc (seven
    sources, one nvcc per source, started together).
 2. Paged kernel vs plain version on the card at the batched path's
    full-width shapes (ardit-self-forcing: Sq = 2640, Hq = Hkv = 12, D =
@@ -189,27 +189,33 @@ Phases (any failure raises and the script exits non-zero):
    the ring on its own from ``init_batched_cache`` (gaps printed: they
    compound through the context); the ring path launches no kernel.
 
-18. The flash kernel's backward (``flash_mha_bwd.cu``, run after 16 with
-   everything before it freed) against its plain version on the same q,
-   k, v, output, log-sum-exp and output gradient: at minicpm-2b's
-   training attention (B 2, S 4,096, 36 heads of 64, causal) and
-   ardit-self-forcing's (B 1, 2,640 queries over 2,717 and 5,357 keys,
-   12 heads of 128) in bf16 after the tensor-core forward, then GQA 4,
-   sink + window, the rho keep matrix, q_offset, whisper-medium's 1,500
-   keys, D 96, rows that see nothing, fp32 at D 16 and 64; two calls bit
-   for bit; the forward's lse against the plain version's; the
-   backward's time beside its bound, the plain version and SDPA's
-   backward on its flash backend; the gap to the fp32 gradient of the
-   plain forward printed.
+18. The flash kernel's backward (run after 16 with everything before it
+   freed) against its plain version on the same q, k, v, output,
+   log-sum-exp and output gradient: at minicpm-2b's training attention
+   (B 2, S 4,096, 36 heads of 64, causal) and ardit-self-forcing's (B 1,
+   2,640 queries over 2,717 and 5,357 keys, 12 heads of 128) in bf16
+   after the tensor-core forward, then GQA 4, sink + window, the rho keep
+   matrix, q_offset, whisper-medium's 1,500 keys, D 96, rows that see
+   nothing, fp32 at D 16 and 64.  bf16 at D 64 / 96 / 128 takes the
+   tensor-core backward (``flash_mha_bwd_wgmma.cu``), held to the plain
+   version that rounds P and dS to bf16 as it does, with each gradient's
+   gap to the fp32 gradient of the plain forward within 2^-6 of its
+   largest magnitude; fp32 and D 16 take the CUDA-core backward
+   (``flash_mha_bwd.cu``), held to the unrounded plain version, which
+   also holds it at the training shapes in bf16; each call's path
+   checked by the launch counts; two calls bit for bit; the forward's lse
+   against the plain version's; both backwards' times beside the bound,
+   the plain version and SDPA's backward on its flash backend.
 19. Training (after 18, on fresh parameters): (i) the reduced dense,
    MoE, VLM, encoder-decoder and AR-DiT configs, card against CPU (loss
    and every gradient leaf, kernel 3's forward and backward launches
-   against the layers); mamba2-780m and jamba-v0.1-52b raise the SSD
-   wrapper's autograd guard; (ii) ``launch/train.py``'s ``main`` at full
-   width: minicpm-2b 3 steps at 2 x 4,096 on one fixed batch (the loss
-   must fall) and ardit-self-forcing 2 steps at 1 x 2 chunks; s/step,
-   tokens/s, peak memory, kernel 3's launches per step, every forward
-   on the tensor cores; (iii) a checkpoint on the card: save, restore
+   against the layers, every backward on the CUDA cores); mamba2-780m and
+   jamba-v0.1-52b raise the SSD wrapper's autograd guard; (ii)
+   ``launch/train.py``'s ``main`` at full width: minicpm-2b 3 steps at 2
+   x 4,096 on one fixed batch (the loss must fall) and ardit-self-forcing
+   2 steps at 1 x 2 chunks; s/step, tokens/s, peak memory, kernel 3's
+   launches per step, every forward and every backward on the tensor
+   cores; (iii) a checkpoint on the card: save, restore
    bit for bit (bf16 leaves included), continue.
 
 Every phase prints its seconds.
@@ -365,12 +371,19 @@ BWD_TRAIN_SHAPES = {
 # backward kernel vs plain version on the same inputs (o and lse from the
 # forward kernel): both sum in fp32, in other orders; fp32 gradients
 # within TOL_BWD_F32 of each gradient's largest magnitude, bf16 ones
-# within BWD_BF16_ULPS bf16 ulps at it (each rounds one fp32 sum); the
-# forward's lse within TOL_LSE of the plain version's (fp32 in both,
-# exp2.approx and summation order on the card)
+# within BWD_BF16_ULPS bf16 ulps at it (each rounds one fp32 sum; the
+# tensor-core kernel is held to the plain version that rounds P and dS
+# to bf16 where it does); the forward's lse within TOL_LSE of the plain
+# version's (fp32 in both, exp2.approx and summation order on the card)
 TOL_BWD_F32 = 1e-4
 BWD_BF16_ULPS = 4
 TOL_LSE = 2e-4
+# the tensor-core backward's gradients against the fp32 gradient of the
+# plain forward, relative to each gradient's largest magnitude: the
+# forward's bf16 P and output and the backward's bf16 P and dS give
+# 0.1-1%; a rounding at the wrong place (an operand or a sum in bf16)
+# gives more
+TOL_BWD_GAP = 2.0 ** -6
 # phase 19 (i): the reduced configs, card against CPU: name -> family
 TRAIN_PARITY_ARCHS = ("minitron-8b", "granite-moe-1b-a400m", "internvl2-26b",
                       "whisper-medium", "ardit-self-forcing")
@@ -989,20 +1002,50 @@ def bwd_grads_close(name, got, want, dtype):
     return max(e for _, e, _ in errs)
 
 
-def phase_flash_bwd(record):
-    """Phase 18: the flash kernel's backward (``csrc/flash_mha_bwd.cu``)
-    against its plain version ``flash_mha_bwd_ref`` on the same q, k, v,
-    output, log-sum-exp and output gradient, at the two training shapes
-    of phase 19 and in every mode at modest shapes; two calls give the
+def phase_flash_bwd(record, record_tc):
+    """Phase 18: the flash kernel's backward against its plain version
+    ``flash_mha_bwd_ref`` on the same q, k, v, output, log-sum-exp and
+    output gradient, at the two training shapes of phase 19 and in every
+    mode at modest shapes: bf16 at D 64 / 96 / 128 on the tensor cores
+    (``csrc/flash_mha_bwd_wgmma.cu``) against the plain version that
+    rounds P and dS to bf16, with the gap to the fp32 gradient of the
+    plain forward gated; the rest on the CUDA cores
+    (``csrc/flash_mha_bwd.cu``) against the unrounded one, which also
+    holds the CUDA-core kernel at the training shapes; two calls give the
     same bits; the forward's lse against the plain version's; timings of
-    the backward (forward excluded) beside its bound, the plain version
+    both backwards (forward excluded) beside the bound, the plain version
     and SDPA's backward on its flash backend."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import ops, ref
 
+    fm = ops.flash_mha
     gen = torch.Generator(device=DEV).manual_seed(2468)
     bf16, f32 = torch.bfloat16, torch.float32
+
+    def backward(name, q, k, v, out, lse, dout, mode, path):
+        """One backward kernel held to its plain version: two calls, each
+        launch on ``path``, bit for bit; returns (grads, largest error)."""
+        before = (fm.launches_bwd, fm.launches_bwd_tc)
+        got = ops.flash_mha_bwd(q, k, v, out, lse, dout, path=path, **mode)
+        again = ops.flash_mha_bwd(q, k, v, out, lse, dout, path=path, **mode)
+        tc = path == "wgmma"
+        if (fm.launches_bwd - before[0], fm.launches_bwd_tc - before[1]) \
+                != (2, 2 * tc):
+            raise AssertionError(f"{name}: backward launches off the "
+                                 f"{path} path")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: two backward calls differ")
+        del again
+        want = ref.flash_mha_bwd_ref(q, k, v, out, lse, dout,
+                                     round_bf16=tc, **mode)
+        B, Sq, Hq, D = q.shape
+        blocks = ops.bwd_blocks(B, Sq, k.shape[1], Hq, k.shape[2], path)
+        err = bwd_grads_close(
+            f"{name} [{path} backward against the "
+            f"{'rounding ' if tc else ''}plain version; {blocks[0]} dK/dV "
+            f"+ {blocks[1]} dQ blocks]", got, want, q.dtype)
+        return got, err
 
     def case(name, B, Sq, Skv, Hq, Hkv, D, dtype, kw, timed=False):
         q = torch.randn((B, Sq, Hq, D), generator=gen, device=DEV).to(dtype)
@@ -1024,38 +1067,45 @@ def phase_flash_bwd(record):
             if (~dead).any() else 0.0
         if not err_lse <= TOL_LSE:
             raise AssertionError(f"{name}: forward lse off by {err_lse}")
-        got = ops.flash_mha_bwd(q, k, v, out, lse, dout, **mode)
-        again = ops.flash_mha_bwd(q, k, v, out, lse, dout, **mode)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{name}: two backward calls differ")
-        want = ref.flash_mha_bwd_ref(q, k, v, out, lse, dout, **mode)
-        blocks = ops.bwd_blocks(B, Sq, Skv, Hq, Hkv)
-        path = ops.kernel_path(dtype, D)
-        err = bwd_grads_close(
-            f"{name} (forward {path}; {blocks[0]} dK/dV + {blocks[1]} dQ "
-            f"blocks; lse |d| {err_lse:.2g}; {int(dead.sum())} dead rows)",
-            got, want, dtype)
-        del want, again
-        if not timed:
-            return err, None
-        # the gap of the kernel's gradient to the fp32 gradient of the
-        # plain forward (P kept in fp32 there, rounded to bf16 before P V
-        # by the tensor-core forward): printed, not gated
-        q32, k32, v32 = (t.float() for t in (q, k, v))
-        o32, l32 = ref.flash_mha_ref(q32, k32, v32, return_lse=True, **mode)
-        exact = ref.flash_mha_bwd_ref(q32, k32, v32, o32, l32,
-                                      dout.float(), **mode)
-        gaps = [float((g.float() - w).abs().max() / w.abs().max())
-                for g, w in zip(got, exact)]
-        print(f"    gap to the fp32 gradient of the plain forward (relative "
-              f"to each gradient's largest magnitude): dq {gaps[0]:.3g}, dk "
-              f"{gaps[1]:.3g}, dv {gaps[2]:.3g}")
-        del q32, k32, v32, o32, l32, exact
+        path = ops.bwd_kernel_path(dtype, D)
+        print(f"  {name}: forward {ops.kernel_path(dtype, D)}, lse |d| "
+              f"{err_lse:.2g}, {int(dead.sum())} dead rows")
+        got, err = backward(name, q, k, v, out, lse, dout, mode, path)
+        errs = {path: err}
+        if timed and path == "wgmma":
+            # the CUDA-core kernel, which stays callable, on the same inputs
+            _, errs["cuda_cores"] = backward(name, q, k, v, out, lse, dout,
+                                             mode, "cuda_cores")
+        if path == "wgmma":
+            # the gap of the kernel's gradient to the fp32 gradient of the
+            # plain forward (P kept in fp32 there; rounded to bf16 by the
+            # tensor-core forward before P V and by this backward before
+            # the products that take P and dS)
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            o32, l32 = ref.flash_mha_ref(q32, k32, v32, return_lse=True,
+                                         **mode)
+            exact = ref.flash_mha_bwd_ref(q32, k32, v32, o32, l32,
+                                          dout.float(), **mode)
+            gaps = [float((g.float() - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+                    for g, w in zip(got, exact)]
+            print(f"    gap to the fp32 gradient of the plain forward "
+                  f"(relative to each gradient's largest magnitude; limit "
+                  f"{TOL_BWD_GAP:.3g}): dq {gaps[0]:.3g}, dk {gaps[1]:.3g}, "
+                  f"dv {gaps[2]:.3g}")
+            if not max(gaps) <= TOL_BWD_GAP:
+                raise AssertionError(f"{name}: the tensor-core backward is "
+                                     f"{max(gaps)} from the fp32 gradient")
+            del q32, k32, v32, o32, l32, exact
+        del got
         torch.cuda.empty_cache()
-        kernel_ms = cuda_ms(lambda: ops.flash_mha_bwd(
-            q, k, v, out, lse, dout, **mode), 5)
-        plain_ms = cuda_ms(lambda: ref.flash_mha_bwd_ref(
-            q, k, v, out, lse, dout, **mode), 1)
+        if not timed:
+            return errs, None
+        times = {p_: cuda_ms(lambda: ops.flash_mha_bwd(
+            q, k, v, out, lse, dout, path=p_, **mode), 5) for p_ in errs}
+        plain = {rounding: cuda_ms(lambda: ref.flash_mha_bwd_ref(
+            q, k, v, out, lse, dout, round_bf16=rounding, **mode), 1)
+            for rounding in (False, True)}
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
@@ -1075,25 +1125,33 @@ def phase_flash_bwd(record):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"    backward: kernel {kernel_ms:.3f} ms "
-              f"({flops / kernel_ms / 1e9:.2f} TFLOP/s of the bound's "
-              f"operations); plain {plain_ms:.3f} ms; SDPA backward (flash "
-              f"backend) {library_ms:.3f} ms; bound {bound_ms:.3f} ms "
-              f"({bound_by}; {flops / 1e9:.1f} GFLOP, {pairs} visible pairs "
-              f"a head, {nbytes / 1e6:.1f} MB)")
+        print(f"    backward: tensor cores {times['wgmma']:.3f} ms "
+              f"({flops / times['wgmma'] / 1e9:.2f} TFLOP/s of the bound's "
+              f"operations); CUDA cores {times['cuda_cores']:.3f} ms "
+              f"({flops / times['cuda_cores'] / 1e9:.2f}); plain "
+              f"{plain[True]:.3f} ms rounding, {plain[False]:.3f} ms "
+              f"unrounded; SDPA backward (flash backend) {library_ms:.3f} "
+              f"ms; bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{flops / 1e9:.1f} GFLOP, {pairs} visible pairs a head, "
+              f"{nbytes / 1e6:.1f} MB)")
         del qt, kt, vt, o_sdpa
         torch.cuda.empty_cache()
-        return err, dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms)
+        common = dict(bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=library_ms)
+        return errs, {
+            "wgmma": dict(ms=times["wgmma"], plain_ms=plain[True], **common),
+            "cuda_cores": dict(ms=times["cuda_cores"], plain_ms=plain[False],
+                               **common)}
 
-    errs = []
+    errs = {"wgmma": [], "cuda_cores": []}
     timing = {}
     # the two training shapes of phase 19 (bf16, tensor-core forward)
     for name, shape in BWD_TRAIN_SHAPES.items():
         B, Sq, Skv, H, D, causal = shape
-        err, t = case(name, B, Sq, Skv, H, H, D, bf16,
-                      dict(causal=causal), timed=True)
-        errs.append(err)
+        e, t = case(name, B, Sq, Skv, H, H, D, bf16, dict(causal=causal),
+                    timed=True)
+        for p_, x in e.items():
+            errs[p_].append(x)
         timing[name] = t
         gc.collect()
         torch.cuda.empty_cache()
@@ -1122,10 +1180,14 @@ def phase_flash_bwd(record):
          dict(causal=False)),
     ]
     for name, b_, sq, skv, hq, hkv, d, dt, kw in cases:
-        err, _ = case(name, b_, sq, skv, hq, hkv, d, dt, kw)
-        errs.append(err)
+        e, _ = case(name, b_, sq, skv, hq, hkv, d, dt, kw)
+        for p_, x in e.items():
+            errs[p_].append(x)
     torch.cuda.empty_cache()
-    record.update(timing[BWD_MAIN], max_abs_err=max(errs))
+    record.update(timing[BWD_MAIN]["cuda_cores"],
+                  max_abs_err=max(errs["cuda_cores"]))
+    record_tc.update(timing[BWD_MAIN]["wgmma"],
+                     max_abs_err=max(errs["wgmma"]))
     return timing
 
 
@@ -1151,8 +1213,10 @@ def phase_train():
     layers; the SSD families raise the guard's error.  (ii) Full width
     through ``launch/train.py``'s ``main``: minicpm-2b and
     ardit-self-forcing, s/step, tokens/s, peak memory and kernel 3's
-    launches per step.  (iii) A checkpoint on the card: save, restore,
-    continue, bit for bit (a bf16 leaf included)."""
+    launches per step, every backward on the tensor cores.  (iii) A
+    checkpoint on the card: save, restore, continue, bit for bit (a bf16
+    leaf included).  Returns (ii)'s results by arch and (i)'s backward
+    launches (all on the CUDA cores)."""
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import pipeline as dp
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1166,9 +1230,11 @@ def phase_train():
     fm = flash_ops.flash_mha
 
     def reset_flash():
-        fm.launches = fm.launches_tc = fm.launches_bwd = 0
+        fm.launches = fm.launches_tc = 0
+        fm.launches_bwd = fm.launches_bwd_tc = 0
 
     print("  (i) reduced configs, card vs CPU (fp32, TF32 off)")
+    parity_bwd = 0
     for arch in TRAIN_PARITY_ARCHS:
         cfg = get_config(arch).reduced()
         gen = torch.Generator().manual_seed(0)
@@ -1190,6 +1256,10 @@ def phase_train():
             raise AssertionError(
                 f"{arch}: kernel 3 launched {fm.launches} forward / "
                 f"{fm.launches_bwd} backward, want {want_fwd} / {want_bwd}")
+        if fm.launches_bwd_tc:
+            raise AssertionError(f"{arch}: an fp32 backward on the tensor "
+                                 f"cores")
+        parity_bwd += fm.launches_bwd
         err_l = abs(float(l_card) - float(l_cpu))
         worst, where = 0.0, None
         cpu_leaves = dict(opt.leaves_with_path(g_cpu))
@@ -1248,18 +1318,23 @@ def phase_train():
               f"{tokens * len(warm) / sum(warm):.0f} tokens/s); peak "
               f"{max(out['peak_gib']):.2f} GiB; kernel 3 per step "
               f"{per_fwd:g} forward ({fm.launches_tc} of {fm.launches} on "
-              f"the tensor cores), {per_bwd:g} backward; {wall:.1f} s with "
-              f"the init")
+              f"the tensor cores), {per_bwd:g} backward "
+              f"({fm.launches_bwd_tc} of {fm.launches_bwd} on the tensor "
+              f"cores); {wall:.1f} s with the init")
         if (per_fwd, per_bwd) != (want_fwd, want_bwd):
             raise AssertionError(f"{arch}: kernel 3 per step {per_fwd} / "
                                  f"{per_bwd}, want {want_fwd} / {want_bwd}")
         if fm.launches_tc != fm.launches:
             raise AssertionError(f"{arch}: a bf16 forward off the tensor "
                                  f"cores")
+        if fm.launches_bwd_tc != fm.launches_bwd:
+            raise AssertionError(f"{arch}: a bf16 backward off the tensor "
+                                 f"cores")
         if not all(np.isfinite(out["loss"]) & np.isfinite(out["grad_norm"])):
             raise AssertionError(f"{arch}: non-finite loss or gradient norm")
         full[arch] = dict(out, launches=fm.launches,
-                          launches_bwd=fm.launches_bwd, tokens=tokens)
+                          launches_bwd=fm.launches_bwd,
+                          launches_bwd_tc=fm.launches_bwd_tc, tokens=tokens)
     losses = full["minicpm-2b"]["loss"]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"minicpm-2b: the loss did not fall on one "
@@ -1309,7 +1384,7 @@ def phase_train():
     if not (same and n_bf16 and max(gaps) <= 2.0 ** -8):
         raise AssertionError("checkpoint on the card: restore not bit for "
                              "bit, or the continued run diverged")
-    return full
+    return full, parity_bwd
 
 
 def phase_integration():
@@ -3618,7 +3693,8 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     sources = [paged_ops.SOURCE, paged_ops.DECODE_SOURCE, flash_ops.SOURCE,
-               flash_ops.BWD_SOURCE, ssd_ops.SOURCE, fp8_ops.SOURCE]
+               flash_ops.BWD_SOURCE, flash_ops.BWD_TC_SOURCE, ssd_ops.SOURCE,
+               fp8_ops.SOURCE]
     t0 = time.perf_counter()
     build.build(sources)
     print(f"  built {', '.join(s.name for s in sources)} in "
@@ -3636,9 +3712,10 @@ def main():
                   f"{len(part)} instantiations, {min(regs)}-{max(regs)} "
                   f"registers per thread, {sum(e[2] for e in part)} bytes "
                   f"of spills")
-            for name, _, spill in part:
-                if spill:
-                    print(f"    {spill} bytes of spills in {name}")
+            for name, regs_, spill in part:
+                if spill or src == flash_ops.BWD_TC_SOURCE:
+                    print(f"    {name}: {regs_} registers, {spill} bytes of "
+                          f"spills")
         if serialized:
             print(f"  ptxas {src.name}: {serialized} wgmma serialization "
                   f"notes (C75xx)")
@@ -3666,6 +3743,12 @@ def main():
                            "flash_mha_bwd.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:132",
                  "path": "cuda_cores"}
+    flash_bwd_tc = {"name": "flash_mha_bwd_wgmma", "route": "cuda",
+                    "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_mha_bwd_wgmma.cu",
+                    "replaces": "src/repro/kernels/flash_attention/"
+                                "kernel.py:132",
+                    "path": "wgmma"}
     fp8 = {"name": "fp8_matmul", "route": "cuda",
            "source": "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu",
            "replaces": "src/repro/kernels/fp8_matmul/kernel.py:42",
@@ -3731,12 +3814,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase("18: flash kernel backward vs plain version", phase_flash_bwd,
-          flash_bwd)
-    train = phase("19: training (reduced configs card vs CPU, full-width "
-                  "minicpm-2b and ardit-self-forcing, a checkpoint)",
-                  phase_train)
+          flash_bwd, flash_bwd_tc)
+    train, parity_bwd = phase(
+        "19: training (reduced configs card vs CPU, full-width minicpm-2b "
+        "and ardit-self-forcing, a checkpoint)", phase_train)
     train_fwd = sum(r["launches"] for r in train.values())
-    flash_bwd["launches"] = sum(r["launches_bwd"] for r in train.values())
+    # kernel 3's backward on its paths: the CUDA cores in phase 19 (i)'s
+    # reduced fp32 training, the tensor cores in (ii)'s full-width bf16
+    flash_bwd["launches"] = parity_bwd
+    flash_bwd_tc["launches"] = sum(r["launches_bwd_tc"]
+                                   for r in train.values())
+    if not (flash_bwd["launches"] and flash_bwd_tc["launches"]):
+        raise AssertionError("a backward kernel was not launched on its "
+                             "training path")
     # kernel 3 on its paths: the sequential session, then phase 16's bf16
     # prefills and whisper-medium's bf16 decode steps, then phase 19's
     # full-width training
@@ -3746,7 +3836,9 @@ def main():
           f"{fam['flash_mha']} (phase 16 prefills) + "
           f"{fam['flash_mha_decode']} (phase 16 decode steps) + "
           f"{train_fwd} (phase 19 (ii) training) = {flash['launches']}; "
-          f"flash_mha_bwd launches (phase 19 (ii)): {flash_bwd['launches']}")
+          f"flash_mha_bwd launches on the CUDA cores (phase 19 (i)): "
+          f"{flash_bwd['launches']}, on the tensor cores (phase 19 (ii)): "
+          f"{flash_bwd_tc['launches']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 
@@ -3757,7 +3849,7 @@ def main():
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in (paged, decode, flash, flash_bwd,
-                                            ssd, fp8)]}))
+                                            flash_bwd_tc, ssd, fp8)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

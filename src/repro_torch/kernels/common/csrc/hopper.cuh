@@ -114,6 +114,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory, both ends 16-byte aligned; completion is counted in bytes on
+// `bar`, as for a tensor-map load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)),
+         "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // one box of a 4-D tensor map from shared memory to global memory (the
 // parts of the box outside the tensor are not written); a bulk group:
 // commit, then wait before the shared memory is written again

@@ -691,16 +691,19 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
     return static_cast<int>(cudaMemsetAsync(
         out, 0, 2ull * B * p.Sq * p.Hq * D, stream));
   }
-  CUtensorMap tq, tk, tv;
-  if (bshd_map(&tq, q, B, p.Sq, p.Hq, D, BM) ||
-      bshd_map(&tk, k, B, p.Skv, p.Hkv, D, BN) ||
-      bshd_map(&tv, v, B, p.Skv, p.Hkv, D, BN))
-    return -4;
+  // a runtime call first: it makes the device's primary context current
+  // on this thread, which cuTensorMapEncodeTiled needs (autograd
+  // may recompute a checkpointed forward on a thread of its own)
   auto kern = flash_mha_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tq, tk, tv;
+  if (bshd_map(&tq, q, B, p.Sq, p.Hq, D, BM) ||
+      bshd_map(&tk, k, B, p.Skv, p.Hkv, D, BN) ||
+      bshd_map(&tv, v, B, p.Skv, p.Hkv, D, BN))
+    return -4;
   dim3 grid((p.Sq + BM - 1) / BM, p.Hq, B);
   kern<<<grid, THREADS, SMEM_BYTES, stream>>>(
       tq, tk, tv, keep, static_cast<__nv_bfloat16*>(out), lse, p);

@@ -30,14 +30,18 @@
 //    visible key tiles as the forward does: S and dP again, then
 //    dQ += dS k.
 // Everything is fp32 on the CUDA cores (bf16 inputs widened on load,
-// outputs rounded once at the store); the tensor cores are later work.
+// outputs rounded once at the store).
 //
 // Bound: 10 x (visible pairs) x D operations (the five products over the
 // visible pairs: S, dP, dV, dQ, dK; this kernel issues seven, as it
 // recomputes S and dP in the dQ pass) at the bf16 tensor-core peak; at
 // minicpm-2b's training attention (B 2, S 4,096 causal, 36 heads of 64)
 // that is 386.6 GFLOP, 0.391 ms.  fp32 FMAs on the CUDA cores top out
-// at 67 TFLOP/s, so this first form runs far above that bound.
+// at 67 TFLOP/s, so this form runs far above that bound; bf16 at D 64,
+// 96 and 128 goes to flash_mha_bwd_wgmma.cu on the tensor cores, and this
+// kernel keeps fp32 (whose 1e-4 agreement with the CPU needs fp32
+// products) and D 16.  The visibility predicate is flash_mha_bwd.cuh's,
+// shared with that kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,7 +49,15 @@
 
 #include <math.h>
 
+#include "flash_mha_bwd.cuh"
+
 namespace {
+
+using flash_bwd::Params;
+using flash_bwd::query_range;
+using flash_bwd::tile_full;
+using flash_bwd::tile_live;
+using flash_bwd::visible;
 
 constexpr int BM = 64;          // queries per tile
 constexpr int BN = 64;          // keys per tile
@@ -58,56 +70,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-struct Params {
-  int Sq, Skv, Hq, Hkv, causal, q_offset, window, sink;
-  int block_q, block_kv, n_kv_blocks;
-  float scale;
-};
-
-// flash_mha.cu's predicate: whether query i (row of q) sees key j.
-__device__ __forceinline__ bool visible(const Params& p,
-                                        const int32_t* __restrict__ keep,
-                                        int i, int j) {
-  if (i >= p.Sq || j >= p.Skv) return false;
-  if (p.causal) {
-    const int qp = p.q_offset + i;
-    if (qp < j) return false;
-    if (p.window && !(j > qp - p.window || j < p.sink)) return false;
-  }
-  if (keep != nullptr &&
-      keep[(i / p.block_q) * p.n_kv_blocks + j / p.block_kv] == 0)
-    return false;
-  return true;
-}
-
-// Whether every (query, key) pair of the 64 x 64 tile at (i0, t0) is
-// visible: such a tile skips the per-element test.
-__device__ __forceinline__ bool tile_full(const Params& p,
-                                          const int32_t* keep, int i0,
-                                          int t0) {
-  const int i1 = i0 + BM - 1, t1 = t0 + BN - 1;
-  if (keep != nullptr || i1 >= p.Sq || t1 >= p.Skv) return false;
-  if (!p.causal) return true;
-  if (p.q_offset + i0 < t1) return false;
-  return !p.window || t0 > p.q_offset + i1 - p.window || t1 < p.sink;
-}
-
-// Whether queries [i0, i1] and keys [t0, t1] hold any visible pair (the
-// tile-level tests of the forward: causal edge, window, keep matrix).
-__device__ bool tile_live(const Params& p, const int32_t* __restrict__ keep,
-                          int i0, int i1, int t0, int t1) {
-  if (p.causal) {
-    if (p.q_offset + i1 < t0) return false;       // every key in the future
-    if (p.window && t0 >= p.sink && t1 <= p.q_offset + i0 - p.window)
-      return false;                               // left of every window
-  }
-  if (keep == nullptr) return true;
-  for (int qb = i0 / p.block_q; qb <= i1 / p.block_q; ++qb)
-    for (int kb = t0 / p.block_kv; kb <= t1 / p.block_kv; ++kb)
-      if (keep[qb * p.n_kv_blocks + kb]) return true;
-  return false;
 }
 
 // rows [r0, r0 + 64) of a [B, S, H, D] tensor's head h into fp32 shared
@@ -192,12 +154,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_rows<D>(Vs, v, b, t0, p.Skv, p.Hkv, hk);
 
   // the query range that can see the tile's keys
-  int i_begin = 0, i_end = p.Sq;
-  if (p.causal) {
-    i_begin = max(0, t0 - p.q_offset) / BM * BM;
-    if (p.window && t0 >= p.sink)
-      i_end = max(0, min(i_end, t1 + p.window - p.q_offset));
-  }
+  int i_begin, i_end;
+  query_range(p, t0, t1, BM, i_begin, i_end);
 
   float dk_acc[4][DC], dv_acc[4][DC];
 #pragma unroll
@@ -248,7 +206,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dp[r][j] = fmaf(vr[r], oc[j], dp[r][j]);
           }
       }
-      const bool full = tile_full(p, keep, i0, t0);
+      const bool full = tile_full<BM, BN>(p, keep, i0, t0);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qi = tx + 16 * j;
@@ -404,7 +362,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[r][j] = fmaf(orow[r], vc[j], dp[r][j]);
         }
     }
-    const bool full = tile_full(p, keep, i0, t0);
+    const bool full = tile_full<BM, BN>(p, keep, i0, t0);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int qi = ty + 16 * r;

@@ -12,10 +12,15 @@ cores.  ``flash_mha.launches`` counts kernel launches and
 
 Gradients: whenever grad mode is on and q, k or v requires grad,
 ``flash_mha`` goes through ``FlashMHA``, whose forward also keeps the
-rows' log-sum-exp and whose backward is a hand-written kernel too
-(``csrc/flash_mha_bwd.cu``, fp32 on the CUDA cores; three launches per
-call, counted once in ``flash_mha.launches_bwd``), or on the CPU the
-plain ``ref.flash_mha_bwd_ref``.
+rows' log-sum-exp and whose backward is a hand-written kernel too, or on
+the CPU the plain ``ref.flash_mha_bwd_ref``.  ``bwd_kernel_path`` picks
+the backward kernel by the same rule as ``kernel_path``: bf16 at D 64, 96
+or 128 on the tensor cores (``csrc/flash_mha_bwd_wgmma.cu``: P and dS
+rounded to bf16 before the products that take them, as
+``flash_mha_bwd_ref(round_bf16=True)`` does), fp32 and D 16 on the CUDA
+cores (``csrc/flash_mha_bwd.cu``, fp32 throughout).  Each backward call is
+three launches, counted once in ``flash_mha.launches_bwd``;
+``flash_mha.launches_bwd_tc`` counts the tensor-core calls among them.
 
 The modes are those of the reference's ``flash_mha_pallas``: causal with
 ``q_offset``, sink + sliding window, the static rho block keep matrix
@@ -39,9 +44,13 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha_bwd.cu"
-# the backward kernel's tiles: one dK/dV block per BWD_BLOCK keys of a
-# KV head, one dQ block per BWD_BLOCK queries of a query head
+BWD_TC_SOURCE = Path(__file__).resolve().parent / "csrc" \
+    / "flash_mha_bwd_wgmma.cu"
+# the backward kernels' tiles: one dK/dV block per BWD_BLOCK keys of a KV
+# head, one dQ block per BWD_BLOCK queries of a query head; BWD_TC_BLOCK on
+# the tensor cores, whose lse / delta scratch rows are padded to it
 BWD_BLOCK = 64
+BWD_TC_BLOCK = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the configs' head dims: reduced 16; granite-moe, qwen3-moe, minicpm and
@@ -60,6 +69,14 @@ def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_cores"
+
+
+def bwd_kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel for q/k/v of ``dtype`` at ``head_dim``, by
+    ``kernel_path``'s rule: ``"wgmma"`` for bf16 at D 64, 96 or 128 (P and
+    dS rounded to bf16 for the tensor cores), else ``"cuda_cores"`` (fp32
+    products: fp32 gradients keep their 1e-4 agreement with the CPU)."""
+    return kernel_path(dtype, head_dim)
 
 
 def keep_matrix(n_q: int, n_kv: int, *, causal: bool, q_offset: int,
@@ -113,10 +130,23 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def bwd_blocks(b: int, sq: int, skv: int, hq: int,
-               hkv: int) -> Tuple[int, int]:
-    """Blocks of the backward's (dK/dV, dQ) launches."""
-    return (b * hkv * -(-skv // BWD_BLOCK), b * hq * -(-sq // BWD_BLOCK))
+def _bwd_tc_lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    lib = load(BWD_TC_SOURCE)
+    if lib.flash_mha_bwd_wgmma_launch.argtypes is None:
+        lib.flash_mha_bwd_wgmma_launch.argtypes = [ctypes.c_void_p] * 11 \
+            + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+        lib.flash_mha_bwd_wgmma_launch.restype = ctypes.c_int
+        lib.flash_mha_bwd_wgmma_error_string.argtypes = [ctypes.c_int]
+        lib.flash_mha_bwd_wgmma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bwd_blocks(b: int, sq: int, skv: int, hq: int, hkv: int,
+               path: str = "cuda_cores") -> Tuple[int, int]:
+    """Blocks of the backward's (dK/dV, dQ) launches on ``path``."""
+    blk = BWD_TC_BLOCK if path == "wgmma" else BWD_BLOCK
+    return (b * hkv * -(-skv // blk), b * hq * -(-sq // blk))
 
 
 def _check_mode(sq: int, skv: int, causal: bool, window: int, sink: int,
@@ -201,15 +231,24 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
 
 def flash_mha_bwd(q, k, v, o, lse, dout, *, n_kv_heads, causal=True,
                   q_offset=0, window=0, sink=0, sparsity=0.0, block_q=128,
-                  block_kv=128):
+                  block_kv=128, path=None):
     """The backward kernel on CUDA tensors (every argument contiguous,
     q/k/v/o/dout of one dtype, lse fp32 [B,Hq,Sq] from the forward
     kernel): (dq, dk, dv).  The mode arguments are the forward's, with
-    the block sizes as ``flash_mha`` clipped them."""
+    the block sizes as ``flash_mha`` clipped them.  ``path`` (default
+    ``bwd_kernel_path``) may name ``"cuda_cores"`` where the tensor cores
+    would run, to time or check that kernel; ``"wgmma"`` elsewhere
+    raises."""
     _check(q, k, v, n_kv_heads)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dev = q.device
+    auto = bwd_kernel_path(q.dtype, d)
+    path = path or auto
+    if path not in ("wgmma", "cuda_cores") or (path == "wgmma"
+                                               and auto != "wgmma"):
+        raise ValueError(f"flash_mha_bwd: no {path!r} kernel for "
+                         f"{q.dtype} at D {d}")
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != dev \
                 or not t.is_contiguous():
@@ -219,22 +258,36 @@ def flash_mha_bwd(q, k, v, o, lse, dout, *, n_kv_heads, causal=True,
         raise ValueError(f"lse must be contiguous fp32 [B,Hq,Sq] on {dev}")
     keep = _keep(sq, skv, causal, q_offset, window, sink, sparsity,
                  block_q, block_kv, dev)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lib = _bwd_lib()
-    with torch.cuda.device(dev):
-        err = lib.flash_mha_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(),
-            None if keep is None else keep.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
-            block_q, block_kv, 0 if keep is None else keep.shape[1],
-            _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            None if keep is None else keep.data_ptr()]
+    mode = [b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
+            block_q, block_kv, 0 if keep is None else keep.shape[1]]
+    tc = path == "wgmma"
+    if tc:
+        # lse log2(e) and delta, rows padded to whole dQ blocks
+        sq_pad = -(-sq // BWD_TC_BLOCK) * BWD_TC_BLOCK
+        scratch = torch.empty((2, b, hq, sq_pad), dtype=torch.float32,
+                              device=dev)
+        lib = _bwd_tc_lib()
+        launch, errors = (lib.flash_mha_bwd_wgmma_launch,
+                          lib.flash_mha_bwd_wgmma_error_string)
+        mode.append(sq_pad)
+    else:
+        scratch = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        lib = _bwd_lib()
+        launch, errors = (lib.flash_mha_bwd_launch,
+                          lib.flash_mha_bwd_error_string)
+    with torch.cuda.device(dev):
+        err = launch(*args, scratch.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), *mode, _DTYPES[q.dtype],
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        msg = lib.flash_mha_bwd_error_string(err).decode()
+        msg = errors(err).decode()
         raise RuntimeError(f"flash_mha backward launch failed: {msg}")
     flash_mha.launches_bwd += 1
+    flash_mha.launches_bwd_tc += int(tc)
     return dq, dk, dv
 
 
@@ -302,3 +355,4 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_mha.launches = 0
 flash_mha.launches_tc = 0
 flash_mha.launches_bwd = 0
+flash_mha.launches_bwd_tc = 0

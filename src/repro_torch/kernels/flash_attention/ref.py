@@ -6,9 +6,11 @@ plain ``mha`` body (fp32 online softmax over the direct path and the
 static block schedules), under the kernel-oracle name and signature;
 with ``return_lse`` it also returns the log-sum-exp the kernel writes
 for its backward.  ``flash_mha_bwd_ref`` is the plain version of the
-backward kernel (``csrc/flash_mha_bwd.cu``): FlashAttention-2's
-recompute formulas over a dense visibility mask, fp32 (float64 for
-float64 inputs).  The CPU tests run both, and ``chip_smoke.py`` holds
+backward kernels: FlashAttention-2's recompute formulas over a dense
+visibility mask, fp32 (float64 for float64 inputs), as the CUDA-core
+kernel (``csrc/flash_mha_bwd.cu``) computes them, or with
+``round_bf16`` rounding P and dS to bf16 before the products that take
+them, as the tensor-core kernel (``csrc/flash_mha_bwd_wgmma.cu``) does.  The CPU tests run both, and ``chip_smoke.py`` holds
 the CUDA kernels against them on the card.
 """
 from __future__ import annotations
@@ -66,7 +68,8 @@ def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dout: torch.Tensor, *, n_kv_heads: int,
                       causal: bool = True, q_offset: int = 0,
                       window: int = 0, sink: int = 0, sparsity: float = 0.0,
-                      block_q: int = 512, block_kv: int = 512
+                      block_q: int = 512, block_kv: int = 512,
+                      round_bf16: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of ``flash_mha_ref`` at (q, k, v) for the
     output cotangent ``dout``, given the forward's output ``o`` and
@@ -78,7 +81,10 @@ def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     one KV head at a time (its G query heads summed into dK, dV), so the
     [B, G, Sq, Skv] scores of one head are the largest temporary.  Rows
-    with lse = -inf contribute nothing.  Outputs in the inputs' dtypes."""
+    with lse = -inf contribute nothing.  With ``round_bf16`` P is rounded
+    to bf16 before dV's product and dS before dQ's and dK's (the
+    tensor-core kernel's arithmetic); every sum stays in the wide type.
+    Outputs in the inputs' dtypes."""
     b, sq, hq, d = q.shape
     skv = k.shape[1]
     g = hq // n_kv_heads
@@ -102,9 +108,11 @@ def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else vis & torch.isfinite(lh)
         p = torch.where(live, torch.exp(s - torch.where(
             torch.isfinite(lh), lh, 0.0)), 0.0)
-        dv[:, :, h] = torch.einsum("bgqk,bqgd->bkd", p, dof[:, :, h])
         dp = torch.einsum("bqgd,bkd->bgqk", dof[:, :, h], vf[:, :, h])
         ds = p * (dp - delta[:, :, h].permute(0, 2, 1)[..., None])
+        if round_bf16:
+            p, ds = (t.to(torch.bfloat16).to(wide) for t in (p, ds))
+        dv[:, :, h] = torch.einsum("bgqk,bqgd->bkd", p, dof[:, :, h])
         dq[:, :, h] = torch.einsum("bgqk,bkd->bqgd", ds, kf[:, :, h]) * scale
         dk[:, :, h] = torch.einsum("bgqk,bqgd->bkd", ds, qf[:, :, h]) * scale
     return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),

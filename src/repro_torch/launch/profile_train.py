@@ -26,9 +26,12 @@ from repro_torch.launch.profile_ssm import category as token_category
 from repro_torch.launch.profile_step import report
 
 
-# the kernels of csrc/flash_mha_bwd.cu (anonymous namespace: the traced
-# names carry the functions' names only)
-BWD_KERNELS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+# the kernels of csrc/flash_mha_bwd.cu (CUDA cores) and
+# csrc/flash_mha_bwd_wgmma.cu (tensor cores); anonymous namespace: the
+# traced names carry the functions' names only
+BWD_KERNELS = ("bwd_delta_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel",
+               "bwd_prep_kernel", "bwd_dkdv_wgmma_kernel",
+               "bwd_dq_wgmma_kernel")
 
 
 def category(name: str) -> str:

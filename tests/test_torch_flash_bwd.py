@@ -6,7 +6,14 @@ gradient for the mode arguments) against ``jax.vjp`` of the reference's
 ``flash_mha_ref`` in every mode the kernel takes (causal with and
 without ``q_offset``, sink + window, the rho keep matrix, non-causal,
 GQA, rows that see nothing), at 1e-5 (rtol and atol, fp32; the two
-differ in summation order only); a float64 ``gradcheck`` of
+differ in summation order only); the plain backward's ``round_bf16``
+variant (the tensor-core kernel's arithmetic: P and dS rounded to bf16
+before the products that take them) bit for bit the default with the
+option off and within 2^-6 of each gradient's largest magnitude of the
+``jax.vjp`` with it on (one bf16 rounding of each P and dS, relative
+2^-9, summed over many terms of both signs); the backward's kernel
+choice (``bwd_kernel_path``) and grid (``bwd_blocks``) on both paths;
+a float64 ``gradcheck`` of
 ``FlashMHA`` at a tiny shape; and the autograd guard of the wrappers
 whose kernels have no backward (``kernels.common.grad``).  The card's
 kernels are in ``tests/test_torch_kernel_cuda.py``.
@@ -25,6 +32,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the round_bf16 plain backward against jax.vjp, relative to each
+# gradient's largest magnitude (the chip check's gate on the tensor-core
+# kernel's gap to the fp32 gradient)
+TOL_ROUNDED = 2.0 ** -6
 
 # (name, B, Sq, Skv, Hq, Hkv, D, mode); block sizes as flash_mha clips them
 MODES = [
@@ -144,12 +155,87 @@ def test_grad_path_forward_is_the_plain_forward():
                              causal=False).grad_fn is None
 
 
+@pytest.mark.parametrize("name,B,Sq,Skv,Hq,Hkv,D,mode", MODES,
+                         ids=[m[0] for m in MODES])
+def test_bwd_ref_round_bf16_off_is_the_default(name, B, Sq, Skv, Hq, Hkv,
+                                               D, mode):
+    """``round_bf16=False`` is the plain backward as the CUDA-core kernel
+    computes it, bit for bit, and ``round_bf16=True`` really rounds."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(B, Sq, Skv, Hq, Hkv, D, seed=4))
+    out, lse = ref.flash_mha_ref(q, k, v, n_kv_heads=Hkv, return_lse=True,
+                                 **mode)
+    default = ref.flash_mha_bwd_ref(q, k, v, out, lse, do, n_kv_heads=Hkv,
+                                    **mode)
+    off = ref.flash_mha_bwd_ref(q, k, v, out, lse, do, n_kv_heads=Hkv,
+                                round_bf16=False, **mode)
+    on = ref.flash_mha_bwd_ref(q, k, v, out, lse, do, n_kv_heads=Hkv,
+                               round_bf16=True, **mode)
+    assert all(torch.equal(a, b) for a, b in zip(default, off))
+    assert not all(torch.equal(a, b) for a, b in zip(default, on))
+
+
+@pytest.mark.parametrize("name,B,Sq,Skv,Hq,Hkv,D,mode", MODES,
+                         ids=[m[0] for m in MODES])
+def test_bwd_ref_round_bf16_near_jax_vjp(name, B, Sq, Skv, Hq, Hkv, D,
+                                         mode):
+    """The tensor-core kernel's plain version against the exact gradient
+    of the reference's ``flash_mha_ref``: within TOL_ROUNDED of each
+    gradient's largest magnitude; rows that see nothing stay exactly 0."""
+    q, k, v, do = _inputs(B, Sq, Skv, Hq, Hkv, D, seed=5)
+    _, jgrads = _jax_vjp(q, k, v, do, Hkv, mode)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = ref.flash_mha_ref(tq, tk, tv, n_kv_heads=Hkv,
+                                 return_lse=True, **mode)
+    got = ref.flash_mha_bwd_ref(tq, tk, tv, out, lse, tdo, n_kv_heads=Hkv,
+                                round_bf16=True, **mode)
+    for g, w in zip(got, jgrads):
+        top = float(np.abs(w).max())
+        assert float(np.abs(g.numpy() - w).max()) <= TOL_ROUNDED * top
+    dead = torch.isinf(lse).permute(0, 2, 1)                # [B, Sq, Hq]
+    assert not bool(got[0][dead].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [16, 64, 96, 128])
+def test_bwd_kernel_path(dtype, D):
+    """bf16 at the full-width head dims takes the tensor-core backward,
+    the rest the CUDA cores: the forward's rule."""
+    want = "wgmma" if dtype == torch.bfloat16 and D != 16 else "cuda_cores"
+    assert ops.bwd_kernel_path(dtype, D) == want == ops.kernel_path(dtype, D)
+
+
+def test_flash_mha_bwd_refuses_a_path_it_cannot_run():
+    """``path="wgmma"`` only where the tensor cores run; a name of no
+    kernel raises too (both before any launch)."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(1, 8, 8, 2, 2, 16, seed=6))
+    lse = torch.zeros((1, 2, 8))
+    for path in ("wgmma", "tensor_cores"):
+        with pytest.raises(ValueError, match="no .* kernel"):
+            ops.flash_mha_bwd(q, k, v, q, lse, do, n_kv_heads=2, path=path)
+
+
 def test_bwd_blocks():
     # minicpm-2b's training attention: 36 heads, 4,096 tokens, B 2
     assert ops.bwd_blocks(2, 4096, 4096, 36, 36) == (4608, 4608)
     # whisper-medium's encoder: 1,500 keys end in a partial tile
     assert ops.bwd_blocks(2, 1500, 1500, 16, 16) == (768, 768)
     assert ops.bwd_blocks(1, 2640, 5357, 12, 4) == (4 * 84, 12 * 42)
+
+
+@pytest.mark.parametrize("path,shape,want", [
+    ("cuda_cores", (2, 4096, 4096, 36, 36), (4608, 4608)),
+    # the tensor cores: 128 keys a dK/dV block, 128 queries a dQ block
+    ("wgmma", (2, 4096, 4096, 36, 36), (2304, 2304)),
+    ("wgmma", (2, 1500, 1500, 16, 16), (384, 384)),
+    ("wgmma", (1, 2640, 5357, 12, 12), (12 * 42, 12 * 21)),
+    ("wgmma", (1, 2640, 2717, 12, 4), (4 * 22, 12 * 21)),
+], ids=["cuda-cores-minicpm", "wgmma-minicpm", "wgmma-whisper",
+        "wgmma-ardit", "wgmma-gqa"])
+def test_bwd_blocks_on_both_paths(path, shape, want):
+    assert ops.bwd_blocks(*shape, path=path) == want
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +276,15 @@ def test_plain_versions_stay_differentiable_on_the_cpu():
 
 def test_profile_train_tells_the_backward_from_the_forward():
     from repro_torch.launch.profile_train import category
-    bwd = "void (anonymous namespace)::bwd_dkdv_kernel<64, __nv_bfloat16>"
+    bwd = ["void (anonymous namespace)::bwd_dkdv_kernel<64, __nv_bfloat16>",
+           "void (anonymous namespace)::bwd_delta_kernel<16, float>",
+           "void (anonymous namespace)::bwd_dq_kernel<128, float>",
+           # the tensor-core kernels
+           "void (anonymous namespace)::bwd_prep_kernel<64>",
+           "void (anonymous namespace)::bwd_dkdv_wgmma_kernel<128>",
+           "void (anonymous namespace)::bwd_dq_wgmma_kernel<96>"]
     fwd = "void (anonymous namespace)::tc::flash_mha_wgmma_kernel<64>"
-    assert category(bwd) == "flash_mha backward (CUDA kernel)"
+    for name in bwd:
+        assert category(name) == "flash_mha backward (CUDA kernel)", name
     assert category(fwd) == "flash_mha (CUDA kernel)"
     assert category("ampere_bf16_s16816gemm_bf16_128x64") == "matmul / gemv"

@@ -38,17 +38,23 @@ the output's largest magnitude for bf16 outputs (the CUDA-core kernel
 rounds the same fp32 result once; the tensor-core kernel also rounds P
 to bf16 before P V, as SDPA does, and stays within the same limit).
 
-Flash attention's backward (``flash_mha_bwd``, ``csrc/flash_mha_bwd.cu``)
-against ``flash_mha_bwd_ref`` on the same q, k, v, output, log-sum-exp
-and output gradient from the forward kernel, over the same modes, head
-dims and dtypes, two calls bit for bit, the forward's lse within 2e-4 of
-the plain version's; ``flash_mha`` under grad (``FlashMHA``: a
-``grad_fn``, one backward launch); the SSD, fp8 and paged wrappers
-raising under grad; a reduced config's training gradients on the card
-against the CPU's.  Tolerance: fp32 gradients within 1e-4 of each
-gradient's largest magnitude, bf16 ones within 4 bf16 ulps at it (each
-side rounds one fp32 sum, in another order); 1e-4 of each leaf's
-largest magnitude for the training gradients.
+Flash attention's backward (``flash_mha_bwd``) against
+``flash_mha_bwd_ref`` on the same q, k, v, output, log-sum-exp and
+output gradient from the forward kernel, over the same modes, head dims
+and dtypes: bf16 at D 64 / 96 / 128 on the tensor cores
+(``csrc/flash_mha_bwd_wgmma.cu``, counted in ``launches_bwd_tc``) against
+the plain version that rounds P and dS to bf16 as it does
+(``round_bf16=True``), the rest on the CUDA cores
+(``csrc/flash_mha_bwd.cu``) against the unrounded one, which also holds
+the CUDA-core kernel when asked for at bf16 D 128; two calls bit for bit,
+the forward's lse within 2e-4 of the plain version's; ``flash_mha`` under
+grad (``FlashMHA``: a ``grad_fn``, one backward launch, on the tensor
+cores for bf16 at D 64 and 128); the SSD, fp8 and paged wrappers raising
+under grad; a reduced config's training gradients on the card against
+the CPU's.  Tolerance: fp32 gradients within 1e-4 of each gradient's
+largest magnitude, bf16 ones within 4 bf16 ulps at it (each side rounds
+one fp32 sum, in another order); 1e-4 of each leaf's largest magnitude
+for the training gradients.
 
 Paged chunk attention on head-range views ``pool[..., lo:hi, :]`` (the
 elastic SP2 shards): the kernel reads the view in place and gives
@@ -1046,11 +1052,11 @@ def bwd_limit(want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_backward_matches_plain_version(card, mode, D, dtype):
-    """``flash_mha_bwd`` (``csrc/flash_mha_bwd.cu``) against
-    ``flash_mha_bwd_ref`` on the same q, k, v, output, lse and output
-    gradient from the forward kernel (tensor cores for bf16 at D 64 /
-    96 / 128); the forward's lse against the plain version's; two calls
-    bit for bit."""
+    """``flash_mha_bwd`` against ``flash_mha_bwd_ref`` on the same q, k,
+    v, output, lse and output gradient from the forward kernel: bf16 at
+    D 64 / 96 / 128 on the tensor cores against the rounding plain
+    version, the rest on the CUDA cores against the unrounded one; the
+    forward's lse against the plain version's; two calls bit for bit."""
     Sq, Skv, Hq, Hkv, kw = FLASH_MODES[mode]
     g = torch.Generator(device=card).manual_seed(7 * Sq + D)
     q = torch.randn((2, Sq, Hq, D), generator=g, device=card).to(dtype)
@@ -1064,13 +1070,16 @@ def test_flash_backward_matches_plain_version(card, mode, D, dtype):
     fin = torch.isfinite(lse0)
     if fin.any():
         assert float((lse - lse0)[fin].abs().max()) <= 2e-4
-    before = fops.flash_mha.launches_bwd
+    tc = fops.bwd_kernel_path(dtype, D) == "wgmma"
+    assert tc == (dtype == torch.bfloat16 and D != 16)
+    before = fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc
     got = fops.flash_mha_bwd(q, k, v, out, lse, do, **m)
     again = fops.flash_mha_bwd(q, k, v, out, lse, do, **m)
     torch.cuda.synchronize()
-    assert fops.flash_mha.launches_bwd == before + 2
+    assert (fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc) \
+        == (before[0] + 2, before[1] + 2 * tc)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    want = fref.flash_mha_bwd_ref(q, k, v, out, lse, do, **m)
+    want = fref.flash_mha_bwd_ref(q, k, v, out, lse, do, round_bf16=tc, **m)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == w.shape
         err = float((a.float() - w.float()).abs().max())
@@ -1089,11 +1098,12 @@ def test_flash_autograd_on_the_card(card):
     do = torch.randn((2, 200, 8, 64), generator=g, device=card) \
         .to(torch.bfloat16)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    before = fops.flash_mha.launches_bwd
+    before = fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc
     out = fops.flash_mha(*leaves, n_kv_heads=2, causal=False)
     assert out.grad_fn is not None
     out.backward(do)
-    assert fops.flash_mha.launches_bwd == before + 1
+    assert (fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc) \
+        == (before[0] + 1, before[1] + 1)
     with torch.no_grad():
         o, lse = fops._launch(q, k, v, with_lse=True,
                               **_bwd_mode(200, 300, 2, dict(causal=False)))
@@ -1104,6 +1114,50 @@ def test_flash_autograd_on_the_card(card):
     with torch.no_grad():
         assert fops.flash_mha(*leaves, n_kv_heads=2,
                               causal=False).grad_fn is None
+
+
+def test_flash_autograd_takes_the_tensor_cores_at_d128(card):
+    """``FlashMHA.backward`` on bf16 at D 128 (the AR-DiT's heads) runs
+    the tensor-core backward: one launch counted in ``launches_bwd_tc``,
+    its gradients those of a direct call."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v, do = (torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+                   for s in ((1, 264, 4, 128), (1, 341, 4, 128),
+                             (1, 341, 4, 128), (1, 264, 4, 128)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc
+    fops.flash_mha(*leaves, n_kv_heads=4, causal=False).backward(do)
+    assert (fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc) \
+        == (before[0] + 1, before[1] + 1)
+    m = _bwd_mode(264, 341, 4, dict(causal=False))
+    with torch.no_grad():
+        o, lse = fops._launch(q, k, v, with_lse=True, **m)
+        want = fops.flash_mha_bwd(q, k, v, o, lse, do, path="wgmma", **m)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("mode", ["causal-offset", "rho-keep", "gqa-4"])
+def test_flash_backward_cuda_cores_on_request(card, mode):
+    """The CUDA-core backward stays callable where the tensor cores would
+    run (bf16 at D 128, ``path="cuda_cores"``): no tensor-core launch,
+    the unrounded plain version within 4 bf16 ulps."""
+    Sq, Skv, Hq, Hkv, kw = FLASH_MODES[mode]
+    g = torch.Generator(device=card).manual_seed(11)
+    q, do = (torch.randn((2, Sq, Hq, 128), generator=g, device=card)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, Skv, Hkv, 128), generator=g, device=card)
+            .to(torch.bfloat16) for _ in range(2))
+    m = _bwd_mode(Sq, Skv, Hkv, kw)
+    out, lse = fops._launch(q, k, v, with_lse=True, **m)
+    before = fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc
+    got = fops.flash_mha_bwd(q, k, v, out, lse, do, path="cuda_cores", **m)
+    torch.cuda.synchronize()
+    assert (fops.flash_mha.launches_bwd, fops.flash_mha.launches_bwd_tc) \
+        == (before[0] + 1, before[1])
+    want = fref.flash_mha_bwd_ref(q, k, v, out, lse, do, **m)
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).abs().max()) <= bwd_limit(w)
 
 
 def test_kernels_without_a_backward_raise_under_grad(card):
