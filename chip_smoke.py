@@ -217,6 +217,24 @@ Phases (any failure raises and the script exits non-zero):
    launches per step, every forward and every backward on the tensor
    cores; (iii) a checkpoint on the card: save, restore
    bit for bit (bf16 leaves included), continue.
+20. Sharded steps on a 1x1 mesh (after 19): an NCCL group of world 1 on
+   the card and the mesh (data 1, model 1), destroyed at the end of the
+   phase.  (i) minicpm-2b trained as phase 19 (ii) trains it (2 x 4,096,
+   remat, lr 1e-5, seed 0, one fixed batch), 2 steps unsharded and then
+   2 steps with DTensor parameters and moments through
+   ``loop.make_sharded_train_step``: the losses equal phase 19's and
+   every parameter the unsharded steps' bit for bit, kernel 3's forward
+   and tensor-core backward launched on the local tensors (counted);
+   s/step printed beside phase 19's.  (ii) mamba2-780m served sharded: a
+   prefill of 2 x 4,096 and 8 greedy decode steps through the registry
+   API under the serving rules, params by ``param_shardings(serve=True)``
+   and the state by ``lowering.cache_shardings``, bit for bit with the
+   unsharded calls, kernel 4 launched on the local heads once per layer.
+   (iii) phase 19 (iii)'s checkpoint setup restored with ``shardings=``
+   onto the mesh equals the saved state bit for bit.  (iv)
+   ``compressed_psum`` of a gradient of minicpm-2b's embedding shape over
+   the world-1 group equals ``decompress(compress(g + err))`` bit for
+   bit; its time printed.
 
 Every phase prints its seconds.
 
@@ -403,6 +421,11 @@ TRAIN_FULL = {
                            "--batch", "1", "--seq", "5280", "--steps", "2",
                            "--fixed-batch"],
 }
+# phase 20: the sharded steps' shapes: (ii)'s prefill and decode steps
+SHARD_SERVE = (2, 4096)
+SHARD_DECODE_STEPS = 8
+# (iv): minicpm-2b's embedding gradient (vocab x d_model)
+COMPRESS_SHAPE = (122753, 2304)
 # card vs CPU gradients at the reduced configs (fp32, TF32 off): loss and
 # every gradient leaf within TOL_TRAIN of the CPU's largest magnitude of
 # that leaf (summation order only, as phase 4's 1e-4)
@@ -1385,6 +1408,209 @@ def phase_train():
         raise AssertionError("checkpoint on the card: restore not bit for "
                              "bit, or the continued run diverged")
     return full, parity_bwd
+
+
+def phase_sharded(train19):
+    """Phase 20: the sharded steps on a 1x1 mesh of an NCCL group of
+    world 1 (see the module docstring).  ``train19``: phase 19 (ii)'s
+    results.  Returns the launches of kernels 3 and 4 in (i) and (ii)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.logical import P, logical_axis_rules
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.lowering import cache_shardings
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import compression, loop, optimizer as opt
+
+    fm, sd = flash_ops.flash_mha, ssd_ops.ssd
+    pg_dir = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg",
+                            rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        mesh = init_device_mesh(DEV, (1, 1), mesh_dim_names=("data", "model"))
+        launches = {}
+
+        print("  (i) minicpm-2b, phase 19's setup: 2 steps unsharded, then "
+              "2 sharded")
+        argv = TRAIN_FULL["minicpm-2b"]
+        args = launch_train.parse_args(argv)
+        cfg = get_config("minicpm-2b")
+        api = registry.get_api(cfg)
+        ocfg = opt.OptConfig(lr=args.lr, total_steps=max(args.steps, 10),
+                             warmup_steps=max(2, args.steps // 10),
+                             schedule="wsd")
+        batch = loop.to_device(dp.global_batch(
+            cfg, ShapeConfig("cli", "train", args.seq, args.batch), 0), DEV)
+
+        def fresh():
+            return api.init(cfg, torch.Generator(device=DEV).manual_seed(0),
+                            device=DEV)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = fresh()
+        state = loop.TrainState(params, opt.init_opt_state(params))
+        step = loop.make_train_step(cfg, ocfg)
+        plain_loss = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            plain_loss.append(float(m["loss"]))
+        want = dict(opt.leaves_with_path(tree_clone(state.params)))
+        del state, params, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        sh = loop.state_shardings(cfg, mesh)
+        params = shd.distribute(fresh(), sh.params)
+        state = loop.TrainState(params, opt.init_opt_state(params))
+        sstep = loop.make_sharded_train_step(cfg, ocfg, mesh)
+        bd = shd.distribute(batch, loop.batch_shardings(cfg, mesh, batch))
+        fm.launches = fm.launches_tc = 0
+        fm.launches_bwd = fm.launches_bwd_tc = 0
+        shard_loss, secs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, m = sstep(state, bd)
+            shard_loss.append(float(m["loss"].full_tensor()))
+            secs.append(time.perf_counter() - t0)
+        got = dict(opt.leaves_with_path(state.params))
+        same = all(torch.equal(got[k].to_local(), v) for k, v in want.items())
+        checksum = sum(int(v.view(torch.int16).to(torch.int64).sum())
+                       for v in want.values())
+        want_fwd, want_bwd = flash_train_launches(cfg)
+        w19 = train19["minicpm-2b"]["seconds"][1:]
+        print(f"    losses unsharded {plain_loss}, sharded {shard_loss}, "
+              f"phase 19 {train19['minicpm-2b']['loss'][:2]}; "
+              f"{len(want)} parameters bit for bit: {same} (checksum "
+              f"{checksum}); kernel 3 on the local tensors: {fm.launches} "
+              f"forward ({fm.launches_tc} on the tensor cores), "
+              f"{fm.launches_bwd} backward ({fm.launches_bwd_tc} on the "
+              f"tensor cores); s/step {[round(x, 3) for x in secs]} "
+              f"(phase 19 unsharded: {sum(w19) / len(w19):.3f})")
+        if not (same and shard_loss == plain_loss
+                == train19["minicpm-2b"]["loss"][:2]):
+            raise AssertionError("minicpm-2b: the sharded steps differ from "
+                                 "the unsharded ones")
+        if (fm.launches, fm.launches_bwd) != (2 * want_fwd, 2 * want_bwd) \
+                or fm.launches_tc != fm.launches \
+                or fm.launches_bwd_tc != fm.launches_bwd:
+            raise AssertionError(f"minicpm-2b sharded: kernel 3 launched "
+                                 f"{fm.launches} / {fm.launches_bwd}, want "
+                                 f"{2 * want_fwd} / {2 * want_bwd}, all on "
+                                 f"the tensor cores")
+        launches["flash_mha"] = fm.launches
+        launches["flash_mha_bwd_tc"] = fm.launches_bwd_tc
+        del state, params, got, want, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print(f"  (ii) {SSM_ARCH} sharded prefill {SHARD_SERVE[0]} x "
+              f"{SHARD_SERVE[1]} and {SHARD_DECODE_STEPS} decode steps")
+        cfg = get_config(SSM_ARCH)
+        api = registry.get_api(cfg)
+        gen = torch.Generator().manual_seed(0)
+        params = api.init(cfg, gen, DEV)
+        tokens = torch.randint(0, cfg.vocab_size, SHARD_SERVE,
+                               generator=gen).to(DEV)
+        rows = shd.NamedSharding(mesh, P("data", None))
+        pd = shd.distribute(params, shd.param_shardings(params, mesh,
+                                                        serve=True))
+        rules = shd.serve_rules(mesh)
+        lg0, st0, n0 = api.prefill(cfg, params, tokens)
+        sd.launches = sd.launches_tc = 0
+        with logical_axis_rules(mesh, rules):
+            lg1, st1, _ = api.prefill(cfg, pd, shd.distribute(tokens, rows))
+        sync()
+        prefill_launches = sd.launches
+        same = [torch.equal(lg0, lg1.to_local())]
+        cs = cache_shardings(cfg, mesh, st1)
+        st1 = {k: v.redistribute(mesh, cs[k].placements)
+               for k, v in st1.items()}
+        pos = n0.clone()
+        tok = torch.argmax(lg0, -1)[:, None].to(torch.int32)
+        for _ in range(SHARD_DECODE_STEPS):
+            lg0, st0 = api.decode_step(cfg, params, st0, tok, pos)
+            with logical_axis_rules(mesh, rules):
+                lg1, st1 = api.decode_step(
+                    cfg, pd, st1, shd.distribute(tok, rows),
+                    shd.distribute(pos, shd.NamedSharding(mesh, P("data"))))
+            same.append(torch.equal(lg0, lg1.to_local()))
+            tok = torch.argmax(lg0, -1)[:, None].to(torch.int32)
+            pos = pos + 1
+        same_state = all(torch.equal(st0[k], st1[k].to_local()) for k in st0)
+        print(f"    prefill and {SHARD_DECODE_STEPS} decode steps bit for "
+              f"bit: {same}, state {same_state}; kernel 4 on the local "
+              f"heads: {prefill_launches} launches ({sd.launches_tc} on the "
+              f"tensor cores) for {cfg.n_layers} layers")
+        if not (all(same) and same_state):
+            raise AssertionError(f"{SSM_ARCH}: sharded serving differs")
+        if prefill_launches != cfg.n_layers or sd.launches != cfg.n_layers:
+            raise AssertionError(f"{SSM_ARCH}: kernel 4 launched "
+                                 f"{sd.launches}, want {cfg.n_layers}")
+        launches["ssd"] = sd.launches
+        del params, pd, st0, st1, lg0, lg1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("  (iii) phase 19 (iii)'s checkpoint restored onto the mesh")
+        cfg = dataclasses.replace(get_config("minicpm-2b").reduced(),
+                                  param_dtype="bfloat16")
+        params = registry.get_api(cfg).init(
+            cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        state = loop.TrainState(params, opt.init_opt_state(params))
+        step = loop.make_train_step(cfg, opt.OptConfig(
+            lr=1e-3, warmup_steps=1, total_steps=10))
+        shape = ShapeConfig("t", "train", 32, 2)
+        for i in range(2):
+            state, _ = step(state, dp.global_batch(cfg, shape, i))
+        with tempfile.TemporaryDirectory() as d:
+            ckpt.save(d, 2, state)
+            back = ckpt.restore(d, 2, state,
+                                shardings=loop.state_shardings(cfg, mesh))
+        pairs = list(zip(ckpt._flatten_with_names(state),
+                         ckpt._flatten_with_names(back)))
+        same = all(type(b).__name__ == "DTensor" and torch.equal(
+            bits(a), bits(b.to_local())) for (_, a), (_, b) in pairs)
+        print(f"    {len(pairs)} leaves restored as DTensors bit for bit: "
+              f"{same}")
+        if not same:
+            raise AssertionError("sharded restore differs from the saved "
+                                 "state")
+
+        print("  (iv) compressed_psum over the world-1 group")
+        gen = torch.Generator(device=DEV).manual_seed(4)
+        g = 1e-3 * torch.randn(COMPRESS_SHAPE, generator=gen, device=DEV)
+        err = 1e-6 * torch.randn(COMPRESS_SHAPE, generator=gen, device=DEV)
+        q, scale, want_err = compression.compress(g + err)
+        want = compression.decompress(q, scale, g.shape, g.dtype)
+        got, got_err = compression.compressed_psum(g, err)
+        ms = cuda_ms(lambda: compression.compressed_psum(g, err), 5)
+        print(f"    {tuple(g.shape)} fp32: bit for bit "
+              f"{torch.equal(got, want) and torch.equal(got_err, want_err)}"
+              f"; {ms:.3f} ms a call")
+        if not (torch.equal(got, want) and torch.equal(got_err, want_err)):
+            raise AssertionError("compressed_psum differs from "
+                                 "decompress(compress(g + err))")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
 def phase_integration():
@@ -3818,12 +4044,19 @@ def main():
     train, parity_bwd = phase(
         "19: training (reduced configs card vs CPU, full-width minicpm-2b "
         "and ardit-self-forcing, a checkpoint)", phase_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase("20: sharded steps on a 1x1 mesh (minicpm-2b training, "
+                    f"{SSM_ARCH} serving, restore, compressed all-reduce)",
+                    phase_sharded, train)
     train_fwd = sum(r["launches"] for r in train.values())
     # kernel 3's backward on its paths: the CUDA cores in phase 19 (i)'s
     # reduced fp32 training, the tensor cores in (ii)'s full-width bf16
     flash_bwd["launches"] = parity_bwd
     flash_bwd_tc["launches"] = sum(r["launches_bwd_tc"]
-                                   for r in train.values())
+                                   for r in train.values()) \
+        + sharded["flash_mha_bwd_tc"]
+    ssd["launches"] += sharded["ssd"]
     if not (flash_bwd["launches"] and flash_bwd_tc["launches"]):
         raise AssertionError("a backward kernel was not launched on its "
                              "training path")
@@ -3831,14 +4064,16 @@ def main():
     # prefills and whisper-medium's bf16 decode steps, then phase 19's
     # full-width training
     flash["launches"] = seq_launches + fam["flash_mha"] \
-        + fam["flash_mha_decode"] + train_fwd
+        + fam["flash_mha_decode"] + train_fwd + sharded["flash_mha"]
     print(f"flash_mha launches: {seq_launches} (phase 6) + "
           f"{fam['flash_mha']} (phase 16 prefills) + "
           f"{fam['flash_mha_decode']} (phase 16 decode steps) + "
-          f"{train_fwd} (phase 19 (ii) training) = {flash['launches']}; "
+          f"{train_fwd} (phase 19 (ii) training) + {sharded['flash_mha']} "
+          f"(phase 20 (i) sharded training) = {flash['launches']}; "
           f"flash_mha_bwd launches on the CUDA cores (phase 19 (i)): "
-          f"{flash_bwd['launches']}, on the tensor cores (phase 19 (ii)): "
-          f"{flash_bwd_tc['launches']}")
+          f"{flash_bwd['launches']}, on the tensor cores (phases 19 (ii) "
+          f"and 20 (i)): {flash_bwd_tc['launches']}; ssd_scan launches "
+          f"(phases 9 and 20 (ii)): {ssd['launches']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 

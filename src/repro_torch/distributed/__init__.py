@@ -1,3 +1,4 @@
-"""Distribution levers of the port.  Only ``precision.bf16_cotangent`` is
-ported; the mesh, logical axes and sharding rules wait for ROADMAP
-'Waiting 2' (distribution)."""
+"""Distribution levers of the port: ``logical`` (logical axis names, the
+mesh context, ``shard``, per-shard kernel calls), ``sharding`` (the
+reference's rule tables as DTensor placements) and ``precision``
+(``bf16_cotangent``)."""

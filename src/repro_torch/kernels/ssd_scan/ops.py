@@ -21,8 +21,11 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.logical import per_shard
 from repro_torch.kernels.common.grad import no_grad_through
+
 from repro_torch.kernels.ssd_scan import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -152,7 +155,21 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,G,N], init_state
     [B,H,P,N] or None -> (y [B,S,H,P] in x's dtype, final state
-    [B,H,P,N] fp32)."""
+    [B,H,P,N] fp32).
+
+    On DTensors (a sharded step) it runs on each shard's local heads
+    and batch rows (``logical.per_shard``; B and C are split by group
+    where the groups divide as the heads do), chosen by the local
+    tensors' device."""
+    if isinstance(x, DTensor):
+        g = Bm.shape[2]
+        gd = 2 if g > 1 else None
+        return per_shard(
+            lambda *a: ssd(*a[:5], chunk=chunk, init_state=a[5]),
+            (x, dt, A, Bm, Cm, init_state),
+            ((0, 2), (0, 2), (None, 0), (0, gd), (0, gd), (0, 1)),
+            ((0, 2), (0, 1)), batch=x.shape[0],
+            heads=(x.shape[2],) + ((g,) if gd else ()))
     if x.device.type == "cpu":
         return _ref.ssd_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
@@ -168,4 +185,15 @@ ssd.launches_tc = 0
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state):
+    """One token's state update (plain on every device): x [B,H,P], dt
+    [B,H], A [H], Bm/Cm [B,G,N], state [B,H,P,N].  On DTensors, per
+    shard of batch rows and heads, as ``ssd``."""
+    if isinstance(x, DTensor):
+        g = Bm.shape[1]
+        gd = 1 if g > 1 else None
+        return per_shard(
+            ssd_decode, (x, dt, A, Bm, Cm, state),
+            ((0, 1), (0, 1), (None, 0), (0, gd), (0, gd), (0, 1)),
+            ((0, 1), (0, 1)), batch=x.shape[0],
+            heads=(x.shape[1],) + ((g,) if gd else ()))
     return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.logical import shard
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (mha, merge_head_shards, paged_mha,
@@ -205,7 +206,8 @@ def _dit_forward(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
     int or a per-stream [B] tensor."""
     b, tc, _ = x_chunk.shape
     d = cfg.d_model
-    h = x_chunk.to(p["in_proj"].dtype) @ p["in_proj"]
+    h = shard(x_chunk.to(p["in_proj"].dtype) @ p["in_proj"],
+              "batch", None, "embed")
     temb = _time_embed(p, t, d)                                   # [B,D]
     q_off = torch.as_tensor(q_offset, device=h.device)
     ar = torch.arange(tc, device=h.device)
@@ -221,7 +223,8 @@ def _dit_forward(cfg: ModelConfig, p: Params, x_chunk: torch.Tensor,
         a_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh1, sc1)
         q, k, v = L.attn_qkv(cfg, lp["attn"], a_in, positions)
         o = attend(li, q, k, v).reshape(b, tc, cfg.n_heads * cfg.head_dim)
-        h = h + g1[:, None, :] * (o @ lp["attn"]["wo"])
+        h = h + g1[:, None, :] * shard(o @ lp["attn"]["wo"],
+                                       "batch", None, "embed")
         f_in = _modulate(L.rmsnorm(h, ones, cfg.norm_eps), sh2, sc2)
         h = h + g2[:, None, :] * L.mlp_block(cfg, lp["mlp"], f_in)
         ks.append(k)

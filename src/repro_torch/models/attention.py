@@ -29,6 +29,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.logical import (as_dtensor, batch_split,
+                                             local_box, per_shard)
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -176,7 +180,20 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_mask`` the direct masked segment stays plain torch on every
     device: the reference runs that segment as jnp on the TPU too, so it
     is not the plain version of a kernel.
+
+    On DTensors (a sharded step) it runs on each shard's local heads
+    and batch rows (``logical.per_shard``) and dispatches by the local
+    tensors' device.
     """
+    if isinstance(q, DTensor):
+        def local(q, k, v, kv_mask):
+            return mha(q, k, v, n_kv_heads=k.shape[2], causal=causal,
+                       q_offset=q_offset, window=window, sink=sink,
+                       sparsity=sparsity, kv_mask=kv_mask, block_q=block_q,
+                       block_kv=block_kv)
+        return per_shard(local, (q, k, v, kv_mask),
+                         ((0, 2),) * 3 + ((0, None),), (0, 2),
+                         batch=q.shape[0], heads=(q.shape[2], k.shape[2]))
     if kv_mask is None and q.device.type == "cuda":
         from repro_torch.kernels.flash_attention.ops import flash_mha
         return flash_mha(q, k, v, n_kv_heads=n_kv_heads, q_offset=q_offset,
@@ -353,8 +370,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int count of valid cache entries (the new token's KV must already be
     written).  With ``window``, only the last ``window`` valid entries
     and the first ``sink`` stay visible.  A row with no valid entry
-    gives NaN, as the reference's softmax over all ``-inf`` does.
+    gives NaN, as the reference's softmax over all ``-inf`` does.  On
+    DTensors, per shard of batch rows and heads, as ``mha``; caches
+    whose sequence is split over the mesh go to
+    ``_decode_attention_split_sequence``.
     """
+    if isinstance(k_cache, DTensor) and _sequence_split(k_cache):
+        return _decode_attention_split_sequence(
+            q, k_cache, v_cache, cache_len=cache_len, window=window,
+            sink=sink)
+    if isinstance(q, DTensor):
+        ln_dims = (0, None) if isinstance(cache_len, torch.Tensor) \
+            and cache_len.ndim else None
+
+        def local(q, k_cache, v_cache, cache_len):
+            return decode_attention(q, k_cache, v_cache,
+                                    n_kv_heads=k_cache.shape[2],
+                                    cache_len=cache_len, window=window,
+                                    sink=sink)
+        return per_shard(local, (q, k_cache, v_cache, cache_len),
+                         ((0, 2),) * 3 + (ln_dims,), (0, 2),
+                         batch=q.shape[0],
+                         heads=(q.shape[2], k_cache.shape[2]))
     b, sq, hq, d = q.shape
     smax = k_cache.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -371,3 +408,69 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_cache.float())
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _sequence_split(cache: DTensor) -> bool:
+    """Whether a [B,S,H,D] cache's slots are split over a mesh dim of
+    more than one rank."""
+    return any(isinstance(p, Shard) and p.dim == 1 and n > 1
+               for p, n in zip(cache.placements, cache.device_mesh.shape))
+
+
+def _decode_attention_split_sequence(q, k_cache, v_cache, *, cache_len,
+                                     window, sink):
+    """``decode_attention`` over caches whose slots are split over mesh
+    dims (the layout ``lowering.cache_shardings`` gives caches whose KV
+    heads do not divide over ``model``): every rank attends to its own
+    block of slots, and the partial softmax statistics are combined
+    across the split, flash-decoding's combine (an all-reduce of the
+    row max, then one of the rescaled sums and outputs), which is what
+    GSPMD emits for the reference.  The cache is never gathered.  Rows
+    go over the batch axes that do not split the slots where the batch
+    divides; KV heads stay split where the cache splits them whole."""
+    mesh = k_cache.device_mesh
+    pl = k_cache.placements
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in pl]
+    heads = [isinstance(p, Shard) and p.dim == 2
+             and k_cache.shape[2] % n == 0 for p, n in zip(pl, mesh.shape)]
+    rows = batch_split(mesh, q.shape[0], seq)
+    row_pl = tuple(Shard(0) if rows[i] else Shard(2) if heads[i]
+                   else Replicate() for i in range(mesh.ndim))
+    kv_pl = tuple(Shard(1) if seq[i] else p for i, p in enumerate(row_pl))
+    q_l = as_dtensor(q, mesh).redistribute(mesh, row_pl).to_local()
+    k_l = k_cache.redistribute(mesh, kv_pl).to_local()
+    v_l = v_cache.redistribute(mesh, kv_pl).to_local()
+    off = local_box(k_cache.shape, mesh, kv_pl)[0][1]
+    ln = cache_len
+    if isinstance(ln, torch.Tensor) and ln.ndim:
+        ln_pl = tuple(Shard(0) if r else Replicate() for r in rows)
+        ln = as_dtensor(ln, mesh).redistribute(mesh, ln_pl).to_local()
+
+    b, sq, hq, d = q_l.shape
+    scale = 1.0 / math.sqrt(d)
+    qg = _group(q_l, k_l.shape[2])
+    k_pos = off + torch.arange(k_l.shape[1], device=q_l.device)
+    ln = torch.as_tensor(ln, device=q_l.device).reshape(-1, 1)
+    valid = k_pos[None, :] < ln                                   # [B,S]
+    if window:
+        last = ln - 1
+        valid &= (k_pos[None, :] > last - window) | (k_pos[None, :] < sink)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_l.float()) * scale
+    s = torch.where(valid[:, None, None, None], s, -math.inf)
+    m = s.amax(-1) if s.shape[-1] else s.new_full(s.shape[:-1], -math.inf)
+
+    def combine(t, op):
+        # one all-reduce over the mesh dims that split the slots (the
+        # other dims are left as they are: no communication there)
+        part = [Partial(op) if x else Replicate() for x in seq]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+    m = combine(m, "max")
+    m_safe = torch.where(m == -math.inf, 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v_l.float())
+    lo = combine(torch.cat([p.sum(-1)[..., None], o], -1), "sum")
+    o = lo[..., 1:] / lo[..., :1]
+    out = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q_l.dtype)
+    return DTensor.from_local(out, mesh, row_pl, run_check=False)

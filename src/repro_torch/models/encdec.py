@@ -27,6 +27,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import shard
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models.attention import decode_attention, mha
@@ -84,7 +86,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def _layer(stack: Params, i: int) -> Params:
-    return L.tree_map(lambda t: t[i], stack)
+    return L.tree_map(lambda t: L.logical.gather_weight(t[i]), stack)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +97,8 @@ def encode(cfg: ModelConfig, p: Params,
            audio_embeds: torch.Tensor) -> torch.Tensor:
     """audio_embeds [B, T_a, D] (stub frontend output) -> encoder
     states [B, T_a, D]."""
-    h = audio_embeds.to(L.DTYPES[cfg.param_dtype])
+    h = shard(audio_embeds.to(L.DTYPES[cfg.param_dtype]),
+              "batch", None, "embed")
     positions = torch.arange(h.shape[1], device=h.device)
     for lp in L.unstack(p["enc_layers"], cfg.n_enc_layers):
         a_in = L.rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
@@ -158,7 +161,7 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     ``remat`` recomputes each decoder layer (its cross K/V included) in
     the backward pass."""
     enc = encode(cfg, p, audio_embeds)
-    h = p["embed"][tokens.long()]
+    h = shard(L.embed_lookup(p["embed"], tokens), "batch", None, "embed")
     positions = torch.arange(h.shape[1], device=h.device)
     for lp in L.unstack(p["dec_layers"], cfg.n_dec_layers):
 
@@ -172,7 +175,8 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
 
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    return L.rmsnorm(h, p["final_norm"], cfg.norm_eps) @ p["lm_head"]
+    h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
+    return shard(h @ p["lm_head"], "batch", None, "vocab")
 
 
 def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
@@ -187,17 +191,22 @@ def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
-               enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+               enc_len: Optional[int] = None,
+               like: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Self-attention ``k`` / ``v`` [L_dec, B, max_len, Hkv, Dh] and
     cross-attention ``ck`` / ``cv`` [L_dec, B, enc_len, Hkv, Dh], zeros
-    in the KV dtype."""
+    in the KV dtype (under a mesh and with a DTensor ``like``, DTensors
+    laid out as the prefill's ``shard`` of its K/V)."""
     enc_len = enc_len or cfg.n_frontend_tokens
     kv_dtype = L.DTYPES[cfg.kv_dtype]
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
 
     def zeros(n):
-        return torch.zeros((cfg.n_dec_layers, batch, n, hkv, dh),
-                           dtype=kv_dtype, device=device)
+        shp = (cfg.n_dec_layers, batch, n, hkv, dh)
+        if like is not None:
+            return logical.empty(shp, kv_dtype, like, (
+                None, "batch", "seq_kv", "kv_heads", None)).zero_()
+        return torch.zeros(shp, dtype=kv_dtype, device=device)
 
     return {"k": zeros(max_len), "v": zeros(max_len),
             "ck": zeros(enc_len), "cv": zeros(enc_len)}
@@ -211,10 +220,10 @@ def prefill(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
     b, s = tokens.shape
     max_len = max_len or s
     enc = encode(cfg, p, audio_embeds)
-    h = p["embed"][tokens.long()]
+    h = L.embed_lookup(p["embed"], tokens)
     positions = torch.arange(s, device=h.device)
     cache = init_cache(cfg, b, max_len, device=h.device,
-                       enc_len=enc.shape[1])
+                       enc_len=enc.shape[1], like=h)
     for i in range(cfg.n_dec_layers):
         lp = _layer(p["dec_layers"], i)
         ck, cv = _cross_kv(cfg, lp["cross"], enc)
@@ -228,8 +237,10 @@ def prefill(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
         h = h + _cross_attn(cfg, lp["cross"], c_in, ck, cv)
         f_in = L.rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
         h = h + L.mlp_block(cfg, lp["mlp"], f_in)
-        kvcache.write_cast(cache["k"][i, :, :s], k)
-        kvcache.write_cast(cache["v"][i, :, :s], v)
+        kvcache.write_cast(cache["k"][i, :, :s],
+                           shard(k, "batch", "seq_kv", "kv_heads", None))
+        kvcache.write_cast(cache["v"][i, :, :s],
+                           shard(v, "batch", "seq_kv", "kv_heads", None))
         kvcache.write_cast(cache["ck"][i], ck)
         kvcache.write_cast(cache["cv"][i], cv)
     logits = _unembed(cfg, p, h[:, -1:])[:, 0]
@@ -244,7 +255,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Dict[str, torch.Tensor],
     are written into the given cache IN PLACE and the same tensors are
     returned, as the port's ``transformer.decode_step`` does."""
     b = token.shape[0]
-    h = p["embed"][token.long()]
+    h = L.embed_lookup(p["embed"], token)
     positions = pos[:, None]
     for i in range(cfg.n_dec_layers):
         lp = _layer(p["dec_layers"], i)

@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.logical import shard
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -96,7 +97,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def _period(p: Params, i: int) -> Params:
-    return L.tree_map(lambda t: t[i], p["periods"])
+    return L.tree_map(lambda t: L.logical.gather_weight(t[i]), p["periods"])
 
 
 def _ffn(cfg: ModelConfig, sub: Params, ffn: str,
@@ -132,7 +133,7 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (hidden [B,S,D], moe_aux scalar).
     ``remat`` recomputes each period in the backward pass."""
-    h = p["embed"][tokens.long()]
+    h = shard(L.embed_lookup(p["embed"], tokens), "batch", None, "embed")
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pp in L.unstack(p["periods"], cfg.n_layers // period_len(cfg)):
@@ -145,7 +146,7 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
-    return h @ p["lm_head"]
+    return shard(h @ p["lm_head"], "batch", None, "vocab")
 
 
 def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],
@@ -169,27 +170,34 @@ def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", like: Optional[torch.Tensor] = None
+               ) -> Dict[str, Any]:
+    """Zero caches per sublayer kind (under a mesh and with a DTensor
+    ``like``, DTensors laid out by the serving rules' logical axes)."""
     n_periods = cfg.n_layers // period_len(cfg)
     cap = cache_capacity(cfg, max_len)
     kv_dtype = L.DTYPES[cfg.kv_dtype]
     di, h, hd, n = S.dims(cfg)
     conv_ch = di + 2 * S.N_GROUPS * cfg.ssm_state
+    def zeros(shp, dtype, axes):
+        if like is not None:
+            return L.logical.empty(shp, dtype, like, axes).zero_()
+        return torch.zeros(shp, dtype=dtype, device=device)
+
     cache: Dict[str, Any] = {}
     for j, (mixer, _) in enumerate(sublayer_kinds(cfg)):
         if mixer == "attn":
             shp = (n_periods, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-            cache[f"sub{j}"] = {
-                "k": torch.zeros(shp, dtype=kv_dtype, device=device),
-                "v": torch.zeros(shp, dtype=kv_dtype, device=device)}
+            kv = (None, "batch", "seq_kv", "kv_heads", None)
+            cache[f"sub{j}"] = {"k": zeros(shp, kv_dtype, kv),
+                                "v": zeros(shp, kv_dtype, kv)}
         else:
             cache[f"sub{j}"] = {
-                "conv": torch.zeros((n_periods, batch, cfg.ssm_conv - 1,
-                                     conv_ch),
-                                    dtype=L.DTYPES[cfg.param_dtype],
-                                    device=device),
-                "ssm": torch.zeros((n_periods, batch, h, hd, n),
-                                   dtype=torch.float32, device=device),
+                "conv": zeros((n_periods, batch, cfg.ssm_conv - 1, conv_ch),
+                              L.DTYPES[cfg.param_dtype],
+                              (None, "batch", None, None)),
+                "ssm": zeros((n_periods, batch, h, hd, n), torch.float32,
+                             (None, "batch", "heads", None, None)),
             }
     return cache
 
@@ -202,8 +210,8 @@ def prefill(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
     cap = cache_capacity(cfg, max_len)
     sink, window = cfg.attn_sink, cfg.attn_window
     positions = torch.arange(s, device=tokens.device)
-    h = p["embed"][tokens.long()]
-    cache = init_cache(cfg, b, max_len, device=h.device)
+    h = L.embed_lookup(p["embed"], tokens)
+    cache = init_cache(cfg, b, max_len, device=h.device, like=h)
     for i in range(cfg.n_layers // period_len(cfg)):
         pp = _period(p, i)
         for j, (mixer, ffn) in enumerate(sublayer_kinds(cfg)):
@@ -222,8 +230,8 @@ def prefill(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
                 out, (conv_s, ssm_s) = S.mamba_block(
                     cfg, sub["mamba"], x, return_state=True)
                 h = h + out
-                subc["conv"][i] = conv_s
-                subc["ssm"][i] = ssm_s
+                kvcache.write_cast(subc["conv"][i], conv_s)
+                kvcache.write_cast(subc["ssm"][i], ssm_s)
             h = _ffn(cfg, sub, ffn, h)
     logits = _unembed(cfg, p, h[:, -1:])[:, 0]
     return logits, cache, torch.full((b,), s, dtype=torch.int32,
@@ -241,7 +249,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
     """
     b = token.shape[0]
     sink, window = cfg.attn_sink, cfg.attn_window
-    h = p["embed"][token.long()]
+    h = L.embed_lookup(p["embed"], token)
     positions = pos[:, None]
     for i in range(cfg.n_layers // period_len(cfg)):
         pp = _period(p, i)
@@ -266,7 +274,7 @@ def decode_step(cfg: ModelConfig, p: Params, cache: Dict[str, Any],
                                                subc["conv"][i],
                                                subc["ssm"][i])
                 h = h + out
-                subc["conv"][i] = c2
-                subc["ssm"][i] = s2
+                kvcache.write_cast(subc["conv"][i], c2)
+                kvcache.write_cast(subc["ssm"][i], s2)
             h = _ffn(cfg, sub, ffn, h)
     return _unembed(cfg, p, h)[:, 0], cache

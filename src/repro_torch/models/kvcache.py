@@ -22,6 +22,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.distributed.logical import as_dtensor, local_box, per_shard
 
 # |x| above this rounds past e4m3fn's largest finite value (448): the
 # JAX reference's ``astype(float8_e4m3fn)`` gives NaN there, while
@@ -61,12 +64,41 @@ def write_token(cache: torch.Tensor, new: torch.Tensor,
     past the end writes the last slot, as the reference's
     ``dynamic_update_slice`` clamps its start; the cast is the
     reference's (``to_fp8_e4m3`` into an e4m3 cache)."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
     dest = torch.clamp(dest.long(), 0, cache.shape[1] - 1)
-    new = new[:, 0]
     if cache.dtype == torch.float8_e4m3fn and new.dtype != cache.dtype:
         new = to_fp8_e4m3(new)
-    cache[rows, dest] = new.to(cache.dtype)
+    if isinstance(cache, DTensor):
+        return _write_token_local(cache, new, dest)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, dest] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def _write_token_local(cache: DTensor, new: torch.Tensor,
+                       dest: torch.Tensor) -> DTensor:
+    """``write_token`` into a sharded cache, in place: every rank writes
+    the rows of its batch block whose slot lies in its block of slots
+    into its local block (one indexed write of the rows; no gather and
+    no pass over the cache).  The token is laid out as the cache with
+    its one slot replicated; ``dest`` (clamped) as the cache's rows."""
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    tok_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1
+                   else p for p in pl)
+    row_pl = tuple(p if isinstance(p, Shard) and p.dim == 0
+                   else Replicate() for p in pl)
+    new = as_dtensor(new, mesh).redistribute(mesh, tok_pl).to_local()[:, 0]
+    dest = as_dtensor(dest, mesh).redistribute(mesh, row_pl).to_local()
+    off, size = local_box(cache.shape, mesh, pl)
+    local = cache.to_local()
+    if not size[1] or not local.shape[0]:
+        return cache
+    slot = dest - off[1]
+    hit = (slot >= 0) & (slot < size[1])
+    slot = torch.clamp(slot, 0, size[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    hit = hit.reshape((-1,) + (1,) * (local.ndim - 2))
+    local[rows, slot] = torch.where(hit, new.to(local.dtype),
+                                    local[rows, slot])
     return cache
 
 
@@ -81,7 +113,13 @@ def place_prefill(k: torch.Tensor, cap: int, sink: int,
 
     Ring slot r holds the LAST token t < S with (t - sink) % ring == r.
     Gather (not scatter) so duplicate ring slots resolve deterministically.
+    On a DTensor, per shard of batch rows and heads (the pad and the
+    gather have no usable DTensor rule on every torch version).
     """
+    if isinstance(k, DTensor):
+        return per_shard(lambda t: place_prefill(t, cap, sink, window), (k,),
+                         ((0, 2),), (0, 2), batch=k.shape[0],
+                         heads=(k.shape[2],))
     b, s = k.shape[:2]
     if cap >= s:
         return torch.nn.functional.pad(k, (0, 0) * (k.ndim - 2)
@@ -191,9 +229,14 @@ def mask_to_pages(mask: np.ndarray, n_ring: int, sink: int,
 
 def write_cast(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)`` with the reference's cast: an e4m3 destination
-    takes ``to_fp8_e4m3(src)``."""
+    takes ``to_fp8_e4m3(src)``; a DTensor source is laid out as the
+    destination first (an in-place copy keeps the destination's
+    layout)."""
     if dst.dtype == torch.float8_e4m3fn and src.dtype != dst.dtype:
         src = to_fp8_e4m3(src)
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) \
+            and src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
     dst.copy_(src)
 
 

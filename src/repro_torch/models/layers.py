@@ -7,6 +7,14 @@ their leading ``[L, ...]`` axis and the model code loops over it.  The
 init helpers take the target ``device``; on ``"meta"`` they draw
 nothing and return meta tensors of the same shapes and dtypes
 (``configs.base.param_count``, ``registry.param_specs``).
+
+The reference's ``shard(...)`` annotations stand at its own places
+(``distributed.logical.shard``): no-ops outside a mesh; under one they
+redistribute the DTensors of a sharded step.  There a layer's weights
+are all-gathered over the FSDP axes as the layer is taken from the
+stack (``layer_params`` / ``unstack``), and the MoE's routing, dispatch
+and combine run on each batch shard's local tensors (DTensor has no
+rule for their gathers and scatters).
 """
 from __future__ import annotations
 
@@ -16,8 +24,11 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import shard
 from repro_torch.models.attention import mha
 
 Params = Dict[str, Any]
@@ -58,26 +69,89 @@ def init_stacked(n: int, make) -> Params:
 
 
 def layer_params(p: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked ``[L, ...]`` layer params."""
-    return tree_map(lambda t: t[i], p["layers"])
+    """Layer ``i``'s view of the stacked ``[L, ...]`` layer params
+    (under a mesh, all-gathered over the FSDP axes)."""
+    return tree_map(lambda t: logical.gather_weight(t[i]), p["layers"])
 
 
-def unstack(stack: Params, n: int) -> list:
+class _Layers:
+    """The per-layer views of ``unstack``, each all-gathered over the
+    FSDP axes when it is taken (one layer's weights at a time)."""
+
+    def __init__(self, views: Params, n: int):
+        self.views, self.n = views, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> Params:
+        if not -self.n <= i < self.n:
+            raise IndexError(i)
+        return tree_map(lambda ts: logical.gather_weight(ts[i]), self.views)
+
+
+def unstack(stack: Params, n: int) -> _Layers:
     """The ``n`` per-layer views of stacked ``[n, ...]`` params, one
     ``unbind`` per leaf: autograd then stacks the layers' gradients once,
     where ``n`` ``t[i]`` selects would each scatter one layer's gradient
     into a zero tensor of the whole stack and sum ``n`` such stacks."""
-    views = tree_map(lambda t: t.unbind(0), stack)
-    return [tree_map(lambda ts, i=i: ts[i], views) for i in range(n)]
+    return _Layers(tree_map(lambda t: t.unbind(0), stack), n)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On DTensors, each batch shard's tokens are
+    looked up in the table's local block of rows (the vocab stays split
+    over the mesh dims that split it; the rest of the table is gathered
+    as ``logical.gather_weight`` gathers a layer's weight): rows outside
+    the block give 0, and the partial rows are summed over the vocab
+    dims (an all-reduce of the activations, as GSPMD does for the
+    reference's ``take``; the table is never gathered whole).  The
+    gather and its backward's accumulating ``index_put`` run on the
+    local tensors, where DTensor's own rule for that ``index_put``
+    fails on some torch versions."""
+    if not isinstance(table, logical.DTensor):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 and k > 1
+             for p, k in zip(table.placements, mesh.shape)]
+    rows = logical.batch_split(mesh, tokens.shape[0], vocab)
+    t_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    table = table.redistribute(mesh, t_pl) \
+        if tuple(table.placements) != t_pl else table
+    tok_pl = tuple(Shard(0) if r else Replicate() for r in rows)
+    tok = logical.as_dtensor(tokens, mesh)
+    tok = tok.redistribute(mesh, tok_pl).to_local()
+    # a table replicated over a dim that splits the rows gets a partial
+    # gradient from each row shard, summed over the dim
+    t_l = table.to_local(grad_placements=[
+        Partial() if r else p for r, p in zip(rows, t_pl)])
+    off, n = logical.local_box(table.shape, mesh, t_pl)
+    idx = tok.long() - off[0]
+    hit = (idx >= 0) & (idx < n[0])
+    out = torch.where(hit[..., None], t_l[torch.clamp(idx, 0, n[0] - 1)],
+                      torch.zeros((), dtype=t_l.dtype, device=t_l.device))
+    part = [Shard(0) if r else Partial() if v else Replicate()
+            for r, v in zip(rows, vocab)]
+    return logical.DTensor.from_local(out, mesh, part, run_check=False) \
+        .redistribute(mesh, tok_pl)
 
 
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``; with ``remat`` under activation checkpointing
     (``torch.utils.checkpoint``, non-reentrant: tensors ``fn`` closes
     over, such as a layer's parameter views, get their gradients too),
-    the reference's ``jax.checkpoint`` of a scanned layer body."""
+    the reference's ``jax.checkpoint`` of a scanned layer body.  The
+    recomputation re-enters the mesh context of the forward (autograd
+    may run it on another thread)."""
     if not remat:
         return fn(*args)
+    env = logical.current()
+    if env is not None:
+        inner = fn
+
+        def fn(*a):
+            with logical.use_env(env):
+                return inner(*a)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -167,13 +241,15 @@ def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
+    q = logical.whole_heads(q, 2, hq).reshape(b, s, hq, dh)
+    k = logical.whole_heads(k, 2, hkv).reshape(b, s, hkv, dh)
+    v = logical.whole_heads(v, 2, hkv).reshape(b, s, hkv, dh)
     # all three are contiguous (RoPE writes fresh tensors, v is a view of
     # a fresh product), as the flash kernel's wrapper requires: no copy
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    q = shard(rope(q, positions, cfg.rope_theta), "batch", None, "heads", None)
+    k = shard(rope(k, positions, cfg.rope_theta), "batch", None, "kv_heads",
+              None)
+    return q, k, v
 
 
 def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
@@ -190,7 +266,8 @@ def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     o = mha(q, k, v, n_kv_heads=cfg.n_kv_heads, causal=causal,
             q_offset=q_offset, window=window, sink=sink, sparsity=sparsity,
             block_q=block_q, block_kv=block_kv)
-    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return shard(o @ p["wo"], "batch", "seq_sp", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -211,10 +288,12 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype,
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        h = shard(h, "batch", None, "ff")
+        return shard(h @ p["w_down"], "batch", "seq_sp", "embed")
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["wi"], approximate="tanh")
-    return h @ p["wo"]
+    h = shard(h, "batch", None, "ff")
+    return shard(h @ p["wo"], "batch", "seq_sp", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -338,17 +417,45 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = moe_capacity(s, cfg)
-    probs, idx, gate_vals, slot = moe_route(cfg, p, x)
+
+    def route(x, router):
+        probs, idx, gate_vals, slot = moe_route(cfg, {"router": router}, x)
+        a_e = idx.reshape(x.shape[0], s * k)
+        buf = _moe_dispatch(x, _slot_maps(e, cap, s, a_e, slot, k))
+        return probs, idx, gate_vals, slot, buf
+
+    def combine(out_buf, idx, slot, gate_vals):
+        return _moe_combine(out_buf, idx.reshape(idx.shape[0], s * k), slot,
+                            gate_vals, cap, k)
+
+    by_row = (0, None)
+    probs, idx, gate_vals, slot, buf = per_batch_shard(
+        route, (x, p["router"]), (by_row, (None, None)), (by_row,) * 5)
     me = torch.mean(probs, dim=(0, 1))                         # [E]
     ce = torch.mean(_one_hot(idx, e).float(), dim=(0, 1, 2))
     moe_block.last_aux = e * torch.sum(me * ce)
 
-    a_e = idx.reshape(b, s * k)
-    buf = _moe_dispatch(x, _slot_maps(e, cap, s, a_e, slot, k))
+    # expert-TP (default): dispatch buffer replicated over "model", the
+    # expert hidden dim sharded.  EP (cfg.moe_ep): the EXPERT dim sharded
+    # over "model".
+    buf = shard(buf, "batch", "experts", None, None)
     hg = torch.einsum("becd,edf->becf", buf, p["we_gate"])
     hu = torch.einsum("becd,edf->becf", buf, p["we_up"])
-    out_buf = torch.einsum("becf,efd->becd", F.silu(hg) * hu, p["we_down"])
-    return _moe_combine(out_buf, a_e, slot, gate_vals, cap, k)
+    h = shard(F.silu(hg) * hu, "batch", "experts", None, "expert_ff")
+    out_buf = torch.einsum("becf,efd->becd", h, p["we_down"])
+    out_buf = shard(out_buf, "batch", "experts", None, "embed")
+    y = per_batch_shard(combine, (out_buf, idx, slot, gate_vals),
+                         (by_row,) * 4, by_row)
+    return shard(y, "batch", "seq_sp", "embed")
+
+
+def per_batch_shard(fn, args, dims, out_dims):
+    """``fn(*args)``; on DTensors, on each batch shard's local tensors
+    (``logical.per_shard``), every other dim replicated."""
+    if not isinstance(args[0], logical.DTensor):
+        return fn(*args)
+    return logical.per_shard(fn, args, dims, out_dims,
+                             batch=args[0].shape[0], heads=())
 
 
 moe_block.last_aux = 0.0

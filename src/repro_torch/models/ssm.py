@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.logical import shard
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
 
@@ -115,18 +116,28 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     b, s, _ = x.shape
     di, h, hd, n = dims(cfg)
     g = N_GROUPS
-    z = x @ p["wz"]
-    xi = x @ p["wx"]
+    z = shard(x @ p["wz"], "batch", None, "inner")
+    xi = shard(x @ p["wx"], "batch", None, "inner")
     Bp = x @ p["wB"]
     Cp = x @ p["wC"]
     dt = _dt(p, x)                                            # [B,S,H]
 
-    xbc = torch.cat([xi, Bp, Cp], dim=-1)
-    # a copy, so the state does not keep the whole [B,S,C] alive
-    new_conv_state = xbc[:, -(cfg.ssm_conv - 1):, :].clone() \
-        if return_state else None
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xi, Bp, Cp = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    def conv(xi, Bp, Cp, w, bias, conv_state):
+        xbc = torch.cat([xi, Bp, Cp], dim=-1)
+        # a copy, so the state does not keep the whole [B,S,C] alive
+        state = (xbc[:, -(cfg.ssm_conv - 1):, :].clone(),) \
+            if return_state else ()
+        xbc = _causal_conv(xbc, w, bias, conv_state)
+        return torch.split(xbc, [di, g * n, g * n], dim=-1) + state
+
+    # per batch shard under a mesh (the conv's pad, shifted slices and
+    # split have no usable DTensor rules on every torch version)
+    by_row = (0, None)
+    xi, Bp, Cp, *new_conv_state = L.per_batch_shard(
+        conv, (xi, Bp, Cp, p["conv_w"], p["conv_b"], conv_state),
+        (by_row,) * 3 + ((None, None),) * 2 + (by_row,),
+        (by_row,) * (4 if return_state else 3))
+    new_conv_state = new_conv_state[0] if return_state else None
 
     A = -torch.exp(p["A_log"])
     xh = xi.reshape(b, s, h, hd)          # a strided view of the conv output
@@ -135,7 +146,7 @@ def mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         chunk=cfg.ssm_chunk, init_state=ssm_state)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
     y = _gated_norm(y.reshape(b, s, di), z, p["norm_w"], cfg.norm_eps)
-    out = y @ p["out"]
+    out = shard(y @ p["out"], "batch", None, "embed")
     if return_state:
         return out, (new_conv_state, final_state)
     return out
@@ -156,13 +167,18 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     Cp = x @ p["wC"]
     dt = _dt(p, x)[:, 0]                                      # [B,H]
 
-    xbc = torch.cat([xi, Bp, Cp], dim=-1)                     # [B,1,C]
-    window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
-    new_conv_state = window[:, 1:]
-    out = torch.einsum("bkc,ck->bc", window.float(), p["conv_w"].float())
-    xbc = F.silu(out + p["conv_b"].float())
-    xbc = xbc.to(x.dtype)[:, None, :]
-    xi, Bp, Cp = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    def conv(xi, Bp, Cp, w, bias, conv_state):
+        xbc = torch.cat([xi, Bp, Cp], dim=-1)                 # [B,1,C]
+        window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+        out = torch.einsum("bkc,ck->bc", window.float(), w.float())
+        xbc = F.silu(out + bias.float())
+        xbc = xbc.to(x.dtype)[:, None, :]
+        return torch.split(xbc, [di, g * n, g * n], dim=-1) + (window[:, 1:],)
+
+    by_row = (0, None)
+    xi, Bp, Cp, new_conv_state = L.per_batch_shard(
+        conv, (xi, Bp, Cp, p["conv_w"], p["conv_b"], conv_state),
+        (by_row,) * 3 + ((None, None),) * 2 + (by_row,), (by_row,) * 4)
 
     A = -torch.exp(p["A_log"])
     y, new_ssm = ssd_ops.ssd_decode(
@@ -202,7 +218,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def _embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()]
+    return shard(L.embed_lookup(p["embed"], tokens), "batch", None, "embed")
 
 
 def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
@@ -222,7 +238,7 @@ def forward(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
-    return h @ p["embed"].T
+    return shard(h @ p["embed"].T, "batch", None, "vocab")
 
 
 def train_loss(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor],

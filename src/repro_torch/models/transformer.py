@@ -4,9 +4,10 @@ serving surface (prefill, decode), a port of the JAX reference's
 
 The stacked ``[L, ...]`` layer parameters are consumed by a Python loop
 (the reference's ``lax.scan``); the reference's ``shard`` annotations
-are identity on one device and are dropped.  Prefill attention goes
-through ``attention.mha`` at the reference's blocks of 512, so on the
-card it is the flash kernel (``kernels/flash_attention``) in the mode
+stand at its places (``distributed.logical``: no-ops outside a mesh).
+Prefill attention goes through ``attention.mha`` at the reference's
+blocks of 512, so on the card it is the flash kernel
+(``kernels/flash_attention``) in the mode
 ``attention.flash_mode`` computes; decode attention is the plain
 ``attention.decode_attention`` on every device, as in the reference
 (whose decode never calls a Pallas kernel).  Training: ``forward``
@@ -20,8 +21,11 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import shard
 from repro_torch.distributed.precision import bf16_cotangent
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
@@ -75,16 +79,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 def _embed(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
            img_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    h = p["embed"][tokens.long()]
+    h = L.embed_lookup(p["embed"], tokens)
     if img_embeds is not None:                       # VLM: prepend patch stub
         h = torch.cat([img_embeds.to(h.dtype), h], dim=1)
-    return h
+    return shard(h, "batch", "seq_sp", "embed")
 
 
 def _unembed(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(h, p["final_norm"], cfg.norm_eps)
     w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return h @ w
+    return shard(h @ w, "batch", None, "vocab")
 
 
 def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
@@ -154,7 +158,15 @@ def chunked_ce(logits_fn, h: torch.Tensor, targets: torch.Tensor,
     def ce_block(h_blk, t_blk, m_blk):
         logits = logits_fn(h_blk).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, t_blk.long()[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            # vocab-sharded logits: the gold logit as a masked sum (exact:
+            # one term, the rest zeros), which DTensor reduces over the
+            # shards; it has no rule for the gather
+            hit = t_blk.long()[..., None] == torch.arange(
+                logits.shape[-1], device=logits.device)
+            gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+        else:
+            gold = torch.gather(logits, -1, t_blk.long()[..., None])[..., 0]
         return torch.sum((lse - gold) * m_blk), torch.sum(m_blk)
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -212,20 +224,22 @@ def prefill(cfg: ModelConfig, p: Params, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=h.device)
     shp = (cfg.n_layers, b, cap, cfg.n_kv_heads, cfg.head_dim)
     # every slot is written below (place_prefill pads with zeros)
-    cache = {n: torch.empty(shp, dtype=L.DTYPES[cfg.kv_dtype],
-                            device=h.device) for n in ("k", "v")}
+    cache = {n: logical.empty(shp, L.DTYPES[cfg.kv_dtype], h,
+                              (None, "batch", "seq_kv", "kv_heads", None))
+             for n in ("k", "v")}
     for i in range(cfg.n_layers):
         lp = L.layer_params(p, i)
         a_in = L.rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = L.attn_qkv(cfg, lp["attn"], a_in, positions)
         o = mha(q, k, v, n_kv_heads=cfg.n_kv_heads, causal=True,
                 window=window, sink=sink, sparsity=sparsity)
-        h = h + o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["attn"]["wo"]
+        o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+        h = h + shard(o @ lp["attn"]["wo"], "batch", "seq_sp", "embed")
         h = _ffn(cfg, lp, h)
-        kvcache.write_cast(cache["k"][i],
-                           kvcache.place_prefill(k, cap, sink, window))
-        kvcache.write_cast(cache["v"][i],
-                           kvcache.place_prefill(v, cap, sink, window))
+        for name, t in (("k", k), ("v", v)):
+            kvcache.write_cast(cache[name][i], shard(
+                kvcache.place_prefill(t, cap, sink, window),
+                "batch", "seq_kv", "kv_heads", None))
     logits = _unembed(cfg, p, h[:, -1:])[:, 0]
     cache_len = torch.full((b,), s, dtype=torch.int32, device=h.device)
     return logits, cache, cache_len

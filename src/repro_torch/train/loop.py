@@ -1,23 +1,33 @@
-"""The train step on one device, a port of the JAX reference's
-``train/loop.py``.
+"""The train step, a port of the JAX reference's ``train/loop.py``.
 
 ``make_train_step`` builds the step for any registered model family:
 the family's loss, its gradients by autograd (``loss.backward()``, then
 each parameter's ``.grad``), then AdamW.  Microbatching accumulates the
 microbatches' losses and gradients into fp32 zeros in the reference's
 order, then divides by their number.  Remat is inside each model's
-``forward``.  The sharded wiring (``state_shardings``,
-``batch_shardings``, ``lower_train_step``) waits for ROADMAP
-'Waiting 2' (distribution).
+``forward``.
+
+Under a mesh the same step runs on DTensor state
+(``make_sharded_train_step``): the parameters and the ZeRO moments laid
+out by ``state_shardings`` (TP x FSDP x DP from
+``distributed.sharding``), the batch by ``batch_shardings``, the model
+code under the reference's logical-axis rules.  AdamW updates the
+DTensors in place, the global grad norm is a DTensor reduction (a
+Partial sum all-reduced), and each microbatch is the same slice of
+every rank's batch shard.  ``lower_train_step`` traces one such step
+on fake tensors for the dry-run (``launch/lowering.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.logical import P, logical_axis_rules
 from repro_torch.models import registry
 from repro_torch.models.layers import tree_map
 from repro_torch.train import optimizer as opt
@@ -35,8 +45,22 @@ def loss_for(cfg: ModelConfig) -> Callable:
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """A batch of the data pipeline (numpy) as tensors on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """A batch of the data pipeline (numpy) as tensors on ``device``
+    (DTensors stay as they are)."""
+    return {k: v if isinstance(v, DTensor) else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
+
+
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` along the batch dim; of a DTensor, the
+    same slice of every rank's local rows."""
+    if isinstance(x, DTensor):
+        loc = x.to_local()
+        mb = loc.shape[0] // n
+        return DTensor.from_local(loc[i * mb:(i + 1) * mb], x.device_mesh,
+                                  x.placements, run_check=False)
+    mb = x.shape[0] // n
+    return x[i * mb:(i + 1) * mb]
 
 
 def value_and_grad(loss_fn: Callable, params: Any,
@@ -76,12 +100,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt.OptConfig,
         if microbatches <= 1:
             loss, grads = value_and_grad(loss_fn, state.params, batch)
         else:
-            mb = next(iter(batch.values())).shape[0] // microbatches
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=dev), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             for i in range(microbatches):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                part = {k: _microbatch(v, i, microbatches)
+                        for k, v in batch.items()}
                 l, g = value_and_grad(loss_fn, state.params, part)
                 loss = loss + l
                 grads = tree_map(torch.add, grads, g)
@@ -93,3 +117,75 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt.OptConfig,
         return TrainState(params, opt_state), metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# sharded state and step
+# ---------------------------------------------------------------------------
+
+def state_shardings(cfg: ModelConfig, mesh) -> TrainState:
+    """NamedSharding tree for TrainState (ZeRO: moments follow params;
+    the step is replicated)."""
+    p_shard = shd.param_shardings(registry.param_specs(cfg), mesh,
+                                  ep=cfg.moe_ep, layout=cfg.parallel_layout)
+    return TrainState(
+        params=p_shard,
+        opt_state=opt.OptState(step=shd.NamedSharding(mesh, P()),
+                               m=p_shard, v=p_shard))
+
+
+def batch_shardings(cfg: ModelConfig, mesh, batch_spec: Any) -> Any:
+    """Batch dim over the batch axes of the layout, the rest replicated."""
+    bp = shd.batch_pspec(mesh, layout=cfg.parallel_layout)
+    return {k: shd.NamedSharding(mesh, P(*(tuple(bp) + (None,) * (
+        len(leaf.shape) - 1)))) for k, leaf in batch_spec.items()}
+
+
+def distribute_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """``state`` as DTensors laid out by ``shardings`` (rank 0's values)."""
+    o, so = state.opt_state, shardings.opt_state
+    return TrainState(
+        shd.distribute(state.params, shardings.params),
+        opt.OptState(shd.distribute(o.step, so.step),
+                     shd.distribute(o.m, so.m), shd.distribute(o.v, so.v)))
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptConfig, mesh,
+                            *, microbatches: int = 1) -> Callable:
+    """``make_train_step``'s step under the reference's training rules on
+    ``mesh`` (state and batch DTensors, ``distribute_state`` /
+    ``shd.distribute``)."""
+    step = make_train_step(cfg, opt_cfg, microbatches=microbatches)
+    rules = shd.train_rules(mesh, ep=cfg.moe_ep, layout=cfg.parallel_layout)
+
+    def wrapped(state: TrainState, batch: Dict[str, Any]):
+        with logical_axis_rules(mesh, rules):
+            return step(state, batch)
+
+    return wrapped
+
+
+def lower_train_step(cfg: ModelConfig, mesh, shape,
+                     opt_cfg: Optional[opt.OptConfig] = None,
+                     microbatches: int = 1):
+    """Trace (not run) the sharded train step for the dry-run: one call
+    on fake stand-ins of the state and batch (``launch.lowering``)."""
+    from repro_torch.launch import lowering
+    opt_cfg = opt_cfg or opt.OptConfig(
+        schedule="wsd" if cfg.name.startswith("minicpm") else "cosine")
+    step = make_sharded_train_step(cfg, opt_cfg, mesh,
+                                   microbatches=microbatches)
+    st_shard = state_shardings(cfg, mesh)
+    batch_spec = registry.input_specs(cfg, shape)
+    p_specs = registry.param_specs(cfg)
+
+    def f32(t):
+        return torch.empty(t.shape, dtype=torch.float32, device="meta")
+
+    state_spec = TrainState(p_specs, opt.OptState(
+        torch.empty((), dtype=torch.int32, device="meta"),
+        tree_map(f32, p_specs), tree_map(f32, p_specs)))
+
+    return lowering.trace(step, (state_spec, batch_spec),
+                          (st_shard, batch_shardings(cfg, mesh, batch_spec)),
+                          mesh)

@@ -69,9 +69,10 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params: Any) -> OptState:
-    """Step 0 and fp32 zero moments on the parameters' device."""
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Step 0 and fp32 zero moments on the parameters' device (laid out
+    as the parameters: DTensor parameters get DTensor moments)."""
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     dev = next(leaves_with_path(params))[1].device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
                     tree_map(torch.clone, zeros))

@@ -1,8 +1,8 @@
 """Checkpoints of the port (``repro_torch.train.checkpoint``) on the CPU:
 the reference's ``tests/test_train.py::TestCheckpoint`` on the port
 (round trip and ``latest_step``, the async save, resume bit for bit
-inside torch; not ``test_elastic_resharding_restore``: ``shardings=``
-waits for distribution and raises), a bf16 leaf restored bit for bit
+inside torch; ``test_elastic_resharding_restore`` as a restore onto a
+1x1 mesh), a bf16 leaf restored bit for bit
 through its uint16 bits, and the on-disk format shared with the
 reference: a reduced fp32 checkpoint written by the reference restores
 in the port bit for bit, and one written by the port restores in the
@@ -86,10 +86,114 @@ def test_async_save_copies_at_call_time(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_restore_under_shardings_waits():
-    _, state = _small_state()
-    with pytest.raises(NotImplementedError, match="Waiting 2"):
-        ckpt.restore("unused", 0, state, shardings=object())
+def test_restore_under_shardings_waits(tmp_path):
+    """``restore(shardings=)`` no longer waits: on a 1x1 mesh of a
+    one-rank gloo group each leaf comes back a DTensor laid out by
+    ``loop.state_shardings``, equal to the saved leaf bit for bit (the
+    4-rank resharding: ``tests/test_torch_dist_train.py``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    cfg, state = _small_state()
+    ckpt.save(str(tmp_path), 1, state)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        got = ckpt.restore(str(tmp_path), 1, state,
+                           shardings=loop.state_shardings(cfg, mesh))
+        for a, b in zip(_leaves(got), _leaves(state)):
+            assert isinstance(a, DTensor)
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        dist.destroy_process_group()
+
+
+class _LargestTensor:
+    """The most bytes of any plain tensor an aten op returns inside it
+    (a DTensor op is counted by its local ops; a meta tensor, which
+    holds no memory, is not counted)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_flatten
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                for t in tree_flatten(out)[0]:
+                    if isinstance(t, torch.Tensor) and not t.is_meta:
+                        outer.most = max(outer.most,
+                                         t.numel() * t.element_size())
+                return out
+        self.most = 0
+        self.mode = Mode()
+
+
+def test_sharded_leaf_is_never_whole_on_one_rank(tmp_path):
+    """A 32 MiB leaf laid out over a (16, 16) mesh of a fake 256-rank
+    group, of which rank 0 holds one 128 KiB block: ``restore(shardings=)``
+    reads only that block from the file (numpy's host allocations, which
+    tracemalloc traces, and every tensor an aten op returns stay under 4
+    blocks) and it equals that block of the file; ``save`` of the
+    restored DTensor gathers into the file one block at a time under the
+    same bound, rank 0's block landing where it was."""
+    import tracemalloc
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.logical import P
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.launch.lowering import fake_world
+    shape, block = (4096, 2048), 256 * 128 * 4
+    (tmp_path / "step_1").mkdir()
+    arr = np.lib.format.open_memmap(str(tmp_path / "step_1" / "00000.npy"),
+                                    mode="w+", dtype=np.float32,
+                                    shape=shape)
+    for r in range(0, shape[0], 256):
+        arr[r:r + 256] = np.arange(r * shape[1], (r + 256) * shape[1],
+                                   dtype=np.float32).reshape(256, -1)
+    arr.flush()
+    del arr
+    with open(tmp_path / "step_1" / "index.json", "w") as f:
+        json.dump({"step": 1, "leaves": [{
+            "name": "leaf", "file": "00000.npy", "shape": list(shape),
+            "dtype": "float32"}]}, f)
+    want = torch.from_numpy(np.load(str(tmp_path / "step_1" / "00000.npy"),
+                                    mmap_mode="r")[:256, :128].copy())
+    like = torch.empty(shape, device="meta")
+    with fake_world(256):
+        mesh = init_device_mesh("cpu", (16, 16),
+                                mesh_dim_names=("data", "model"))
+        sh = NamedSharding(mesh, P("model", "data"))
+        big = _LargestTensor()
+        tracemalloc.start()
+        try:
+            with big.mode:
+                got = ckpt.restore(str(tmp_path), 1, like, shardings=sh)
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        assert isinstance(got, DTensor) and tuple(got.shape) == shape
+        assert torch.equal(got.to_local(), want)
+        assert peak < 4 * block and big.most < 4 * block, (peak, big.most)
+
+        big = _LargestTensor()
+        tracemalloc.start()
+        try:
+            with big.mode:
+                ckpt.save(str(tmp_path), 2, got)
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        assert peak < 4 * block and big.most < 4 * block, (peak, big.most)
+    back = np.load(str(tmp_path / "step_2" / "00000.npy"), mmap_mode="r")
+    assert back.shape == shape
+    assert torch.equal(torch.from_numpy(back[:256, :128].copy()), want)
 
 
 def test_shape_mismatch_raises(tmp_path):

@@ -33,6 +33,8 @@ import repro_torch.data.pipeline, repro_torch.distributed.precision
 import repro_torch.train.optimizer, repro_torch.train.loop
 import repro_torch.train.checkpoint, repro_torch.launch.train
 import repro_torch.kernels.common.grad, repro_torch.kernels.fp8_matmul
+import repro_torch.distributed.sharding, repro_torch.train.compression
+import repro_torch.launch.dryrun, repro_torch.launch.mesh
 import repro_torch.configs.base as cb; cb.list_archs()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))
