@@ -60,11 +60,15 @@ Phases (any failure raises and the script exits non-zero):
    (many more than are resident) with a ragged end and an init_state,
    a head count that leaves a partial head group, the reduced shape in
    fp32 and the reference tests' odd length and chunk (S = 33, chunk 8)
-   at the reduced (P, N); each case's kernel path checked (bf16 at (64,
-   128) on the tensor cores, the rest on the CUDA cores); the same
-   timings (no library call computes the scan); then jamba-v0.1-52b's
-   Mamba sublayers at full width ((P, N) = (64, 16), 128 heads, x/B/C
-   the model's views) on the CUDA cores, held and timed the same way.
+   at the reduced (P, N); the bf16 cases again at jamba-v0.1-52b's (P,
+   N) = (64, 16) (the chained grid 2,496 blocks of 4 heads, the partial
+   group 7 heads); each case's kernel path checked
+   (bf16 at (64, 128) and (64, 16) on the tensor cores, the rest on the
+   CUDA cores); the same timings (no library call computes the scan);
+   then Jamba's Mamba sublayers at full width ((64, 16), 128 heads,
+   x/B/C the model's views) on the tensor cores, held and timed the same
+   way, a second call equal bit for bit, and the CUDA-core passes at the
+   same shape held and timed beside it.
 9. ``mamba2-780m`` at full width through the registry API (random bf16
    weights from a seed): ``prefill`` of 2 x 32,768 tokens, 32 greedy
    ``decode_step``s, a teacher-forced ``prefill`` over prompt +
@@ -164,7 +168,7 @@ Phases (any failure raises and the script exits non-zero):
    (hybrid), each with the launch counts set to 0 before and read
    after every prefill and decode run (flash = attention layers per
    prefill, on the tensor cores in bf16; ssd_scan = 7 per Jamba period,
-   on the CUDA cores; nothing from decode but whisper-medium's
+   on the tensor cores; nothing from decode but whisper-medium's
    cross-attention): a timed prefill (B 2 x
    32,768; internvl 1 x 8,192) and decode steps (Jamba's past its
    8,320-token ring), then consistency gates (``FamilyRun.gate``): the
@@ -2034,7 +2038,9 @@ def phase_ssd(record):
     record.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=None)
 
-    # (name, B, S, H, P, N, chunk, dtype, init_state, strided views)
+    # (name, B, S, H, P, N, chunk, dtype, init_state, strided views);
+    # hg16: the (64, 16) kernel's heads per block
+    hg16 = ops.TC_BLOCKING[16][0]
     cases = [
         ("ragged S=1000 bf16", 2, 1000, H, P, N, Q, bf16, False, False),
         ("S=100 < chunk bf16", 2, 100, H, P, N, Q, bf16, False, False),
@@ -2047,6 +2053,20 @@ def phase_ssd(record):
          bf16, False, True),
         ("reduced S=1000 fp32 (P 16, N 16, chunk 16)", 2, 1000, 8, 16, 16,
          16, f32, True, False),
+        # jamba-v0.1-52b's (P, N) = (64, 16) on its tensor-core kernel
+        ("ragged S=1000 bf16 (P 64, N 16)", 2, 1000, H, P, 16, Q, bf16,
+         False, False),
+        ("S=100 < chunk bf16 (P 64, N 16)", 2, 100, H, P, 16, Q, bf16,
+         False, False),
+        ("init_state S=1000 bf16 (P 64, N 16)", 2, 1000, H, P, 16, Q, bf16,
+         True, False),
+        ("strided views with init_state S=1000 bf16 (P 64, N 16)", 2, 1000,
+         H, P, 16, Q, bf16, True, True),
+        (f"chained grid of {2 * -(-13243 // Q) * -(-H // hg16):,} blocks "
+         f"B=2 S=13,243 bf16 (P 64, N 16)", 2, 13243, H, P, 16, Q, bf16,
+         True, True),
+        (f"partial head group H={hg16 + 3} chunk 64 bf16 (P 64, N 16)", 2,
+         1000, hg16 + 3, P, 16, 64, bf16, False, True),
         ("odd B=2 S=33 H=3 chunk 8 fp32 (P 16, N 16)", 2, 33, 3, 16, 16,
          8, f32, True, False),
     ]
@@ -2064,25 +2084,45 @@ def phase_ssd(record):
     torch.cuda.empty_cache()
 
     # jamba-v0.1-52b's Mamba sublayers at full width, x/B/C the model's
-    # views of the conv output: (P, N) = (64, 16) on the CUDA cores
+    # views of the conv output: (P, N) = (64, 16) on the tensor cores,
+    # then its CUDA-core passes at the same shape (the row's earlier time)
     B, H, P, N = SSM_PREFILL[0], 128, 64, 16
     x, dt, A, Bm, Cm, _ = ssd_case(gen, B, S, H, P, N, bf16, view=True)
     name = f"jamba-v0.1-52b B={B} S={S} H={H} P={P} N={N} bf16"
+
+    def jamba(path=None):
+        return ops.ssd(x, dt, A, Bm, Cm, chunk=Q, path=path)
+
+    want = ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+    got = on_path(name, jamba, "wgmma")
+    errs.append(compare_ssd(f"{name} (wgmma)", got, want))
+    again = jamba()
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        raise AssertionError(f"{name}: two calls differ")
+    del got, again
     errs.append(compare_ssd(f"{name} (cuda_cores)", on_path(
-        name, lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=Q), "cuda_cores"),
-        ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q)))
-    kernel_ms = cuda_ms(lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=Q), 10)
+        name, lambda: jamba("cuda_cores"), "cuda_cores"), want))
+    del want
+    kernel_ms = cuda_ms(jamba, 10)
+    core_ms = cuda_ms(lambda: jamba("cuda_cores"), 10)
     plain_ms = cuda_ms(lambda: ref.ssd_ref(x, dt, A, Bm, Cm, chunk=Q), 2)
     flops = ssd_flops(B, S, H, P, N, Q)
     nbytes = (2 * B * S * H * P * 2 + dt.numel() * 4 + H * 4
               + 2 * B * S * N * 2 + B * H * P * N * 4)
     t_ops = flops / PEAK_FLOPS["torch.bfloat16"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  {name}: kernel (cuda_cores) {kernel_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.3f} ms ("
+    print(f"  {name}: kernel (wgmma, {hg16} heads a block, "
+          f"{ops.TC_BLOCKING[16][1]} blocks an SM) {kernel_ms:.3f} ms, "
+          f"CUDA-core passes {core_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {max(t_ops, t_bytes):.3f} ms ("
           f"{'operations' if t_ops >= t_bytes else 'bytes'}; "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), achieved "
-          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s, "
+          f"{nbytes / kernel_ms / 1e6:.0f} GB/s")
+    if not kernel_ms < core_ms:
+        raise AssertionError(f"{name}: the tensor-core kernel "
+                             f"({kernel_ms:.3f} ms) is not faster than the "
+                             f"CUDA-core passes ({core_ms:.3f} ms)")
     del x, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     record["max_abs_err"] = max(errs)
@@ -2328,8 +2368,8 @@ class FamilyRun:
 
     def prefill(self, label, cfg, tokens, kw, max_len):
         """One prefill with the launch counts checked: the attention
-        layers' flash launches (on the tensor cores in bf16), the Mamba
-        sublayers' SSD launches (on the CUDA cores), nothing else."""
+        layers' flash launches and the Mamba sublayers' SSD launches (on
+        the tensor cores in bf16), nothing else."""
         tc = cfg.param_dtype == "bfloat16"
         reset_counts(self.counters)
         sync()
@@ -2343,7 +2383,8 @@ class FamilyRun:
                 "ssd": self.n_ssd}
         tcs = (self.counters["flash_mha"].launches_tc,
                self.counters["ssd"].launches_tc)
-        if got != want or tcs != (self.n_attn if tc else 0, 0):
+        if got != want or tcs != ((self.n_attn, self.n_ssd) if tc
+                                  else (0, 0)):
             raise AssertionError(f"{label} prefill: launches {got}, on the "
                                  f"tensor cores {tcs}; expected {want}")
         if tc:
@@ -2470,7 +2511,8 @@ def phase_families(counters):
     API, random weights from a seed (see ``FamilyRun``): flash launches =
     the attention layers per prefill, all on the tensor cores in bf16
     and on the CUDA cores in fp32; ssd_scan launches = the Mamba
-    sublayers per prefill, on the CUDA cores ((P, N) = (64, 16));
+    sublayers per prefill, on the tensor cores in bf16 ((P, N) = (64,
+    16));
     from decode only an encoder-decoder's cross-attention (one flash
     launch per decoder layer a step).  Returns the flash launches of the
     bf16 prefills and of the bf16 decode steps, and the ssd launches."""
@@ -2518,7 +2560,8 @@ def phase_families(counters):
     print(f"  phase 16: {totals['flash_mha']} flash launches in the bf16 "
           f"prefills and {totals['flash_mha_decode']} in the bf16 decode "
           f"steps (whisper-medium's cross-attention), all on the tensor "
-          f"cores; {totals['ssd']} ssd_scan launches, on the CUDA cores")
+          f"cores; {totals['ssd']} ssd_scan launches, on the tensor "
+          f"cores")
     gc.collect()
     torch.cuda.empty_cache()
     return totals
@@ -4056,7 +4099,10 @@ def main():
     flash_bwd_tc["launches"] = sum(r["launches_bwd_tc"]
                                    for r in train.values()) \
         + sharded["flash_mha_bwd_tc"]
-    ssd["launches"] += sharded["ssd"]
+    # kernel 4: phase 9 (bf16 on the tensor cores, fp32 on the CUDA
+    # cores), phase 16's bf16 Jamba prefills ((64, 16), tensor cores) and
+    # phase 20 (ii)
+    ssd["launches"] += fam["ssd"] + sharded["ssd"]
     if not (flash_bwd["launches"] and flash_bwd_tc["launches"]):
         raise AssertionError("a backward kernel was not launched on its "
                              "training path")
@@ -4073,7 +4119,7 @@ def main():
           f"flash_mha_bwd launches on the CUDA cores (phase 19 (i)): "
           f"{flash_bwd['launches']}, on the tensor cores (phases 19 (ii) "
           f"and 20 (i)): {flash_bwd_tc['launches']}; ssd_scan launches "
-          f"(phases 9 and 20 (ii)): {ssd['launches']}")
+          f"(phases 9, 16 and 20 (ii)): {ssd['launches']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 

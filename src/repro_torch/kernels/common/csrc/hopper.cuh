@@ -11,7 +11,8 @@
 //   * a tile that wgmma reads is written with the 128-byte swizzle (by
 //     TMA, or by threads widening an e4m3 tile) and starts on a 1024-byte
 //     boundary of shared memory: rows of 128 bytes (64 bf16 values),
-//     eight rows to a 1024-byte atom;
+//     eight rows to a 1024-byte atom (a tile of 16-value rows: the
+//     32-byte swizzle, `desc_sw32`);
 //   * a "full" barrier per ring stage is armed by the producer with the
 //     stage's byte count (arrive.expect_tx) and completes when TMA has
 //     written them; an "empty" barrier per stage completes when every
@@ -262,6 +263,22 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
          (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(1) << 62);
 }
 
+// The same descriptor for a tile in the 32-byte swizzle (layout type 3):
+// rows of 32 bytes (16 bf16 values), the two 16-byte halves of a row
+// swapped in rows 4-7 of each eight-row, 256-byte atom (address bit 4
+// XOR bit 7).
+//   K-major (one 32-byte row per M/N index, a k16 step the whole row):
+//     SBO = 256, the step between 8-row atoms; LBO is unused.
+//   MN-major (one 32-byte row per K index, 16 M/N values; bf16 only):
+//     SBO = 256, the step between groups of 8 K rows; LBO = the step
+//     between 16-wide M/N column blocks.
+__device__ __forceinline__ uint64_t desc_sw32(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(3) << 62);
+}
+
 // orders register and shared-memory writes before the next wgmma reads
 // them (accumulators or register A fragments changed by other code)
 __device__ __forceinline__ void wgmma_fence() {
@@ -427,6 +444,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_bf16_tb(float (&d)[32],
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// bf16 x bf16 -> fp32, m64n16: A in registers, B MN-major in shared
+// memory (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n16k16_rs_bf16_tb(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }

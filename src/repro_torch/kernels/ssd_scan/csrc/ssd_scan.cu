@@ -16,15 +16,15 @@
 // Design.  The TPU grid (B, H, NC) walks the chunks of a (b, h) in order
 // and carries the [N, P] state in VMEM.  On the card that would give
 // B * H = 96 blocks (B = 2, H = 48) for 132 SMs, each walking 256 chunks
-// in turn at S = 32,768.  Two kernels share the file:
-//   * the tensor-core kernel (ssd_wgmma_kernel, bf16 x/B/C at (P, N) =
-//     (64, 128), mamba2-780m's shape; described at its definition): one
-//     block per (b, chunk, group of 6 heads), one C B^T per block shared
-//     by its heads, every product on wgmma, the state chained across
+// in turn at S = 32,768.  Two kinds of kernel share the file:
+//   * the tensor-core kernels (bf16 x/B/C; described at their
+//     definitions): ssd_wgmma_kernel at (P, N) = (64, 128), mamba2-780m's
+//     shape, and ssd_wgmma16_kernel at (64, 16), jamba-v0.1-52b's.  One
+//     block per (b, chunk, group of heads), one C B^T per chunk for the
+//     group's heads, every product on wgmma, the state chained across
 //     chunks through L2 (no round trip of the chunk states);
-//   * the CUDA-core kernels (fp32, jamba-v0.1-52b's (64, 16) and the
-//     reduced configs' (16, 16)), the SSD's three-pass form launched by
-//     one call:
+//   * the CUDA-core kernels (fp32, the reduced configs' (16, 16) and views
+//     TMA cannot read), the SSD's three-pass form launched by one call:
 //     1. chunk_state, grid (NC, H, B): cs, the chunk's own state
 //        contribution (B o dt o exp(cs_last - cs))^T X [P,N] and its decay
 //        exp(cs_last), written to fp32 scratch [B,H,NC,P,N] / [B,H,NC];
@@ -53,6 +53,8 @@
 // kernel is far from it: a block's phases (the W build, each product,
 // the chain's L2 round trips, the stores) run one after another with 8
 // warps to an SM, and the chain orders the chunks (PERF.md).
+// At Jamba's shape (B = 2, S = 32,768, H = 128, (64, 16)) the bytes are
+// 2,186 MB, 0.653 ms, against 103.8 GFLOP, 0.105 ms: bytes again.
 
 #include "hopper.cuh"
 
@@ -514,6 +516,55 @@ __device__ __forceinline__ void warp_wait_flag(const int* flag, int target,
   __syncwarp();
 }
 
+// dt of a group's nh heads (0 past the chunk's qv valid rows, so rows of
+// the next chunk or past S neither decay nor feed anything), then per
+// head a warp's scan of dt * A: cs, exp(cs) and w_j = dt_j exp(cs_last -
+// cs_j), each [HG][QT] in shared memory.  Ends with a barrier.
+template <int HG>
+__device__ __forceinline__ void head_scans(const TParams& p, int b, int t0,
+                                           int qv, int h0, int nh,
+                                           float* f_dt, float* f_cs,
+                                           float* f_ecs, float* f_w) {
+  static_assert(HG <= TTHREADS / 32, "a warp scans each head");
+  const int tid = threadIdx.x;
+  for (int idx = tid; idx < HG * QT; idx += TTHREADS) {
+    const int k = idx / QT, i = idx - k * QT;
+    f_dt[idx] = (k < nh && i < qv)
+                    ? p.dt[(static_cast<int64_t>(b) * p.S + t0 + i) * p.H +
+                           h0 + k]
+                    : 0.f;
+  }
+  __syncthreads();
+  const int warp_all = tid / 32, lane = tid % 32;
+  if (warp_all < nh) {
+    const int k = warp_all;
+    const float Ah = p.A[h0 + k];
+    float v[4], run = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      run = __fadd_rn(run, __fmul_rn(f_dt[k * QT + 4 * lane + r], Ah));
+      v[r] = run;
+    }
+    float incl = run;                        // inclusive scan of lane sums
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl = __fadd_rn(incl, u);
+    }
+    const float before = __shfl_up_sync(0xffffffffu, incl, 1);
+    const float last = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = k * QT + 4 * lane + r;
+      const float cs = lane == 0 ? v[r] : __fadd_rn(before, v[r]);
+      f_cs[i] = cs;
+      f_ecs[i] = expf(cs);
+      f_w[i] = __fmul_rn(f_dt[i], expf(last - cs));
+    }
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(TTHREADS, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                  const __grid_constant__ CUtensorMap tb,
@@ -565,48 +616,11 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     }
   }
 
-  // dt of the group's heads (0 past the chunk's valid rows, so rows of
-  // the next chunk or past S neither decay nor feed anything), then per
-  // head a warp's scan of dt * A, exp(cs) and w_j
-  for (int idx = tid; idx < HG * QT; idx += TTHREADS) {
-    const int k = idx / QT, i = idx - k * QT;
-    f_dt[idx] = (k < nh && i < qv)
-                    ? p.dt[(static_cast<int64_t>(b) * p.S + t0 + i) * p.H +
-                           h0 + k]
-                    : 0.f;
-  }
-  __syncthreads();
-  const int warp_all = tid / 32, lane = tid % 32;
-  if (warp_all < nh) {
-    const int k = warp_all;
-    const float Ah = p.A[h0 + k];
-    float v[4], run = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      run = __fadd_rn(run, __fmul_rn(f_dt[k * QT + 4 * lane + r], Ah));
-      v[r] = run;
-    }
-    float incl = run;                        // inclusive scan of lane sums
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl = __fadd_rn(incl, u);
-    }
-    const float before = __shfl_up_sync(0xffffffffu, incl, 1);
-    const float last = __shfl_sync(0xffffffffu, incl, 31);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = k * QT + 4 * lane + r;
-      const float cs = lane == 0 ? v[r] : __fadd_rn(before, v[r]);
-      f_cs[i] = cs;
-      f_ecs[i] = expf(cs);
-      f_w[i] = __fmul_rn(f_dt[i], expf(last - cs));
-    }
-  }
-  __syncthreads();
+  head_scans<HG>(p, b, t0, qv, h0, nh, f_dt, f_cs, f_ecs, f_w);
 
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
   const int col = 2 * (lane % 4);
   const int r_lo = 64 * wg + 16 * warp + lane / 4;   // chunk rows r_lo, +8
   const int pr = 16 * warp + lane / 4;                // state rows pr, +8
@@ -820,36 +834,363 @@ ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   if (tid == 0) bulk_wait_all();
 }
 
+// ---- the tensor-core kernel at (P, N) = (64, 16): jamba-v0.1-52b ---------
+//
+// The (64, 128) kernel's block (b, chunk, a group of up to HG heads; two
+// consumer warpgroups over the chunk's rows), head loop and chain, at
+// Jamba's state width.  What N = 16 changes:
+//   * a row of B, C or the state is 32 bytes: TMA writes B and C (one
+//     16-column box each, 4 KB) in the 32-byte swizzle, the threads write
+//     the state's bf16 tile in it too, and the wgmma descriptors read all
+//     three so (desc_sw32);
+//   * C B^T is one k-step (m64n128k16, both operands K-major), so each
+//     warpgroup recomputes its 64 rows of it for every head, in registers,
+//     instead of keeping 64 KB of fp32 in shared memory: a block needs
+//     89 KB at HG = 4 (97 KB at 8), and two blocks share an SM (MINB;
+//     ptxas then keeps 128 registers a thread and spills ~150 bytes);
+//   * the chunk state contrib[p][n] = sum_j (X o w)[j][p] B[j][n] is
+//     m64n16k16 with the chunk's rows j as K: warpgroup wg takes rows
+//     64wg .. 64wg + 63 (4 k-steps; X o w a bf16 hi + lo pair, B
+//     MN-major).  Each warpgroup hands the other, through shared memory,
+//     the half of the 16 columns it does not keep, so warpgroup wg holds
+//     the summed contrib of columns 8wg .. 8wg + 7 (the two halves added
+//     in one order, whichever side adds) and each warp chains its
+//     16 x 8 part of the state: a flag per (b, h, warp) as before, 4 KB
+//     of fp32 per head in the slots;
+//   * y += exp(cs_i) (C state^T) is one k-step (m64n64k16, K = N = 16).
+// W's 16-column blocks that lie wholly above a warp's rows are zero, and
+// skip their exps.  A warp raises its chain flag with one release store
+// after __syncwarp, without the (64, 128) kernel's __threadfence before
+// it (8% of the kernel's time on an H100).
+constexpr int TN16 = 16;
+constexpr int ROW16 = 32;                    // bytes of a B, C or state row
+constexpr int BC16 = QT * ROW16;             // [128 rows x 16 bf16]: 4 KB
+constexpr int ST16 = TP * ROW16;             // [64 p x 16 n] bf16: 2 KB
+
+template <int HG>
+struct Plan16 {
+  static constexpr int C_OFF = 0;
+  static constexpr int B_OFF = BC16;
+  static constexpr int X_OFF = 2 * BC16;                  // 1024-aligned
+  static constexpr int Y_OFF = X_OFF + XS * TILE;
+  static constexpr int S_OFF = Y_OFF + TILE;
+  static constexpr int E_OFF = S_OFF + ST16;    // [2 wg][128 threads][4]
+  static constexpr int F_OFF = E_OFF + 2 * 128 * 16;  // cs, exp(cs), w, dt
+  static constexpr int BAR_OFF = F_OFF + 4 * HG * QT * 4;
+  static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (XS + 1) + 16;
+};
+
+template <int HG, int MINB>
+__global__ void __launch_bounds__(TTHREADS, MINB)
+ssd_wgmma16_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tcm,
+                   const __grid_constant__ CUtensorMap ty, TParams p) {
+  using Plan = Plan16<HG>;
+  static_assert(MINB * (Plan::SMEM + 1024) <= 233472,
+                "over the shared memory of an SM");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sC = sm + Plan::C_OFF;
+  uint8_t* sB = sm + Plan::B_OFF;
+  uint8_t* sX = sm + Plan::X_OFF;
+  uint8_t* sY = sm + Plan::Y_OFF;
+  uint8_t* sS = sm + Plan::S_OFF;
+  float4* s_ex = reinterpret_cast<float4*>(sm + Plan::E_OFF);
+  float* f_cs = reinterpret_cast<float*>(sm + Plan::F_OFF);
+  float* f_ecs = f_cs + HG * QT;
+  float* f_w = f_ecs + HG * QT;
+  float* f_dt = f_w + HG * QT;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Plan::BAR_OFF);
+  int* s_ticket = reinterpret_cast<int*>(bars + XS + 1);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    *s_ticket = atomicAdd(p.flags + p.B * p.H * 8, 1);
+    for (int i = 0; i <= XS; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int ticket = *s_ticket;
+  const int c = ticket / (p.B * p.ng);
+  const int rest = ticket - c * p.B * p.ng;
+  const int b = rest / p.ng;
+  const int h0 = (rest - b * p.ng) * HG;
+  const int nh = min(HG, p.H - h0);
+  const int t0 = c * p.q;
+  const int qv = min(p.q, p.S - t0);         // valid rows of the chunk
+
+  if (tid == 0) {
+    tma_prefetch(&tx);
+    tma_prefetch(&tb);
+    tma_prefetch(&tcm);
+    mbar_arrive_expect_tx(&bars[0], 2 * BC16);
+    tma_load_4d(sC, &tcm, &bars[0], 0, 0, t0, b);
+    tma_load_4d(sB, &tb, &bars[0], 0, 0, t0, b);
+    for (int k = 0; k < min(nh, XS); ++k) {
+      mbar_arrive_expect_tx(&bars[1 + k], TILE);
+      tma_load_4d(sX + k * TILE, &tx, &bars[1 + k], 0, h0 + k, t0, b);
+    }
+  }
+
+  head_scans<HG>(p, b, t0, qv, h0, nh, f_dt, f_cs, f_ecs, f_w);
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int col = 2 * (lane % 4);
+  const int r_lo = 64 * wg + 16 * warp + lane / 4;   // chunk rows r_lo, +8
+  const int pr = 16 * warp + lane / 4;                // state rows pr, +8
+  const int diag = 4 * wg + warp;        // W's 16-column blocks past it: 0
+  // C's rows of this warpgroup and B, both K-major with K = n
+  const uint64_t dc = desc_sw32(sC + 64 * wg * ROW16, 16, 256);
+  const uint64_t dbk = desc_sw32(sB, 16, 256);
+
+  const int64_t PN = static_cast<int64_t>(TP) * TN16;
+  const int64_t slot = static_cast<int64_t>(p.B) * p.H * PN;
+  mbar_wait(&bars[0], 0);
+  for (int k = 0; k < nh; ++k) {
+    const int h = h0 + k;
+    const float* cs = f_cs + k * QT;
+    const float* wv = f_w + k * QT;
+    const float* dtv = f_dt + k * QT;
+    const uint8_t* xs = sX + (k % XS) * TILE;
+
+    // y = W X, W rounded to bf16 from this warpgroup's rows of C B^T
+    float yacc[32];
+    {
+      float cb[64];
+      wgmma_fence();
+      wgmma_m64n128k16_ss_bf16(cb, dc, dbk, 0);
+      wgmma_commit();
+      const float cs_r[2] = {cs[r_lo], cs[r_lo + 8]};
+      uint32_t wh[8][4];
+      wgmma_wait<0>();
+      fence_regs(cb);
+#pragma unroll
+      for (int kj = 0; kj < 8; ++kj) {
+        if (kj > diag) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) wh[kj][e] = 0u;
+          continue;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int t = 2 * kj + u, i = r_lo + 8 * r, j = 16 * kj + 8 * u + col;
+            const float2 csj = *reinterpret_cast<const float2*>(cs + j);
+            const float2 dtj = *reinterpret_cast<const float2*>(dtv + j);
+            const float csv[2] = {csj.x, csj.y}, dtw[2] = {dtj.x, dtj.y};
+            float w2[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float L = exp2_approx((cs_r[r] - csv[e]) * LOG2E);
+              w2[e] = i >= j + e
+                          ? __fmul_rn(__fmul_rn(cb[4 * t + 2 * r + e], L),
+                                      dtw[e])
+                          : 0.f;
+            }
+            wh[kj][2 * u + r] = pack_bf16(w2[0], w2[1]);
+          }
+      }
+      mbar_wait(&bars[1 + k % XS], (k / XS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kj = 0; kj < 8; ++kj) {
+        const uint64_t dx = desc_sw128(xs + kj * 16 * ROWB, TILE, 1024);
+        wgmma_m64n64k16_rs_bf16_tb(yacc, wh[kj], dx, kj > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(yacc);
+    }
+
+    // this warpgroup's share of the chunk state: rows j 64wg .. 64wg + 63
+    // of (X o w)^T B, all 16 columns
+    float part[8];
+    {
+      uint32_t xh[4][4], xl[4][4];
+      const int m = lane / 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int kj = 4 * wg + kk;
+        const int j = 16 * kj + (m >= 2 ? 8 : 0) + lane % 8;
+        const int ch = 2 * warp + (m & 1);
+        uint32_t r4[4];
+        ldmatrix_x4_trans(r4, xs + j * ROWB + ((ch ^ (j & 7)) << 4));
+        const int j0 = 16 * kj + col;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = j0 + (e >= 2 ? 8 : 0);
+          const float2 xv = bf16x2_to_float2(r4[e]);
+          split_pair(__fmul_rn(xv.x, wv[jj]), __fmul_rn(xv.y, wv[jj + 1]),
+                     xh[kk][e], xl[kk][e]);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db =
+            desc_sw32(sB + (4 * wg + kk) * 16 * ROW16, BC16, 256);
+        wgmma_m64n16k16_rs_bf16_tb(part, xh[kk], db, kk > 0);
+        wgmma_m64n16k16_rs_bf16_tb(part, xl[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+    }
+    // warpgroup wg keeps columns 8wg .. 8wg + 7 (part[4wg .. 4wg + 3])
+    // and hands the other warpgroup the rest
+    const float4 mine = wg == 0
+        ? make_float4(part[0], part[1], part[2], part[3])
+        : make_float4(part[4], part[5], part[6], part[7]);
+    s_ex[wg * 128 + tid % 128] = wg == 0
+        ? make_float4(part[4], part[5], part[6], part[7])
+        : make_float4(part[0], part[1], part[2], part[3]);
+
+    // the state entering the chunk: chunk c - 1's outgoing state (chunk
+    // 0: init_state or zeros).  Both warpgroups are past the previous
+    // head's C state^T before the state tile is rewritten.
+    const int64_t bh = static_cast<int64_t>(b) * p.H + h;
+    if (tid == 0) bulk_wait_read();        // y staging free again
+    __syncthreads();
+    // X of head k is read: its slot takes head k + XS
+    if (tid == 0 && k + XS < nh) {
+      mbar_arrive_expect_tx(&bars[1 + k % XS], TILE);
+      tma_load_4d(sX + (k % XS) * TILE, &tx, &bars[1 + k % XS], 0,
+                  h0 + k + XS, t0, b);
+    }
+    const float4 other = s_ex[(1 - wg) * 128 + tid % 128];
+    const float contrib[4] = {
+        __fadd_rn(mine.x, other.x), __fadd_rn(mine.y, other.y),
+        __fadd_rn(mine.z, other.z), __fadd_rn(mine.w, other.w)};
+    // this warp's part of the state was written by the same warp of
+    // chunk c - 1's block, which raised its flag after
+    int* flag = p.flags + bh * 8 + tid / 32;
+    const float* s_in = c == 0 ? p.init
+                               : p.slots + ((c - 1) & 1) * slot + bh * PN;
+    if (c == 0 && s_in != nullptr) s_in += bh * PN;
+    if (c > 0) warp_wait_flag(flag, c, lane);
+    float2 si[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      si[r] = s_in == nullptr
+                  ? make_float2(0.f, 0.f)
+                  : __ldcg(reinterpret_cast<const float2*>(
+                        s_in + (pr + 8 * r) * TN16 + 8 * wg + col));
+    // the outgoing state for chunk c + 1, then this warp's flag, or the
+    // final state.  The lanes' stores reach lane 0 through __syncwarp and
+    // its release store publishes them at gpu scope (cumulativity, as
+    // CUTLASS's generic barrier has one thread release after a block
+    // barrier): no fence of every lane before it
+    const float decay = expf(cs[QT - 1]);
+    const bool last = c == p.nc - 1;
+    float* s_out = last ? p.final_state + bh * PN
+                        : p.slots + (c & 1) * slot + bh * PN;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 so = make_float2(
+          __fadd_rn(__fmul_rn(si[r].x, decay), contrib[2 * r]),
+          __fadd_rn(__fmul_rn(si[r].y, decay), contrib[2 * r + 1]));
+      __stcg(reinterpret_cast<float2*>(s_out + (pr + 8 * r) * TN16 + 8 * wg +
+                                       col),
+             so);
+    }
+    if (!last) {
+      __syncwarp();
+      if (lane == 0) st_release_gpu(flag, c + 1);
+    }
+    // the entering state in bf16 as C state^T's operand, [p][n] in the
+    // 32-byte swizzle (the 16-byte half n / 8 of row pp at half
+    // (n / 8) ^ ((pp / 4) & 1))
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pp = pr + 8 * r;
+      *reinterpret_cast<uint32_t*>(sS + pp * ROW16 +
+                                   ((wg ^ ((pp >> 2) & 1)) << 4) + col * 2) =
+          pack_bf16(si[r].x, si[r].y);
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // y += exp(cs_i) (C state^T)
+    float yi[32];
+    wgmma_fence();
+    wgmma_m64n64k16_ss_bf16(yi, dc, desc_sw32(sS, 16, 256), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(yi);
+    // y into the staging tile (the previous head's store has read it) in
+    // the 128-byte swizzle, then one TMA store of the chunk's q rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r_lo + 8 * r;
+      const float e = f_ecs[k * QT + i];
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        *reinterpret_cast<uint32_t*>(sY + i * ROWB + ((t ^ (i & 7)) << 4) +
+                                     col * 2) = pack_bf16(
+            __fadd_rn(yacc[4 * t + 2 * r], __fmul_rn(e, yi[4 * t + 2 * r])),
+            __fadd_rn(yacc[4 * t + 2 * r + 1],
+                      __fmul_rn(e, yi[4 * t + 2 * r + 1])));
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tma_store_4d(&ty, sY, 0, h, t0, b);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait_all();
+}
+
 // a [.., S, rows, cols] bf16 view as a 4-D tensor map: dims (cols, rows,
-// S, B), strides in elements for rows, S and B; boxes of 64 columns x 1
-// row x `tokens` tokens, the 128-byte swizzle; TMA zero-fills past S on
-// loads and leaves it unwritten on stores
+// S, B), strides in elements for rows, S and B; boxes of `box_cols`
+// columns x 1 row x `tokens` tokens, in the 128-byte swizzle (64 columns)
+// or the 32-byte one (16); TMA zero-fills past S on loads and leaves it
+// unwritten on stores
 inline int view_map(CUtensorMap* map, const void* base, int cols, int rows,
                     int S, int B, long long row_stride, long long s_stride,
-                    long long b_stride, int tokens = QT) {
+                    long long b_stride, int tokens = QT, int box_cols = 64) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {2ull * row_stride, 2ull * s_stride,
                                  2ull * b_stride};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(tokens), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(tokens), 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                      strides, box);
+                      strides, box,
+                      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 template <typename Kern>
-int launch_wgmma(Kern kern, const CUtensorMap& tx, const CUtensorMap& tb,
-                 const CUtensorMap& tcm, const CUtensorMap& ty,
-                 const TParams& p, cudaStream_t stream) {
+int launch_wgmma(Kern kern, size_t smem, const CUtensorMap& tx,
+                 const CUtensorMap& tb, const CUtensorMap& tcm,
+                 const CUtensorMap& ty, const TParams& p,
+                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(TSMEM));
+      static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = static_cast<long long>(p.B) * p.nc * p.ng;
-  kern<<<static_cast<unsigned>(blocks), TTHREADS, TSMEM, stream>>>(
+  kern<<<static_cast<unsigned>(blocks), TTHREADS, smem, stream>>>(
       tx, tb, tcm, ty, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the (64, 16) kernel with HG heads per block, at least MINB blocks an SM
+template <int HG, int MINB>
+int launch_wgmma16(const CUtensorMap& tx, const CUtensorMap& tb,
+                   const CUtensorMap& tcm, const CUtensorMap& ty, TParams p,
+                   cudaStream_t stream) {
+  p.ng = (p.H + HG - 1) / HG;
+  return launch_wgmma(ssd_wgmma16_kernel<HG, MINB>, Plan16<HG>::SMEM, tx,
+                      tb, tcm, ty, p, stream);
 }
 
 }  // namespace tc
@@ -882,20 +1223,24 @@ extern "C" int ssd_scan_launch(
   return -1;
 }
 
-// The tensor-core kernel (bf16 x, Bm, Cm at (P, N) = (64, 128)): the
-// arguments of ssd_scan_launch without P, N and dtype, and instead of the
-// chunk-state scratch: slots, 2*B*H*P*N floats, and flags, B*H*8 + 1
-// ints set to 0 (the chain's per-warp flags and the ticket counter).  The
+// The tensor-core kernels (bf16 x, Bm, Cm at (P, N) = (64, 128) or
+// (64, 16), N given): the arguments of ssd_scan_launch without P and
+// dtype, and instead of the chunk-state scratch: slots, 2*B*H*P*N
+// floats, and flags, B*H*8 + 1 ints set to 0 (the chain's per-warp flags
+// and the ticket counter).  hg (heads per block) and per_sm (blocks an SM
+// at least) pick an instantiation, 0 for the default: (6, 1) at N = 128,
+// (4, 2) at N = 16, where (4, 1), (8, 1) and (8, 2) are also built.  The
 // views' strides must be multiples of 8 elements and their bases 16-byte
-// aligned (TMA).  Returns 0, a cudaError_t code, -3 for the shape or -4
-// when a tensor map cannot be encoded.
+// aligned (TMA).  Returns 0, a cudaError_t code, -3 for the shape or the
+// instantiation or -4 when a tensor map cannot be encoded.
 extern "C" int ssd_scan_wgmma_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* init_state, void* y, void* final_state,
-    void* slots, void* flags, int B, int S, int H, int q, long long x_bs,
-    long long x_ts, long long b_bs, long long b_ts, long long c_bs,
-    long long c_ts, void* stream) {
+    void* slots, void* flags, int B, int S, int H, int N, int q, int hg,
+    int per_sm, long long x_bs, long long x_ts, long long b_bs,
+    long long b_ts, long long c_bs, long long c_ts, void* stream) {
   if (q <= 0 || q > QT || B <= 0 || S <= 0 || H <= 0) return -3;
+  if (N != tc::TN && N != tc::TN16) return -3;
   const int nc = (S + q - 1) / q;
   tc::TParams p{static_cast<const float*>(dt), static_cast<const float*>(A),
                 static_cast<const float*>(init_state),
@@ -903,24 +1248,42 @@ extern "C" int ssd_scan_wgmma_launch(
                 static_cast<float*>(slots), static_cast<int*>(flags), B, S,
                 H, q, nc,
                 (H + tc::HG - 1) / tc::HG};
-  // y [B, S, H, P] contiguous, stored a chunk of q rows a box
+  // y [B, S, H, P] contiguous, stored a chunk of q rows a box; B and C
+  // one box of N columns (two of 64 at N = 128)
+  const int box = N == tc::TN ? 64 : tc::TN16;
   CUtensorMap tx, tb, tcm, ty;
   if (tc::view_map(&tx, x, tc::TP, H, S, B, tc::TP, x_ts, x_bs) ||
-      tc::view_map(&tb, Bm, tc::TN, 1, S, B, tc::TN, b_ts, b_bs) ||
-      tc::view_map(&tcm, Cm, tc::TN, 1, S, B, tc::TN, c_ts, c_bs) ||
+      tc::view_map(&tb, Bm, N, 1, S, B, N, b_ts, b_bs, QT, box) ||
+      tc::view_map(&tcm, Cm, N, 1, S, B, N, c_ts, c_bs, QT, box) ||
       tc::view_map(&ty, y, tc::TP, H, S, B, tc::TP,
                    static_cast<long long>(H) * tc::TP,
                    static_cast<long long>(S) * H * tc::TP, q))
     return -4;
-  return tc::launch_wgmma(tc::ssd_wgmma_kernel, tx, tb, tcm, ty, p,
-                          static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == tc::TN) {
+    if ((hg != 0 && hg != tc::HG) || per_sm > 1) return -3;
+    return tc::launch_wgmma(tc::ssd_wgmma_kernel, tc::TSMEM, tx, tb, tcm,
+                            ty, p, s);
+  }
+  if (hg == 0) hg = 4;
+  if (per_sm == 0) per_sm = 2;
+  if (hg == 8 && per_sm == 2)
+    return tc::launch_wgmma16<8, 2>(tx, tb, tcm, ty, p, s);
+  if (hg == 8 && per_sm == 1)
+    return tc::launch_wgmma16<8, 1>(tx, tb, tcm, ty, p, s);
+  if (hg == 4 && per_sm == 2)
+    return tc::launch_wgmma16<4, 2>(tx, tb, tcm, ty, p, s);
+  if (hg == 4 && per_sm == 1)
+    return tc::launch_wgmma16<4, 1>(tx, tb, tcm, ty, p, s);
+  return -3;
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {
   switch (code) {
     case -1: return "unsupported (P, N): (64, 128), (64, 16) or (16, 16)";
     case -2: return "unsupported dtype (float32 or bfloat16)";
-    case -3: return "unsupported shape (chunk length 1-128, B * H <= 65535)";
+    case -3: return "unsupported shape (chunk length 1-128, B * H <= 65535) "
+                    "or tensor-core instantiation";
     case -4: return "tensor map encoding failed (alignment of the views' "
                     "bases or strides, or no cuTensorMapEncodeTiled)";
   }

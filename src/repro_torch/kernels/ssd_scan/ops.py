@@ -4,11 +4,12 @@ A CPU tensor takes the plain PyTorch version (``ref.ssd_ref``); a CUDA
 tensor launches a hand-written CUDA kernel (``csrc/ssd_scan.cu``, built
 with nvcc at first use) or raises.  There is no fallback between the
 two.  ``kernel_path`` picks the kernel from the dtype, (P, N) and the
-views' alignment alone: bf16 x/B/C at mamba2-780m's (64, 128) with
-16-byte aligned views run on the tensor cores (``"wgmma"``: one C B^T
-per chunk shared by a group of heads, the state chained across chunks
-through L2), the rest on the CUDA cores (``"cuda_cores"``: three passes;
-jamba-v0.1-52b's (64, 16) among them).
+views' alignment alone: bf16 x/B/C at mamba2-780m's (64, 128) or
+jamba-v0.1-52b's (64, 16) with 16-byte aligned views run on the tensor
+cores (``"wgmma"``: one C B^T per chunk for a group of heads, the state
+chained across chunks through L2; a kernel instance per N), the rest on
+the CUDA cores (``"cuda_cores"``: three passes; fp32, the reduced
+configs' (16, 16) and views TMA cannot read).
 ``ssd.launches`` counts kernel launches, one per call on the card, so
 one per layer per ``prefill`` / ``forward``; ``ssd.launches_tc`` those on
 the tensor cores.  The one-token ``ssd_decode`` is the plain
@@ -35,19 +36,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (64, 128), jamba-v0.1-52b (64, 16) and the reduced configs (16, 16)
 _SHAPES = ((64, 128), (64, 16), (16, 16))
 _MAX_CHUNK = 128
-# the tensor-core kernel's (P, N)
-WGMMA_SHAPE = (64, 128)
+# the tensor-core kernel's (P, N) pairs
+WGMMA_SHAPES = frozenset({(64, 128), (64, 16)})
+# its (heads per block, blocks per SM at least) at each N: one build at
+# N = 128; at N = 16 the fastest of (4, 1), (4, 2), (8, 1) and (8, 2) on
+# an H100 (``launch/profile_ssd.py --state 16`` compares them)
+TC_BLOCKING = {128: (6, 1), 16: (4, 2)}
 
 
 def kernel_path(dtype: torch.dtype, head_dim: int, state_dim: int,
                 aligned: bool = True) -> str:
     """The CUDA kernel that takes x/B/C of ``dtype`` at (P, N) =
-    (``head_dim``, ``state_dim``): ``"wgmma"`` for bf16 at (64, 128)
-    whose views TMA can read (``aligned``: bases 16-byte aligned, batch
-    and token strides multiples of 8 elements), else ``"cuda_cores"``
-    (fp32 keeps its 1e-4 agreement with the CPU; (64, 16) is Jamba's and
-    (16, 16) the reduced configs')."""
-    if dtype == torch.bfloat16 and (head_dim, state_dim) == WGMMA_SHAPE \
+    (``head_dim``, ``state_dim``): ``"wgmma"`` for bf16 at (64, 128) or
+    (64, 16) whose views TMA can read (``aligned``: bases 16-byte
+    aligned, batch and token strides multiples of 8 elements), else
+    ``"cuda_cores"`` (fp32 keeps its 1e-4 agreement with the CPU; (16,
+    16) is the reduced configs')."""
+    if dtype == torch.bfloat16 and (head_dim, state_dim) in WGMMA_SHAPES \
             and aligned:
         return "wgmma"
     return "cuda_cores"
@@ -67,7 +72,7 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         tc = lib.ssd_scan_wgmma_launch
-        tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+        tc.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         tc.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
@@ -75,7 +80,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, dt, A, Bm, Cm, chunk, init_state):
+def _launch(x, dt, A, Bm, Cm, chunk, init_state, path=None):
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     dev = x.device
@@ -116,7 +121,13 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state):
     nc = -(-s // q)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    tc = kernel_path(x.dtype, p, n, _tma_aligned(x, Bm, Cm)) == "wgmma"
+    auto = kernel_path(x.dtype, p, n, _tma_aligned(x, Bm, Cm))
+    path = path or auto
+    if path not in ("wgmma", "cuda_cores") or (path == "wgmma"
+                                               and auto != "wgmma"):
+        raise ValueError(f"ssd: no {path!r} kernel for {x.dtype} at "
+                         f"(P, N) = ({p}, {n}) over these views")
+    tc = path == "wgmma"
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     init = None if init_state is None else init_state.data_ptr()
@@ -128,7 +139,8 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state):
         err = lib.ssd_scan_wgmma_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), init, y.data_ptr(), final.data_ptr(),
-            slots.data_ptr(), flags.data_ptr(), b, s, h, q, x.stride(0),
+            slots.data_ptr(), flags.data_ptr(), b, s, h, n, q,
+            *TC_BLOCKING[n], x.stride(0),
             x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
             Cm.stride(1), stream)
     else:
@@ -151,7 +163,8 @@ def _launch(x, dt, A, Bm, Cm, chunk, init_state):
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
-        init_state: Optional[torch.Tensor] = None
+        init_state: Optional[torch.Tensor] = None,
+        path: Optional[str] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,G,N], init_state
     [B,H,P,N] or None -> (y [B,S,H,P] in x's dtype, final state
@@ -160,12 +173,15 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     On DTensors (a sharded step) it runs on each shard's local heads
     and batch rows (``logical.per_shard``; B and C are split by group
     where the groups divide as the heads do), chosen by the local
-    tensors' device."""
+    tensors' device.  ``path`` (on the card; default ``kernel_path``) may
+    name ``"cuda_cores"`` where the tensor cores would run, to time or
+    check those passes; ``"wgmma"`` elsewhere raises."""
     if isinstance(x, DTensor):
         g = Bm.shape[2]
         gd = 2 if g > 1 else None
         return per_shard(
-            lambda *a: ssd(*a[:5], chunk=chunk, init_state=a[5]),
+            lambda *a: ssd(*a[:5], chunk=chunk, init_state=a[5],
+                           path=path),
             (x, dt, A, Bm, Cm, init_state),
             ((0, 2), (0, 2), (None, 0), (0, gd), (0, gd), (0, 1)),
             ((0, 2), (0, 1)), batch=x.shape[0],
@@ -177,7 +193,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd: no kernel for device {x.device}")
     no_grad_through("ssd", x, dt, A, Bm, Cm, init_state)
     with torch.cuda.device(x.device):   # the runtime launches on its device
-        return _launch(x, dt, A, Bm, Cm, chunk, init_state)
+        return _launch(x, dt, A, Bm, Cm, chunk, init_state, path)
 
 
 ssd.launches = 0

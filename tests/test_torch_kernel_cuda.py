@@ -98,11 +98,14 @@ SSD scan: ``ssd`` against ``ssd_ref`` over every (P, N) the kernel
 instantiates (jamba-v0.1-52b's (64, 16) among them) x fp32/bf16 x/B/C,
 ragged S, S < chunk, ``init_state``,
 x/B/C as strided views of one wider tensor (as the model passes them),
-and the inputs the wrapper refuses; bf16 at (64, 128) takes the
-tensor-core kernel (``launches_tc``), including a chained grid of many
-more blocks than are resident, ``init_state`` with strided views and a
-partial head group, and a view TMA cannot read takes the CUDA-core
-kernel by ``kernel_path``.  Tolerance: y within 1e-4 of the
+and the inputs the wrapper refuses; bf16 at (64, 128) and at
+jamba-v0.1-52b's (64, 16) takes the tensor-core kernels
+(``launches_tc``), including a chained grid of many more blocks than are
+resident, ``init_state`` with strided views and a partial head group; at
+(64, 16) also against ``ssd_kernel_emulation`` (the kernel's own
+factoring and rounding) and two calls bit for bit; a view TMA cannot
+read takes the CUDA-core kernel by ``kernel_path``, and ``path=
+"cuda_cores"`` takes it where the tensor cores would run.  Tolerance: y within 1e-4 of the
 output's largest magnitude (at least 1e-4 absolute) in fp32, within 2
 bf16 ulps at that magnitude in bf16; the fp32 final state within 1e-4
 of its largest magnitude.  A scan's outputs grow with its inputs (unlike
@@ -836,17 +839,25 @@ def test_decode_outside_the_tensor_core_path_takes_the_cuda_cores(card,
         _decode_limit(want)
 
 
-SSD_TC_CASES = {  # B, S, H, chunk, init_state, strided views
-    "chained grid, 1,248 blocks": (2, 13243, 48, 128, True, True),
-    "init_state and strided views": (2, 1000, 12, 128, True, True),
-    "partial head group, chunk 64": (2, 1000, 7, 64, False, True),
-    "S < chunk": (1, 100, 6, 128, True, False),
+SSD_TC_CASES = {  # B, S, H, N, chunk, init_state, strided views
+    "chained grid, 1,248 blocks": (2, 13243, 48, 128, 128, True, True),
+    "init_state and strided views": (2, 1000, 12, 128, 128, True, True),
+    "partial head group, chunk 64": (2, 1000, 7, 128, 64, False, True),
+    "S < chunk": (1, 100, 6, 128, 128, True, False),
+    # jamba-v0.1-52b's state width, (P, N) = (64, 16)
+    "N 16 chained grid": (2, 13243, 48, 16, 128, True, True),
+    "N 16 init_state and strided views": (2, 1000, 12, 16, 128, True, True),
+    "N 16 ragged, contiguous": (2, 300, 8, 16, 128, False, False),
+    "N 16 partial head group, chunk 64": (2, 1000, 7, 16, 64, False, True),
+    "N 16 H not a multiple of the group": (1, 515, 10, 16, 128, True,
+                                           False),
+    "N 16 S < chunk": (1, 100, 6, 16, 128, True, False),
 }
 
 
-def _ssd_views(dev, B, S, H, init, view, seed):
+def _ssd_views(dev, B, S, H, init, view, seed, N=128):
     g = torch.Generator(device=dev).manual_seed(seed)
-    P, N = 64, 128
+    P = 64
     xbc = torch.randn((B, S, H * P + 2 * N), generator=g,
                       device=dev).bfloat16()
     xi, Bp, Cp = torch.split(xbc, [H * P, N, N], dim=-1)
@@ -863,15 +874,45 @@ def _ssd_views(dev, B, S, H, init, view, seed):
 
 @pytest.mark.parametrize("case", list(SSD_TC_CASES))
 def test_ssd_tensor_core_kernel(card, case):
-    B, S, H, chunk, init, view = SSD_TC_CASES[case]
-    x, dt, A, Bm, Cm, s0 = _ssd_views(card, B, S, H, init, view, seed=S)
-    before = sops.ssd.launches_tc
+    """bf16 at (64, 128) and (64, 16) on the tensor cores: one
+    tensor-core launch, within the limits of ``ssd_ref`` and of
+    ``ssd_kernel_emulation`` (the kernel's own factoring and rounding),
+    and a second call equal bit for bit (no atomics on the data)."""
+    B, S, H, N, chunk, init, view = SSD_TC_CASES[case]
+    x, dt, A, Bm, Cm, s0 = _ssd_views(card, B, S, H, init, view, seed=S,
+                                      N=N)
+    assert sops.kernel_path(x.dtype, 64, N,
+                            sops._tma_aligned(x, Bm, Cm)) == "wgmma"
+    before = (sops.ssd.launches, sops.ssd.launches_tc)
     got = sops.ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
     torch.cuda.synchronize()
-    assert sops.ssd.launches_tc == before + 1
+    assert (sops.ssd.launches, sops.ssd.launches_tc) == (before[0] + 1,
+                                                         before[1] + 1)
+    args = (x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
+    check_ssd(got, sref.ssd_ref(*args, chunk=chunk, init_state=s0))
+    check_ssd(got, sref.ssd_kernel_emulation(*args, chunk=chunk,
+                                             init_state=s0))
+    again = sops.ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_ssd_cuda_core_passes_on_request_at_jamba_state(card):
+    """``path="cuda_cores"`` runs the three CUDA-core passes on views the
+    tensor cores would take (no tensor-core launch, the same answer);
+    ``path="wgmma"`` where the tensor cores cannot run raises."""
+    x, dt, A, Bm, Cm, s0 = _ssd_views(card, 2, 300, 8, True, True, seed=5,
+                                      N=16)
+    before = (sops.ssd.launches, sops.ssd.launches_tc)
+    got = sops.ssd(x, dt, A, Bm, Cm, chunk=128, init_state=s0,
+                   path="cuda_cores")
+    torch.cuda.synchronize()
+    assert (sops.ssd.launches, sops.ssd.launches_tc) == (before[0] + 1,
+                                                         before[1])
     check_ssd(got, sref.ssd_ref(x.contiguous(), dt, A, Bm.contiguous(),
-                                Cm.contiguous(), chunk=chunk,
-                                init_state=s0))
+                                Cm.contiguous(), chunk=128, init_state=s0))
+    with pytest.raises(ValueError, match="no 'wgmma' kernel"):
+        sops.ssd(x.float(), dt, A, Bm.float(), Cm.float(), chunk=128,
+                 path="wgmma")
 
 
 def test_ssd_view_tma_cannot_read_takes_the_cuda_cores(card):

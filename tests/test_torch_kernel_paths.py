@@ -20,9 +20,9 @@ bf16 or e4m3 pages at D 64 and 128 with a group of at most 8 and pages of
 8, 16 or a multiple of 32 (minitron-8b's decode) to the split tensor-core
 kernel, everything else to the CUDA-core kernel;
 ``ssd_scan.ops.kernel_path`` sends bf16 x/B/C at (P, N) = (64, 128)
-(mamba2-780m) whose views TMA can read to the tensor-core kernel, and
-fp32, Jamba's (64, 16), the reduced (16, 16) and unaligned views to the
-CUDA-core passes; any other (P, N) is refused.
+(mamba2-780m) and (64, 16) (jamba-v0.1-52b) whose views TMA can read to
+the tensor-core kernels, and fp32, the reduced (16, 16) and unaligned
+views to the CUDA-core passes; any other (P, N) is refused.
 All decide from the inputs alone.
 """
 import pytest
@@ -190,7 +190,7 @@ def test_minitron_decode_takes_the_tensor_cores(kv_dtype):
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 def test_ssd_path(dtype, P, N, aligned):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    tc = dtype == BF16 and (P, N) == (64, 128) and aligned
+    tc = dtype == BF16 and (P, N) in ((64, 128), (64, 16)) and aligned
     assert ssd_ops.kernel_path(dtype, P, N, aligned) == (
         "wgmma" if tc else "cuda_cores")
 
@@ -212,6 +212,32 @@ def test_mamba_full_width_prefill_takes_the_tensor_cores():
         == "wgmma"
     assert ssd_ops.kernel_path(F32, hd, n) == "cuda_cores"
     red = MAMBA.reduced()
+    assert ssd_ops.kernel_path(BF16, red.ssm_head_dim,
+                               red.ssm_state) == "cuda_cores"
+
+
+def test_jamba_full_width_prefill_takes_the_tensor_cores():
+    """jamba-v0.1-52b at full width (bf16, heads of 64, state 16): the
+    model's x/B/C views of its conv output (8,192 + 2 x 16 channels, a
+    token stride of 16,448 bytes, C from byte 16,416) are TMA-aligned
+    and take the tensor-core SSD kernel; fp32 weights and the reduced
+    config take the CUDA-core passes."""
+    from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    hd, n = JAMBA.ssm_head_dim, JAMBA.ssm_state
+    heads = JAMBA.ssm_expand * JAMBA.d_model // hd
+    assert (hd, n, heads * hd) == (64, 16, 8192)
+    xbc = torch.zeros((2, 64, heads * hd + 2 * n), dtype=BF16)
+    xi, Bp, Cp = torch.split(xbc, [heads * hd, n, n], dim=-1)
+    views = (xi.reshape(2, 64, heads, hd), Bp.reshape(2, 64, 1, n),
+             Cp.reshape(2, 64, 1, n))
+    assert views[0].stride(1) * 2 == 16448
+    assert views[2].data_ptr() - xbc.data_ptr() == 16416
+    assert ssd_ops._tma_aligned(*views)
+    assert ssd_ops.kernel_path(BF16, hd, n, ssd_ops._tma_aligned(*views)) \
+        == "wgmma"
+    assert ssd_ops.kernel_path(F32, hd, n) == "cuda_cores"
+    red = JAMBA.reduced()
     assert ssd_ops.kernel_path(BF16, red.ssm_head_dim,
                                red.ssm_state) == "cuda_cores"
 
@@ -248,8 +274,10 @@ def test_token_families_prefill_on_the_tensor_cores(arch):
 
 
 def test_jamba_mamba_sublayers_take_the_cuda_core_passes():
-    """jamba-v0.1-52b's SSD at full width, (P, N) = (64, 16) over the
-    model's x/B/C views: the three CUDA-core passes, bf16 or fp32."""
+    """jamba-v0.1-52b's SSD at full width, (P, N) = (64, 16): the three
+    CUDA-core passes in fp32 over the model's x/B/C views, and in bf16
+    over views TMA cannot read (rows one element longer); bf16 over the
+    model's own views takes the tensor cores."""
     from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     hd, n = JAMBA.ssm_head_dim, JAMBA.ssm_state
@@ -260,8 +288,37 @@ def test_jamba_mamba_sublayers_take_the_cuda_core_passes():
     aligned = ssd_ops._tma_aligned(xi.reshape(2, 64, heads, hd),
                                    Bp.reshape(2, 64, 1, n),
                                    Cp.reshape(2, 64, 1, n))
-    for dtype in (BF16, F32):
-        assert ssd_ops.kernel_path(dtype, hd, n, aligned) == "cuda_cores"
+    assert aligned
+    assert ssd_ops.kernel_path(F32, hd, n, aligned) == "cuda_cores"
+    assert ssd_ops.kernel_path(BF16, hd, n, aligned) == "wgmma"
+    odd = torch.zeros((2, 64, heads * hd + 2 * n + 1), dtype=BF16)
+    xo, Bo, Co, _ = torch.split(odd, [heads * hd, n, n, 1], dim=-1)
+    assert not ssd_ops._tma_aligned(xo.reshape(2, 64, heads, hd),
+                                    Bo.reshape(2, 64, 1, n),
+                                    Co.reshape(2, 64, 1, n))
+    assert ssd_ops.kernel_path(BF16, hd, n, False) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,aligned,path", [
+    (F32, True, "wgmma"), (BF16, False, "wgmma"), (BF16, True, "mma")],
+    ids=["f32-wgmma", "unaligned-wgmma", "unknown"])
+def test_ssd_refuses_a_path_it_has_no_kernel_for(dtype, aligned, path):
+    """``path`` may pick the CUDA-core passes where the tensor cores
+    would run, never the tensor cores where they cannot (fp32, a view
+    TMA cannot read) or a path that does not exist: refused before any
+    launch."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    H, P, N = 2, 64, 16
+    wide = torch.zeros((1, 8, H * P + 2 * N + (0 if aligned else 1)),
+                       dtype=dtype)
+    xi, Bp, Cp = torch.split(wide, [H * P, N, N], dim=-1)[:3] \
+        if aligned else torch.split(wide, [H * P, N, N, 1], dim=-1)[:3]
+    x, Bm, Cm = xi.reshape(1, 8, H, P), Bp.reshape(1, 8, 1, N), \
+        Cp.reshape(1, 8, 1, N)
+    assert ssd_ops._tma_aligned(x, Bm, Cm) == aligned
+    with pytest.raises(ValueError, match=f"no '{path}' kernel"):
+        ssd_ops._launch(x, torch.zeros((1, 8, H)), torch.zeros((H,)), Bm,
+                        Cm, 8, None, path)
 
 
 @pytest.mark.parametrize("D", [32, 48, 80, 256])

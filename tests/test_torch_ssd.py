@@ -199,6 +199,11 @@ EMU_CASES = {  # (B, S, H, P, N), chunk, init_state
     "B2-S33-H3-P8-N4-c8-ragged-init": ((2, 33, 3, 8, 4), 8, True),
     "B1-S300-H3-P64-N128-c128-ragged-init": ((1, 300, 3, 64, 128), 128,
                                               True),
+    # jamba-v0.1-52b's (P, N) = (64, 16): ragged with init_state at chunk
+    # 128, and 10 heads (not a multiple of the kernel's 8 heads a block)
+    "B1-S300-H3-P64-N16-c128-ragged-init": ((1, 300, 3, 64, 16), 128,
+                                             True),
+    "B2-S200-H10-P64-N16-c64-ragged": ((2, 200, 10, 64, 16), 64, False),
 }
 
 
@@ -251,11 +256,14 @@ def test_kernel_emulation_within_the_chip_limits(case):
     assert f_rel <= 1e-4
 
 
-def test_chunk_state_operand_needs_the_pair():
-    """Why X o w is fed as a hi + lo pair: as one bf16 rounding the final
-    state misses its 1e-4 limit by an order of magnitude (each chunk's
-    state feeds every later one); as a pair it is far inside."""
-    shape, chunk, init = EMU_CASES["B1-S300-H3-P64-N128-c128-ragged-init"]
+@pytest.mark.parametrize("case", ["B1-S300-H3-P64-N128-c128-ragged-init",
+                                  "B1-S300-H3-P64-N16-c128-ragged-init"])
+def test_chunk_state_operand_needs_the_pair(case):
+    """Why X o w is fed as a hi + lo pair, at mamba2-780m's state width
+    and at Jamba's: as one bf16 rounding the final state misses its 1e-4
+    limit by an order of magnitude (each chunk's state feeds every later
+    one); as a pair it is far inside."""
+    shape, chunk, init = EMU_CASES[case]
     _, single = _emulated_vs_pallas(shape, chunk, init, seed=5,
                                     pairs=frozenset())
     _, pair = _emulated_vs_pallas(shape, chunk, init, seed=5)
@@ -277,3 +285,19 @@ def test_phase_profiler_marks_every_phase_of_the_kernel():
     for i in marks:
         assert lines[i].lstrip().startswith("if ((tid & 127) == 0)")
     assert "ssd_marks_copy" in marked and len(marked) > len(src)
+
+
+def test_fence_profiler_fences_only_the_jamba_kernels_flag():
+    """``launch/profile_ssd.py --state 16 --fence`` builds a copy whose
+    (64, 16) kernel fences every lane before its chain flag, as the (64,
+    128) kernel does: one fence more, in that kernel, and nothing else
+    changed."""
+    from repro_torch.launch import profile_ssd
+
+    src = ops.SOURCE.read_text()
+    fenced = profile_ssd.fenced_source(src)
+    at = src.index("ssd_wgmma16_kernel(const")
+    assert fenced[:at] == src[:at]
+    assert fenced.count("__threadfence();") == src.count("__threadfence();") + 1
+    assert fenced[at:].replace(profile_ssd.FENCED,
+                               profile_ssd.RELEASE) == src[at:]
