@@ -174,13 +174,16 @@ Phases (any failure raises and the script exits non-zero):
    8,320-token ring), then consistency gates (``FamilyRun.gate``): the
    last of 512 greedy decode steps against a teacher-forced prefill, in
    bf16 at the timed length (MoE capacity 8.0; Jamba 1 x 12,288, the
-   ring rolled) and with the weights widened to fp32 at 2 x 4,096
-   (minitron, granite); peak memory per model.  ``whisper-medium``
-   (encoder-decoder, 24 + 24 layers over 1,500 stub audio frames) the
-   same way: prefill 2 x 32,768 + 32 decode steps, gates in bf16 at 2 x
-   32,768 and in fp32 at 2 x 4,096; flash = 72 per prefill (encoder,
-   causal self-attention, cross-attention) and 24 per decode step (the
-   cross-attention; its self-attention is the plain decode attention).
+   ring rolled) and with the weights widened to fp32 at 2 x 4,096 on
+   the first quarter of the layers (minitron 8 of 32, granite 6 of 24;
+   full width, 512 steps, the same limit); peak memory per model.
+   ``whisper-medium`` (encoder-decoder, 24 + 24 layers over 1,500 stub
+   audio frames) the same way: prefill 2 x 32,768 + 32 decode steps,
+   gates in bf16 at 2 x 32,768 and in fp32 at 2 x 4,096 on 6 + 6 of its
+   layers; flash = 72 per prefill at full depth, 18 at 6 + 6 (encoder,
+   causal self-attention, cross-attention) and one per decoder layer a
+   decode step (the cross-attention; its self-attention is the plain
+   decode attention).
 17. The ring batched cache at full width (run after 15, on phase 5's
    weights): the batched paged executor serves 2 streams x 2 chunks at
    top fidelity and one fp8 chunk each; before each chunk the pool's
@@ -239,6 +242,16 @@ Phases (any failure raises and the script exits non-zero):
    ``compressed_psum`` of a gradient of minicpm-2b's embedding shape over
    the world-1 group equals ``decompress(compress(g + err))`` bit for
    bit; its time printed.
+21. The reference's examples as the port's entry points (after 20, at
+   the reduced configs): ``repro_torch.examples.quickstart`` on the card
+   (BMPR, the 100-stream simulator, two AR-DiT chunks: kernel 3's
+   launches = layers x forwards, on the CUDA cores in fp32; the chunks
+   against the same inputs on the CPU within TOL_CARD_CPU), then
+   ``examples.train_small`` (40 steps of minicpm-2b with a checkpoint,
+   a restart and an uninterrupted run: every leaf of the parameters and
+   the optimizer state bit for bit, or it raises; kernel 3's forward and
+   CUDA-core backward launches counted per train step), each one's
+   seconds printed.
 
 Every phase prints its seconds.
 
@@ -1607,6 +1620,69 @@ def phase_sharded(train19):
         dist.destroy_process_group()
 
 
+def phase_examples(counters):
+    """Phase 21: the examples on the card (see the module docstring).
+    Returns kernel 3's (forward, backward) launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.examples import quickstart, train_small
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.convert import params_to
+
+    fm = flash_ops.flash_mha
+
+    def read(label, want_fwd, want_bwd):
+        got = {n: fn.launches for n, fn in counters.items()}
+        want = {**{n: 0 for n in counters}, "flash_mha": want_fwd}
+        if got != want or (fm.launches_bwd, fm.launches_tc,
+                           fm.launches_bwd_tc) != (want_bwd, 0, 0):
+            raise AssertionError(
+                f"{label}: launches {got}, flash backward "
+                f"{fm.launches_bwd}, on the tensor cores {fm.launches_tc} / "
+                f"{fm.launches_bwd_tc}; expected {want}, backward "
+                f"{want_bwd}, none on the tensor cores (fp32)")
+        print(f"  {label}: kernel 3 launched {want_fwd} forward and "
+              f"{want_bwd} backward, on the CUDA cores")
+
+    cfg = get_config("ardit-self-forcing").reduced()
+    reset_counts(counters)
+    fm.launches_bwd = fm.launches_bwd_tc = 0
+    t0 = time.perf_counter()
+    chunks = quickstart.main(["--device", DEV])
+    sync()
+    sec_q = time.perf_counter() - t0
+    q_fwd = cfg.n_layers * sum(f.steps + 1 for f in quickstart.FIDELITIES)
+    read("quickstart", q_fwd, 0)
+    params, cond, noise = quickstart.model_inputs(cfg, torch.device(DEV))
+    cpu = quickstart.generate_chunks(cfg, params_to(params, "cpu"),
+                                     cond.cpu(), noise.cpu())
+    for chunk, (fid, want, _) in zip(chunks, cpu):
+        err = float((chunk.cpu() - want).abs().max())
+        print(f"  quickstart chunk at {fid.key}: card vs CPU max |d| "
+              f"{err:.3g} (limit {TOL_CARD_CPU:g})")
+        if tuple(chunk.shape) != tuple(want.shape) or not err <= TOL_CARD_CPU:
+            raise AssertionError(f"quickstart chunk at {fid.key}: card vs "
+                                 f"CPU {err}")
+    print(f"  quickstart: {sec_q:.1f} s")
+
+    tcfg = get_config("minicpm-2b").reduced()
+    reset_counts(counters)
+    fm.launches_bwd = fm.launches_bwd_tc = 0
+    t0 = time.perf_counter()
+    out = train_small.main(["--device", DEV])
+    sync()
+    sec_t = time.perf_counter() - t0
+    calls = 2 * len(out["straight_losses"]) * train_small.MICROBATCHES
+    per_fwd, per_bwd = flash_train_launches(tcfg)
+    read("train_small", calls * per_fwd, calls * per_bwd)
+    losses = out["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_small losses {losses}")
+    print(f"  train_small: {len(losses)} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, the resumed run bit for bit with the "
+          f"uninterrupted one; {sec_t:.1f} s")
+    return q_fwd + calls * per_fwd, calls * per_bwd
+
+
 def tree_clone(tree):
     if isinstance(tree, dict):
         return {k: tree_clone(v) for k, v in tree.items()}
@@ -2284,24 +2360,37 @@ def phase_ssm(counters):
 # phase 16: the token families at full width.  Per model: its config
 # replacements (depth cut), the timed prefill (B, S) at the config's own
 # MoE capacity and its decode steps, then the consistency gates: (B,
-# total length, capacity factor or None, param dtype).  A gate prefills
-# the total less GATE_STEPS tokens, decodes GATE_STEPS greedy steps and
-# prefills the whole again, teacher-forced: both prefills are multiples
-# of the attention schedule's 512-token blocks, as ``mha`` requires.
+# total length, capacity factor or None, param dtype, depth cut).  A gate
+# prefills the total less GATE_STEPS tokens, decodes GATE_STEPS greedy
+# steps and prefills the whole again, teacher-forced: both prefills are
+# multiples of the attention schedule's 512-token blocks, as ``mha``
+# requires.  The fp32 gates keep the first quarter of each layer stack
+# (32 -> 8, 24 -> 6, 24 + 24 -> 6 + 6) at full width, GATE_STEPS and
+# their limit: they hold the fp32 arithmetic of one layer, which more
+# layers only repeat, and their host-bound decode loops were the chip
+# check's longest (an earlier path's depth is cut first when the script
+# grows); the bf16 gates keep the timed runs' depth.
 FAMILY_MODELS = [
     ("minitron-8b", {}, (2, 32768), 32,
-     [(2, 32768, None, "bfloat16"), (2, 4096, None, "float32")]),
+     [(2, 32768, None, "bfloat16", {}),
+      (2, 4096, None, "float32", {"n_layers": 8})]),
     ("granite-moe-1b-a400m", {}, (2, 32768), 32,
-     [(2, 32768, 8.0, "bfloat16"), (2, 4096, 8.0, "float32")]),
-    ("internvl2-26b", {}, (1, 8192), 16, [(1, 8192, None, "bfloat16")]),
+     [(2, 32768, 8.0, "bfloat16", {}),
+      (2, 4096, 8.0, "float32", {"n_layers": 6})]),
+    ("internvl2-26b", {}, (1, 8192), 16, [(1, 8192, None, "bfloat16", {})]),
     # one period of 8 sublayers of 4 (104 GB in bf16 whole), every width
     # as published
     ("jamba-v0.1-52b", {"n_layers": 8}, (2, 32768), 32,
-     [(1, 12288, 8.0, "bfloat16")]),
+     [(1, 12288, 8.0, "bfloat16", {})]),
     # 24 encoder + 24 decoder layers over 1,500 stub audio frames
     ("whisper-medium", {}, (2, 32768), 32,
-     [(2, 32768, None, "bfloat16"), (2, 4096, None, "float32")]),
+     [(2, 32768, None, "bfloat16", {}),
+      (2, 4096, None, "float32", {"n_enc_layers": 6, "n_dec_layers": 6})]),
 ]
+# the stacked layer trees of each family's params, by the config field
+# that counts them
+LAYER_STACKS = {"layers": "n_layers", "enc_layers": "n_enc_layers",
+                "dec_layers": "n_dec_layers"}
 GATE_STEPS = 512
 
 
@@ -2317,32 +2406,21 @@ class FamilyRun:
         full = get_config(arch)
         self.cfg = cfg = dataclasses.replace(full, **cut)
         self.api = registry.get_api(cfg)
+        self.n_attn, self.n_ssd, self.n_decode_attn = family_launches(cfg)
         if cfg.family == "hybrid":
             kinds = hybrid.sublayer_kinds(cfg)
-            n_periods = cfg.n_layers // hybrid.period_len(cfg)
-            self.n_attn = n_periods * sum(m == "attn" for m, _ in kinds)
-            self.n_ssd = n_periods * sum(m == "mamba" for m, _ in kinds)
             print(f"  {arch}: depth cut to {cfg.n_layers} of "
-                  f"{full.n_layers} layers ({n_periods} period: "
+                  f"{full.n_layers} layers "
+                  f"({cfg.n_layers // hybrid.period_len(cfg)} period: "
                   f"{self.n_attn} attention, {self.n_ssd} Mamba, "
                   f"{sum(f == 'moe' for _, f in kinds)} MoE of "
                   f"{cfg.n_experts} x top {cfg.top_k}, "
                   f"{sum(f == 'mlp' for _, f in kinds)} MLP sublayers); "
                   f"every width as published")
         elif cfg.family == "encdec":
-            # encoder self-attention, decoder causal self-attention and
-            # cross-attention per prefill; a decode step's cross-attention
-            self.n_attn = cfg.n_enc_layers + 2 * cfg.n_dec_layers
-            self.n_ssd = 0
             print(f"  {arch}: {cfg.n_enc_layers} encoder + "
                   f"{cfg.n_dec_layers} decoder layers over "
                   f"{cfg.n_frontend_tokens} stub audio frames")
-        else:
-            self.n_attn, self.n_ssd = cfg.n_layers, 0
-        # flash launches per decode step (only encdec's cross-attention;
-        # every family's decode self-attention is the plain one)
-        self.n_decode_attn = cfg.n_dec_layers if cfg.family == "encdec" \
-            else 0
         t0 = time.perf_counter()
         self.gen = torch.Generator(device=DEV).manual_seed(0)
         self.params = self.api.init(cfg, self.gen, DEV)
@@ -2371,6 +2449,7 @@ class FamilyRun:
         layers' flash launches and the Mamba sublayers' SSD launches (on
         the tensor cores in bf16), nothing else."""
         tc = cfg.param_dtype == "bfloat16"
+        n_attn, n_ssd, _ = family_launches(cfg)
         reset_counts(self.counters)
         sync()
         t0 = time.perf_counter()
@@ -2379,17 +2458,18 @@ class FamilyRun:
         sync()
         sec = time.perf_counter() - t0
         got = {n: fn.launches for n, fn in self.counters.items()}
-        want = {**{n: 0 for n in self.counters}, "flash_mha": self.n_attn,
-                "ssd": self.n_ssd}
+        want = {**{n: 0 for n in self.counters}, "flash_mha": n_attn,
+                "ssd": n_ssd}
         tcs = (self.counters["flash_mha"].launches_tc,
                self.counters["ssd"].launches_tc)
-        if got != want or tcs != ((self.n_attn, self.n_ssd) if tc
-                                  else (0, 0)):
+        if got != want or tcs != ((n_attn, n_ssd) if tc else (0, 0)):
             raise AssertionError(f"{label} prefill: launches {got}, on the "
                                  f"tensor cores {tcs}; expected {want}")
         if tc:
-            self.totals["flash_mha"] += self.n_attn
-            self.totals["ssd"] += self.n_ssd
+            self.totals["flash_mha"] += n_attn
+            self.totals["ssd"] += n_ssd
+        else:
+            self.totals["flash_mha_f32"] += n_attn
         if tuple(out[0].shape) != (tokens.shape[0], cfg.padded_vocab) \
                 or not bool(torch.isfinite(out[0]).all()):
             raise AssertionError(f"{label} prefill: bad logits")
@@ -2416,7 +2496,7 @@ class FamilyRun:
             pos = pos + 1
         got = {n_: fn.launches for n_, fn in self.counters.items()}
         want = {**{n_: 0 for n_ in self.counters},
-                "flash_mha": self.n_decode_attn * n}
+                "flash_mha": family_launches(cfg)[2] * n}
         tc = self.counters["flash_mha"].launches_tc
         if got != want or tc != (want["flash_mha"]
                                  if cfg.param_dtype == "bfloat16" else 0):
@@ -2424,6 +2504,8 @@ class FamilyRun:
                                  f"the tensor cores {tc}; expected {want}")
         if cfg.param_dtype == "bfloat16":
             self.totals["flash_mha_decode"] += want["flash_mha"]
+        else:
+            self.totals["flash_mha_f32"] += want["flash_mha"]
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{label} decode: non-finite logits")
         return logits, generated, ms
@@ -2442,24 +2524,39 @@ class FamilyRun:
               f"steps from position {S}, first {ms[0]:.2f} ms, then "
               f"{sum(ms[1:]) / (steps - 1):.2f} ms per token (step)")
 
-    def gate(self, B, total, cap_factor, dtype, trace):
+    def gate(self, B, total, cap_factor, dtype, depth, trace):
         """The last of GATE_STEPS decode steps against a teacher-forced
         prefill of the same tokens: relative L2 of the logits within
         TOL_CONSISTENCY (bf16; where the two paths routed the compared
         token differently, TOL_CONSISTENCY_FLIP and half the gap to
-        another position's logits) or TOL_CONSISTENCY_F32."""
+        another position's logits) or TOL_CONSISTENCY_F32.  ``depth``:
+        config replacements that keep the first layers of each stack
+        (the params' stacks are cut to match; every later gate of the
+        model runs on the cut params)."""
+        from repro_torch.models import layers as L
+
         cfg = self.cfg
         if cap_factor is not None:
             cfg = dataclasses.replace(cfg, capacity_factor=cap_factor)
+        if depth:
+            cfg = dataclasses.replace(cfg, **depth)
+            self.params = {
+                k: L.tree_map(lambda t: t[:getattr(cfg, LAYER_STACKS[k])],
+                              v) if k in LAYER_STACKS else v
+                for k, v in self.params.items()}
         if dtype != cfg.param_dtype:
             # the same weights widened: the two paths then differ in fp32
             # summation order only
-            from repro_torch.models import layers as L
             cfg = dataclasses.replace(cfg, param_dtype=dtype,
                                       kv_dtype=dtype)
             self.params = L.tree_map(lambda t: t.float(), self.params)
         label = f"{self.arch} {dtype}" + (
-            f" capacity {cap_factor:g}" if cap_factor else "")
+            f" capacity {cap_factor:g}" if cap_factor else "") + (
+            ", first " + " + ".join(f"{getattr(cfg, f)} of "
+                                    f"{getattr(self.cfg, f)}"
+                                    for f in LAYER_STACKS.values()
+                                    if f in depth) + " layers"
+            if depth else "")
         tokens, kw = self.inputs(cfg, B, total)
         head = tokens[:, :tokens.shape[1] - GATE_STEPS]
         (logits, cache, pos), sec_p = self.prefill(label, cfg, head, kw,
@@ -2501,6 +2598,25 @@ class FamilyRun:
             raise AssertionError(f"{label}: prefill/decode gap {gap}")
 
 
+def family_launches(cfg):
+    """Kernel launches of one prefill of ``cfg`` (flash: the attention
+    layers; ssd_scan: the Mamba sublayers) and flash launches of one
+    decode step (only an encoder-decoder's cross-attention: every
+    family's decode self-attention is the plain one)."""
+    from repro_torch.models import hybrid
+
+    if cfg.family == "hybrid":
+        kinds = hybrid.sublayer_kinds(cfg)
+        n_periods = cfg.n_layers // hybrid.period_len(cfg)
+        return (n_periods * sum(m == "attn" for m, _ in kinds),
+                n_periods * sum(m == "mamba" for m, _ in kinds), 0)
+    if cfg.family == "encdec":
+        # encoder self-attention, decoder causal self-attention and
+        # cross-attention per prefill; a decode step's cross-attention
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers, 0, cfg.n_dec_layers
+    return cfg.n_layers, 0, 0
+
+
 def rel(a, b):
     """Relative L2 distance of ``a`` from ``b``."""
     return float((a.float() - b.float()).norm() / b.float().norm())
@@ -2520,7 +2636,8 @@ def phase_families(counters):
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import layers as L
 
-    totals = {"flash_mha": 0, "flash_mha_decode": 0, "ssd": 0}
+    totals = {"flash_mha": 0, "flash_mha_decode": 0, "ssd": 0,
+              "flash_mha_f32": 0}
     # while a list: the experts each MoE sublayer routes the last token to
     trace = {"routes": None}
     route = L.moe_route
@@ -2560,7 +2677,8 @@ def phase_families(counters):
     print(f"  phase 16: {totals['flash_mha']} flash launches in the bf16 "
           f"prefills and {totals['flash_mha_decode']} in the bf16 decode "
           f"steps (whisper-medium's cross-attention), all on the tensor "
-          f"cores; {totals['ssd']} ssd_scan launches, on the tensor "
+          f"cores; {totals['flash_mha_f32']} in the fp32 gates, on the "
+          f"CUDA cores; {totals['ssd']} ssd_scan launches, on the tensor "
           f"cores")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4092,10 +4210,14 @@ def main():
     sharded = phase("20: sharded steps on a 1x1 mesh (minicpm-2b training, "
                     f"{SSM_ARCH} serving, restore, compressed all-reduce)",
                     phase_sharded, train)
+    examples_fwd, examples_bwd = phase(
+        "21: the examples on the card (quickstart, train_small)",
+        phase_examples, counters)
     train_fwd = sum(r["launches"] for r in train.values())
     # kernel 3's backward on its paths: the CUDA cores in phase 19 (i)'s
-    # reduced fp32 training, the tensor cores in (ii)'s full-width bf16
-    flash_bwd["launches"] = parity_bwd
+    # and phase 21's reduced fp32 training, the tensor cores in 19 (ii)'s
+    # full-width bf16
+    flash_bwd["launches"] = parity_bwd + examples_bwd
     flash_bwd_tc["launches"] = sum(r["launches_bwd_tc"]
                                    for r in train.values()) \
         + sharded["flash_mha_bwd_tc"]
@@ -4108,18 +4230,22 @@ def main():
                              "training path")
     # kernel 3 on its paths: the sequential session, then phase 16's bf16
     # prefills and whisper-medium's bf16 decode steps, then phase 19's
-    # full-width training
+    # full-width training, phase 20's sharded training and phase 21's
+    # examples
     flash["launches"] = seq_launches + fam["flash_mha"] \
-        + fam["flash_mha_decode"] + train_fwd + sharded["flash_mha"]
+        + fam["flash_mha_decode"] + train_fwd + sharded["flash_mha"] \
+        + examples_fwd
     print(f"flash_mha launches: {seq_launches} (phase 6) + "
           f"{fam['flash_mha']} (phase 16 prefills) + "
           f"{fam['flash_mha_decode']} (phase 16 decode steps) + "
           f"{train_fwd} (phase 19 (ii) training) + {sharded['flash_mha']} "
-          f"(phase 20 (i) sharded training) = {flash['launches']}; "
-          f"flash_mha_bwd launches on the CUDA cores (phase 19 (i)): "
-          f"{flash_bwd['launches']}, on the tensor cores (phases 19 (ii) "
-          f"and 20 (i)): {flash_bwd_tc['launches']}; ssd_scan launches "
-          f"(phases 9, 16 and 20 (ii)): {ssd['launches']}")
+          f"(phase 20 (i) sharded training) + {examples_fwd} (phase 21, "
+          f"CUDA cores) = {flash['launches']}; flash_mha_bwd launches on "
+          f"the CUDA cores: {parity_bwd} (phase 19 (i)) + {examples_bwd} "
+          f"(phase 21) = {flash_bwd['launches']}, on the tensor cores "
+          f"(phases 19 (ii) and 20 (i)): {flash_bwd_tc['launches']}; "
+          f"ssd_scan launches (phases 9, 16 and 20 (ii)): "
+          f"{ssd['launches']}")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in seconds.items()))
 

@@ -109,7 +109,9 @@ def _run(cell) -> dict:
                     windowed_adaptation=adapt, save=save)
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's options: every option of the reference's
+    ``launch/dryrun.py``, plus ``--no-save`` and ``--jobs``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
@@ -118,7 +120,11 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-save", action="store_true")
     ap.add_argument("--jobs", type=int, default=1)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     lm_archs = [a for a in list_archs() if not a.startswith("ardit")]
     cells = []

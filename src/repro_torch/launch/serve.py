@@ -54,7 +54,9 @@ import argparse
 import dataclasses
 
 
-def main() -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's options: every option of the reference's
+    ``launch/serve.py``, plus ``--arch`` and ``--device``."""
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--sim", action="store_true",
@@ -134,6 +136,11 @@ def main() -> None:
                          "(default: the reduced ardit-self-forcing)")
     ap.add_argument("--device", default="cuda",
                     help="device of the executor (default: the card)")
+    return ap
+
+
+def main() -> None:
+    ap = build_parser()
     args = ap.parse_args()
     multi = args.lanes > 1
     if multi:

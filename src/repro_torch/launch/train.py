@@ -33,7 +33,9 @@ from repro_torch.train import loop as train_loop
 from repro_torch.train import optimizer as opt
 
 
-def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
+    """The launcher's options: every option of the reference's
+    ``launch/train.py``, plus ``--device`` and ``--fixed-batch``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minicpm-2b")
     ap.add_argument("--steps", type=int, default=20)
@@ -49,7 +51,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="cuda (default) or cpu")
     ap.add_argument("--fixed-batch", action="store_true",
                     help="train every step on step 0's batch")
-    return ap.parse_args(argv)
+    return ap
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, list]:

@@ -57,6 +57,27 @@ def test_rmsnorm_and_rope():
                JL.rope(jnp.asarray(x), jnp.asarray(pos), 1e6))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_jax(dtype):
+    """fp32: allclose at 1e-6; bf16 in and out: within one bf16 ulp of
+    JAX's output (both round the same fp32 affine once)."""
+    rng = np.random.default_rng(1)
+    x = _np(rng, 3, 7, 96, scale=3.0) + 0.5
+    w, b = _np(rng, 96), _np(rng, 96)
+    got = TL.layernorm(torch.from_numpy(x).to(getattr(torch, dtype)),
+                       torch.from_numpy(w), torch.from_numpy(b), 1e-5)
+    want = JL.layernorm(jnp.asarray(x).astype(dtype), jnp.asarray(w),
+                        jnp.asarray(b), 1e-5)
+    assert got.dtype == getattr(torch, dtype)
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        ulp = np.exp2(np.floor(np.log2(np.abs(want) + 1e-30)) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+
+
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
 def test_attn_qkv_and_mlp(act):
     jcfg, tcfg = _cfgs(act=act)
