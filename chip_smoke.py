@@ -279,6 +279,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float8_e4m3fn": 1979e12,
               "torch.float32": 67e12}
+# the H100's special-function units: 16 exponentials (ex2) a clock on
+# each of its 132 SMs
+EX2_PER_CLOCK_SM, SMS = 16, 132
 
 NEG_INF = -1e30
 # paged kernel vs plain version: both accumulate in fp32 (the limits of
@@ -777,11 +780,14 @@ def phase_flash(record):
         return out, path
 
     entries, _ = ptxas_entries(build.BUILD_LOGS.get(str(ops.SOURCE), ""))
-    tc_regs = {re.search(r"ILi(\d+)E", name).group(1): regs
+    # D 96 / 128: the template's instantiations; D 64: its own kernel
+    tc_regs = {("64" if "wgmma64" in name else
+                re.search(r"ILi(\d+)E", name).group(1)): regs
                for name, regs, _ in entries if "wgmma" in name}
     print(f"  tensor-core kernel registers per thread at launch, by head "
           f"dim: {tc_regs or 'not in this build log'} (setmaxnreg then "
-          f"gives the consumer warpgroups 232, the producer 40)")
+          f"gives the consumer warpgroups 232 at D 96 / 128 and 160 at "
+          f"D 64, the producer 40 and 32)")
 
     errs = []
     B, Sq, H, D = 1, 2640, 12, 128
@@ -884,6 +890,23 @@ def visible_pairs(S, window, sink):
                 + np.clip(i - window + 1, 0, sink)).sum())
 
 
+def sm_clock_mhz():
+    """The card's maximum SM clock (``nvidia-smi --query-gpu=
+    clocks.max.sm``), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip())
+
+
+def ex2_floor_ms(n_ex2):
+    """The least time ``n_ex2`` exponentials take on the special-function
+    units: EX2_PER_CLOCK_SM a clock on each of the SMS SMs at the card's
+    maximum SM clock.  At D 64 a softmax's exponentials (one per visible
+    (query, key) pair) cost about as much as its products."""
+    return n_ex2 / (EX2_PER_CLOCK_SM * SMS * sm_clock_mhz() * 1e6) * 1e3
+
+
 def flash_prefill_shapes(gen, launch):
     """Phase 3, the token families' prefill attention at full width
     (``FLASH_PREFILL``): kernel vs plain version, each on the tensor
@@ -943,13 +966,15 @@ def flash_prefill_shapes(gen, launch):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        floor = (f"; exponential floor {ex2_floor_ms(B * Hq * pairs):.3f} "
+                 f"ms" if D == 64 else "")
         print(f"  {name}: kernel ({path}) {kernel_ms:.3f} ms, "
               f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; plain (one call) "
               f"{plain_ms:.1f} ms; SDPA {library_ms:.3f} ms ("
               f"{'memory-efficient, boolean mask' if window else 'causal'}"
               f", |d| to the kernel {lib_err:.3g}, limit {lib_limit:.3g});"
               f" bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e12:.2f} "
-              f"TFLOP over {pairs} visible pairs per head)")
+              f"TFLOP over {pairs} visible pairs per head){floor}")
         if not lib_err <= lib_limit:
             raise AssertionError(f"{name}: flash kernel disagrees with SDPA"
                                  f" ({lib_err})")
@@ -1013,7 +1038,8 @@ def flash_whisper_shapes(gen, launch):
               f"{plain_ms:.3f} ms; SDPA {library_ms:.4f} ms (|d| to the "
               f"kernel {lib_err:.3g}, limit {lib_limit:.3g}); bound "
               f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)")
+              f"{nbytes / 1e6:.2f} MB); exponential floor "
+              f"{ex2_floor_ms(B * H * Sq * Skv):.4f} ms")
         if not lib_err <= lib_limit:
             raise AssertionError(f"{name}: flash kernel disagrees with SDPA"
                                  f" ({lib_err})")

@@ -1,8 +1,8 @@
 """minicpm-2b [dense] — WSD schedule (arch=llama-like).  [arXiv:2404.06395; hf]
 
 The WSD (warmup-stable-decay) schedule this model was trained with is
-implemented in the reference's ``train/optimizer.py`` and selected by
-this config; training waits in the port (ROADMAP).
+implemented in ``repro_torch/train/optimizer.py`` and selected by this
+config.
 """
 from repro_torch.configs.base import ModelConfig, register
 

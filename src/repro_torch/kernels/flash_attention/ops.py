@@ -7,7 +7,10 @@ kernel of ``csrc/flash_mha.cu`` (built with nvcc at first use) or
 raises.  There is no fallback between the two.  ``kernel_path`` picks
 the kernel from the dtype and head dim alone: bf16 at D 64, 96 or 128
 runs on the tensor cores (wgmma fed by TMA), everything else on the CUDA
-cores.  ``flash_mha.launches`` counts kernel launches and
+cores.  At D 64 the tensor-core kernel is persistent: one block per SM
+walks items of ``FWD_TC64_BLOCK`` queries of one (b, head) in the order
+``fwd_items`` gives (``fwd_blocks`` sizes the grid).
+``flash_mha.launches`` counts kernel launches and
 ``flash_mha.launches_tc`` the tensor-core ones among them.
 
 Gradients: whenever grad mode is on and q, k or v requires grad,
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +61,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 96, 128)
 # the head dims of the tensor-core kernel (every full-width model)
 WGMMA_HEAD_DIMS = (64, 96, 128)
+# queries of one item of the D 64 tensor-core kernel: three consumer
+# warpgroups of 64 rows
+FWD_TC64_BLOCK = 192
 
 
 def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
@@ -109,8 +115,9 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
     if lib.flash_mha_launch.argtypes is None:
-        for fn in (lib.flash_mha_launch, lib.flash_mha_wgmma_launch):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
+        for fn, n_int in ((lib.flash_mha_launch, 14),
+                          (lib.flash_mha_wgmma_launch, 15)):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.flash_mha_error_string.argtypes = [ctypes.c_int]
@@ -140,6 +147,50 @@ def _bwd_tc_lib() -> ctypes.CDLL:
         lib.flash_mha_bwd_wgmma_error_string.argtypes = [ctypes.c_int]
         lib.flash_mha_bwd_wgmma_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def fwd_blocks(b: int, sq: int, hq: int, n_sm: int) -> int:
+    """Persistent blocks of the D 64 tensor-core forward: one per SM
+    (``n_sm``), never more than its items (``FWD_TC64_BLOCK`` queries of
+    one (b, head) each)."""
+    return max(1, min(b * hq * -(-sq // FWD_TC64_BLOCK), n_sm))
+
+
+def fwd_items(block: int, n_blocks: int, b: int, sq: int, hq: int,
+              causal: bool) -> List[Tuple[int, int, int]]:
+    """The (query tile, head, batch row) items that persistent block
+    ``block`` of ``n_blocks`` computes, in its order (``item_rank`` and
+    ``item_of`` in ``csrc/flash_mha.cu``).  Items are ranked and dealt in
+    snake order: round m gives block j rank m n_blocks + j (m even) or m
+    n_blocks + n_blocks - 1 - j (m odd).  Non-causal items cost the same
+    and rank with the query tile fastest, then the head, then the batch
+    row, so the items in flight share a (b, KV head)'s K/V in L2; causal
+    items rank by query tile, the last (heaviest) first, then head and
+    batch row, so each block's sum of work evens out."""
+    n_qt = -(-sq // FWD_TC64_BLOCK)
+    n_items, n_bh = b * hq * n_qt, b * hq
+    items = []
+    for m in range(-(-n_items // n_blocks)):
+        r = m * n_blocks + (n_blocks - 1 - block if m % 2 else block)
+        if r >= n_items:
+            break
+        if causal:
+            qt, hb = n_qt - 1 - r // n_bh, r % n_bh
+        else:
+            qt, hb = r % n_qt, r // n_qt
+        items.append((qt, hb % hq, hb // hq))
+    return items
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def bwd_blocks(b: int, sq: int, skv: int, hq: int, hkv: int,
@@ -211,16 +262,19 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
             lse.fill_(-float("inf"))
     lib = _lib()
     tc = kernel_path(q.dtype, d) == "wgmma"
-    launch = lib.flash_mha_wgmma_launch if tc else lib.flash_mha_launch
-    with torch.cuda.device(dev):        # the runtime launches on its device
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if keep is None else keep.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             b, sq, skv, hq, hkv, d, int(causal), q_offset, window, sink,
             block_q, block_kv, 0 if keep is None else keep.shape[1],
-            _DTYPES[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            _DTYPES[q.dtype]]
+    if tc:
+        launch = lib.flash_mha_wgmma_launch
+        args.append(fwd_blocks(b, sq, hq, _sm_count(dev)) if d == 64 else 0)
+    else:
+        launch = lib.flash_mha_launch
+    with torch.cuda.device(dev):        # the runtime launches on its device
+        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.flash_mha_error_string(err).decode()
         raise RuntimeError(f"flash_mha launch failed: {msg}")

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,6 +166,9 @@ def main() -> None:
         args.batched = True          # device lanes ride the batched path
     if args.pool_streams and not (args.real and args.batched):
         ap.error("--pool-streams only applies to --real --batched")
+    if any(a.startswith("--context-backend") for a in sys.argv[1:]) \
+            and not (args.real and args.batched):
+        ap.error("--context-backend only applies to --real --batched")
     if multi and not args.real:
         ap.error("--lanes only applies to --real")
     if args.step_cache and not (args.real and args.batched):
@@ -184,7 +188,8 @@ def main() -> None:
     from repro_torch.serve.session import (SessionConfig, StreamingSession,
                                            cap_specs, scale_specs)
 
-    n_streams = args.streams or (15 if multi else 6)
+    n_streams = (args.streams if args.streams is not None
+                 else 15 if multi else 6)
     raw = WORKLOADS[args.workload](n=n_streams, rate=args.rate,
                                    seed=args.seed)
     # multi-lane keeps the workload's length DIVERSITY (scaled into the
@@ -258,6 +263,26 @@ def main() -> None:
         print(f"  applied: migrations={res.n_migrations_applied} "
               f"sp_expands={res.n_sp_expands_applied} "
               f"sp_releases={res.n_sp_releases_applied}")
+        # lanes placed by --device alone sit on the default device, as
+        # the reference's lanes without --device-count do
+        placement = ([str(d) for d in session.lanes.lane_devices] if devices
+                     else ["default"] * args.lanes)
+        print(f"  devices: {_visible(args.device)} visible, "
+              f"lanes -> {placement}")
+        ms = res.engine.measured_stats()
+        if ms["count"]:
+            print(f"  measured moves: n={ms['count']} "
+                  f"bytes={ms['bytes']} "
+                  f"bw={ms['bytes_per_s']:.3g} B/s "
+                  f"(model {ms['bw_intra_model']:.3g} -> "
+                  f"calibrated {ms['bw_intra_calibrated']:.3g})")
+
+
+def _visible(device: str) -> int:
+    """Devices of ``device``'s kind this process sees (the host is one)."""
+    import torch
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
 
 
 def _simulate(args) -> None:

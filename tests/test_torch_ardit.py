@@ -13,6 +13,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.models import ardit as JA

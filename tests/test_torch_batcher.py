@@ -14,6 +14,9 @@ chunk; the measured maximum is printed.
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.fidelity import FidelityConfig as JFid

@@ -10,6 +10,8 @@ import shutil
 
 import pytest
 
+pytest.importorskip("torch")
+
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_matmul import ops as fp8_ops

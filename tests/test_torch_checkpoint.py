@@ -14,6 +14,9 @@ import os
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs.base import get_config as jax_get_config

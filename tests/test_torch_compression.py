@@ -23,6 +23,9 @@ are joined with a deadline of their own
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.train import compression as jc

@@ -26,6 +26,9 @@ import types
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 from hypothesis import given, settings, strategies as st
 

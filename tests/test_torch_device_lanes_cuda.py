@@ -30,6 +30,9 @@ import dataclasses
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 pytestmark = pytest.mark.cuda

@@ -14,6 +14,9 @@ cards than its mesh needs.  This file imports no JAX::
         tests/test_torch_dist_cuda.py
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from test_torch_dist_train import (SERVE_ARCHS, check, one_rank_checkpoint,

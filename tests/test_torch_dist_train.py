@@ -29,6 +29,9 @@ import json
 import time
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp

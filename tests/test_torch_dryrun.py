@@ -7,6 +7,10 @@ no process group left behind.  Its 8 KV heads do not divide over the 16
 ``model`` ranks, so heads are replicated (counted).
 """
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
 import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, get_config

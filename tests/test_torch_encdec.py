@@ -19,6 +19,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs.base import get_config as jax_get_config

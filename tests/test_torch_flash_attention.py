@@ -12,6 +12,9 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.flash_attention.kernel import flash_mha_pallas
@@ -172,3 +175,58 @@ def test_wrapper_rejects_modes_without_a_plain_twin(kw, match):
     q, k, v = _t(*_qkv(1, 192, 192, 2, 2, 16))
     with pytest.raises(ValueError, match=match):
         ops.flash_mha(q, k, v, n_kv_heads=2, **kw)
+
+
+# the D 64 tensor-core forward's persistent schedule (the kernel's
+# item_of): whisper-medium's encoder, prefill cross-attention and decode
+# step, granite-moe's causal prefill, minicpm-2b's training attention, and
+# ragged small shapes, on the H100's 132 SMs and on fewer
+FWD_SCHEDULES = [(2, 1500, 16, False), (2, 32768, 16, False),
+                 (2, 1, 16, False), (2, 32768, 16, True), (2, 4096, 36, True),
+                 (1, 193, 3, True), (3, 7, 5, False)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("b,sq,hq,causal", FWD_SCHEDULES)
+def test_fwd_items_cover_every_tile_once(b, sq, hq, causal, n_sm):
+    n_qt = -(-sq // ops.FWD_TC64_BLOCK)
+    n_blocks = ops.fwd_blocks(b, sq, hq, n_sm)
+    assert n_blocks == min(b * hq * n_qt, n_sm)
+    items = [ops.fwd_items(blk, n_blocks, b, sq, hq, causal)
+             for blk in range(n_blocks)]
+    flat = [it for per_block in items for it in per_block]
+    assert sorted(flat) == sorted((qt, h, bb) for qt in range(n_qt)
+                                  for h in range(hq) for bb in range(b))
+    # every block has work, and no block more than one item above another
+    counts = [len(per_block) for per_block in items]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    if causal:
+        # heaviest first in every block, and the blocks' sums of work
+        # (query tiles' key spans) within one item's of each other
+        sums = [sum(qt + 1 for qt, _, _ in per_block) for per_block in items]
+        assert max(sums) - min(sums) <= n_qt
+        for per_block in items:
+            assert [qt for qt, _, _ in per_block] == sorted(
+                (qt for qt, _, _ in per_block), reverse=True)
+    else:
+        # the first round: neighbouring blocks take neighbouring query
+        # tiles of one (b, head)
+        firsts = [per_block[0] for per_block in items]
+        assert firsts[:min(n_qt, n_blocks)] == [
+            (qt, 0, 0) for qt in range(min(n_qt, n_blocks))]
+
+
+def test_fwd_blocks_at_the_models_shapes():
+    # whisper-medium (16 heads of 64, B 2): the encoder's 8 query tiles x
+    # 32 (b, head) fill the 132 SMs, a decode step has one item a head
+    assert ops.FWD_TC64_BLOCK == 192
+    assert ops.fwd_blocks(2, 1500, 16, 132) == 132
+    assert ops.fwd_blocks(2, 32768, 16, 132) == 132
+    assert ops.fwd_blocks(2, 1, 16, 132) == 32
+    assert ops.fwd_blocks(1, 1, 1, 132) == 1
+    # 5,472 items: 41 rounds, and the 42nd (odd, dealt from the last
+    # block down) reaches blocks 72-131
+    assert len(ops.fwd_items(0, 132, 2, 32768, 16, False)) == 41
+    assert len(ops.fwd_items(71, 132, 2, 32768, 16, False)) == 41
+    assert len(ops.fwd_items(72, 132, 2, 32768, 16, False)) == 42
+    assert len(ops.fwd_items(131, 132, 2, 32768, 16, False)) == 42

@@ -14,6 +14,9 @@ generator.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.fp8_matmul.kernel import fp8_matmul_pallas

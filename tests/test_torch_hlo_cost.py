@@ -14,6 +14,10 @@ reference reads optimized HLO.
   first use only, then cached) are not counted, so the count does not
   depend on call order.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Replicate, Shard

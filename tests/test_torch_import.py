@@ -10,6 +10,9 @@ import sys
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]

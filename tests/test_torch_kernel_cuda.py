@@ -125,6 +125,9 @@ signature (a mean over 1e7 values) and the delta within 1e-5 relative
 import math
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.nn.functional as F
 
@@ -339,6 +342,59 @@ def test_flash_tensor_core_kernel_at_ragged_lengths(card, lengths, D):
     assert err <= flash_limit(want), (lengths, D, err)
     if causal and Sq > Skv:                 # the first rows see nothing
         assert float(got[:, :Sq - Skv].float().abs().max()) == 0.0
+
+
+# the D 64 tensor-core kernel (persistent blocks of 192 queries) in every
+# mode the wrapper takes: name -> (B, Sq, Skv, Hq, Hkv, keyword args)
+FLASH_D64_MODES = {
+    "non-causal-1500x1500": (2, 1500, 1500, 4, 4, dict(causal=False)),
+    "non-causal-sq1": (2, 1, 1500, 4, 4, dict(causal=False)),
+    "non-causal-193x77": (1, 193, 77, 2, 2, dict(causal=False)),
+    "causal-gqa4-q-offset": (2, 768, 1536, 8, 2, dict(q_offset=700)),
+    "causal-1152": (1, 1152, 1152, 4, 4, dict()),
+    "sink-window": (1, 1024, 1024, 4, 4, dict(window=256, sink=77)),
+    "sink-window-skipped-tiles": (1, 64, 1500, 2, 2,
+                                  dict(window=100, sink=16, q_offset=1436)),
+    "rho": (1, 1920, 1920, 4, 4, dict(sparsity=0.7, block_q=96,
+                                      block_kv=160)),
+    "rows-see-nothing": (2, 32, 32, 2, 2, dict(q_offset=-8)),
+    # more items than SMs: each block walks several, rings and Q buffers
+    # wrap around
+    "many-items": (2, 3000, 700, 16, 16, dict(causal=False)),
+}
+
+
+@pytest.mark.parametrize("mode", list(FLASH_D64_MODES))
+def test_flash_d64_kernel_matches_plain_version(card, mode):
+    """At D 64 in bf16: the output within 2 bf16 ulps of the plain
+    version's, the lse (the forward the backward reads) within 2e-4 of
+    the plain version's and -inf exactly where it is, two calls bit for
+    bit, each one launch on the tensor cores."""
+    B, Sq, Skv, Hq, Hkv, kw = FLASH_D64_MODES[mode]
+    g = torch.Generator(device=card).manual_seed(Sq + 64)
+    q = torch.randn((B, Sq, Hq, 64), generator=g, device=card).bfloat16()
+    k = torch.randn((B, Skv, Hkv, 64), generator=g, device=card).bfloat16()
+    v = torch.randn((B, Skv, Hkv, 64), generator=g, device=card).bfloat16()
+    m = _bwd_mode(Sq, Skv, Hkv, kw)
+    assert fops.kernel_path(torch.bfloat16, 64) == "wgmma"
+    before = fops.flash_mha.launches, fops.flash_mha.launches_tc
+    out, lse = fops._launch(q, k, v, Hkv, m["causal"], m["q_offset"],
+                            m["window"], m["sink"], m["sparsity"],
+                            m["block_q"], m["block_kv"], with_lse=True)
+    again = fops.flash_mha(q, k, v, **m)
+    torch.cuda.synchronize()
+    assert (fops.flash_mha.launches,
+            fops.flash_mha.launches_tc) == (before[0] + 2, before[1] + 2)
+    want, lse0 = fref.flash_mha_ref(q, k, v, return_lse=True, **m)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= flash_limit(want), (mode, err)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse0))
+    fin = torch.isfinite(lse0)
+    if fin.any():
+        assert float((lse - lse0)[fin].abs().max()) <= 2e-4
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    if mode == "rows-see-nothing":
+        assert float(out[:, :8].float().abs().max()) == 0.0
 
 
 def test_mha_dispatches_to_the_flash_kernel(card):

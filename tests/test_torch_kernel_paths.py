@@ -26,6 +26,9 @@ views to the CUDA-core passes; any other (P, N) is refused.
 All decide from the inputs alone.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.configs.ardit_causal_forcing import CONFIG as CAUSAL

@@ -7,6 +7,9 @@ where torch alone saturates to 448).  All comparisons are exact.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.models import kvcache as JK

@@ -35,6 +35,9 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.configs.base import get_config

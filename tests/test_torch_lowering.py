@@ -26,6 +26,9 @@ import dataclasses
 import jax
 import pytest
 from jax.sharding import AxisType
+
+pytest.importorskip("torch")
+
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro.configs.base import SHAPES as JSHAPES

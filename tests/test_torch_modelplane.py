@@ -18,6 +18,9 @@ import random
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs.base import get_config as jget_config

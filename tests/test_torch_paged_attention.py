@@ -17,6 +17,9 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.paged_attention.kernel import paged_chunk_attention_pallas

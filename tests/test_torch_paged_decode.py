@@ -18,6 +18,9 @@ and softmax (the measured maximum is printed).
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.paged_attention.kernel import \

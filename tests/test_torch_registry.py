@@ -21,6 +21,9 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs import base as JB

@@ -25,6 +25,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.configs.base import get_config

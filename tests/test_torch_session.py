@@ -10,6 +10,9 @@ measured maximum printed.
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.bmpr import StaticFidelity as JStatic

@@ -31,6 +31,9 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.multiprocessing as mp
 from jax.sharding import AbstractMesh, NamedSharding

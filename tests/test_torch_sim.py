@@ -21,6 +21,9 @@ import math
 import sys
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.launch import serve as jserve

@@ -23,6 +23,9 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.ssd_scan.kernel import ssd_pallas

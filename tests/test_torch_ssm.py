@@ -22,6 +22,9 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.nn.functional as F
 

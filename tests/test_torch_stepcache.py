@@ -22,6 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.bmpr import StaticFidelity as JStatic

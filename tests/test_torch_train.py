@@ -35,6 +35,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs.base import ShapeConfig as JShapeConfig
