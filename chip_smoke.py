@@ -380,6 +380,8 @@ FLASH_PREFILL = {
         (2, 32768, 16, 8, 64, 0, 0),
     "minitron-8b causal, GQA 4, heads of 128":
         (2, 32768, 32, 8, 128, 0, 0),
+    "internvl2-26b causal, GQA 6, heads of 128":
+        (1, 8192, 48, 8, 128, 0, 0),
     "jamba-v0.1-52b sink 128 + window 8192, heads of 128":
         (2, 32768, 32, 8, 128, 8192, 128),
 }
@@ -488,11 +490,13 @@ def sync():
 
 
 def reset_counts(counters):
-    """Sets every launch count (and tensor-core launch count) to 0."""
+    """Sets every launch count (and tensor-core launch count, and kernel
+    3's count of its D 128 causal instance) to 0."""
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "launches_tc"):
-            fn.launches_tc = 0
+        for name in ("launches_tc", "launches_d128_causal"):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
 
 
 def ptxas_entries(log):
@@ -780,8 +784,10 @@ def phase_flash(record):
         return out, path
 
     entries, _ = ptxas_entries(build.BUILD_LOGS.get(str(ops.SOURCE), ""))
-    # D 96 / 128: the template's instantiations; D 64: its own kernel
-    tc_regs = {("64" if "wgmma64" in name else
+    # D 96 / 128: the template's instantiations; D 64 and D 128 causal:
+    # kernels of their own
+    tc_regs = {("64" if "wgmma64" in name else "128 causal"
+                if "wgmma128" in name else
                 re.search(r"ILi(\d+)E", name).group(1)): regs
                for name, regs, _ in entries if "wgmma" in name}
     print(f"  tensor-core kernel registers per thread at launch, by head "
@@ -923,9 +929,16 @@ def flash_prefill_shapes(gen, launch):
                    for h in (Hq, Hkv, Hkv))
         kw = dict(n_kv_heads=Hkv, causal=True, window=window, sink=sink,
                   block_q=512, block_kv=512)
+        # the plain causal calls at D 128 (3c, 3h) take the causal instance
+        inst = ops.fwd_instance(q.dtype, D, True, window, sink, 0.0)
+        before = ops.flash_mha.launches_d128_causal
         out, path = launch(q, k, v, **kw)
         if path != "wgmma":
             raise AssertionError(f"{name}: on {path}, not the tensor cores")
+        took = ops.flash_mha.launches_d128_causal - before
+        if took != int(D == 128 and not window and not sink):
+            raise AssertionError(f"{name}: {took} launches of the D 128 "
+                                 f"causal instance ({inst})")
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -968,7 +981,7 @@ def flash_prefill_shapes(gen, launch):
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         floor = (f"; exponential floor {ex2_floor_ms(B * Hq * pairs):.3f} "
                  f"ms" if D == 64 else "")
-        print(f"  {name}: kernel ({path}) {kernel_ms:.3f} ms, "
+        print(f"  {name}: kernel ({path}, {inst}) {kernel_ms:.3f} ms, "
               f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; plain (one call) "
               f"{plain_ms:.1f} ms; SDPA {library_ms:.3f} ms ("
               f"{'memory-efficient, boolean mask' if window else 'causal'}"

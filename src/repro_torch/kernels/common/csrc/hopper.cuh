@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tiled loads and stores, wgmma shared-memory descriptors and the
+// mbarriers, clusters (ranks, barriers, remote arrivals and stores), TMA
+// tiled loads (also multicast to a cluster's blocks) and stores, wgmma
+// shared-memory descriptors and the
 // wgmma.mma_async shapes the kernels use, e4m3 tiles widened to bf16 in
 // the swizzled layout wgmma reads, ldmatrix / movmatrix / mma.sync for
 // warp-level products, named barriers, register re-allocation between
@@ -84,6 +86,78 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- clusters -------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits for the
+// others (release / acquire at cluster scope): after the barriers are
+// initialised, and before a block whose shared memory the others write
+// or arrive on may exit
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p`'s offset in block `cta` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_u32(p)), "r"(cta));
+  return r;
+}
+
+// one arrival on the barrier at `bar`'s offset in block `cta`, a signal
+// only (release at CTA scope, as for a local arrival): enough where what it
+// releases is shared memory that this thread's wgmmas have finished
+// reading; far cheaper than the cluster-scope release below
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar,
+                                                   uint32_t cta) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(cluster_addr(bar, cta)) : "memory");
+}
+
+// one arrival on the barrier at `bar`'s offset in block `cta` (release at
+// cluster scope: what this thread wrote before, st_cluster included, is
+// visible to its waiters in mbar_wait_cluster)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(cluster_addr(bar, cta)) : "memory");
+}
+
+// v at `p`'s offset in block `cta`'s shared memory
+__device__ __forceinline__ void st_cluster(int* p, int v, uint32_t cta) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n"
+               :: "r"(cluster_addr(p, cta)), "r"(v) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what another block of the
+// cluster wrote before arriving (mbar_arrive_cluster) is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -112,6 +186,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_load_4d into the shared memory of every block of the cluster in
+// `mask` (bit i: block i), at dst's offset in each, the completion counted
+// on the barrier at bar's offset in each
+__device__ __forceinline__ void tma_load_4d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+    int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "h"(mask)
       : "memory");
 }
 

@@ -28,10 +28,11 @@
 // sees nothing), when given an lse buffer; flash_mha_bwd.cu recomputes
 // P from it.  Serving passes null and launches exactly as before.
 //
-// Three kernels; the wrapper picks one by dtype and head dim.
+// Four kernels; the wrapper picks one by dtype, head dim and mode
+// (ops.fwd_instance).
 //
-// bf16 at D = 96 or 128: flash_mha_wgmma, on
-// the tensor cores.  A block owns 128 queries of one (b, head): a producer
+// bf16 at D = 96, and at D = 128 in every mode but the plain causal one:
+// flash_mha_wgmma, on the tensor cores.  A block owns 128 queries of one (b, head): a producer
 // warpgroup, of which one thread issues TMA, and two consumer warpgroups
 // of 64 query rows each (setmaxnreg moves the producer's registers to
 // them).  Q arrives once by TMA and stays in shared memory as wgmma's A
@@ -99,6 +100,46 @@
 //     end is masked; causal: the diagonal too; window, sink or rho: the
 //     general mask and the producer's skipping of dead tiles), so a call
 //     carries no other mode's mask code and its registers.
+//
+// bf16 at D = 128, causal without window, sink or rho (minitron-8b's and
+// internvl2-26b's prefill): flash_mha_wgmma128, the D 64 design carried
+// to D 128 where the card's resources allow, changed where the H100 said
+// otherwise (PERF.md, the ablations at row 3c):
+//   * two consumer warpgroups of 64 rows (items of 128 queries), not
+//     three: each thread keeps O (64 fp32), S (64 fp32) and P (32 bf16
+//     pairs) live, more than three warpgroups' 160 registers hold;
+//     setmaxnreg gives them 232, the producer 40;
+//   * persistent blocks, one an SM, take items as they come free from an
+//     atomic counter (the wrapper zeroes it), in the order of ops.fwd_item:
+//     by (batch row, KV head), then query tile, heaviest first, then head,
+//     so the items in flight read one or two K/V prefixes in L2 and the
+//     last items are the lightest;
+//   * where the KV group's size is even, a cluster of two blocks takes two
+//     heads of one group at one query tile, whose K/V tiles are the same:
+//     each block loads one 64-column box of a tile and multicasts it into
+//     both, so L2 sends each K/V byte to two SMs (the K/V stages' empty
+//     barriers count both blocks' consumers; block 0 fetches the items);
+//   * only the diagonal, the key axis' end and rows past Sq are masked (a
+//     tile strictly below the diagonal takes no test), the producer walks
+//     keys [0, q_offset + the item's last row], O is rescaled only when
+//     a warp's row maxima moved, before the P V that adds to it is issued;
+//     the softmax follows the mask branch's join (one softmax in each
+//     branch, as at D 64, was slower here);
+//   * K and V have rings of their own, 2 and 3 stages: K is released once
+//     S has read it, V only once P V has, a tile later, so V's ring is
+//     the deeper; the producer loads K a tile ahead of V, and an item's
+//     first K before its Q; Q is released after the item's last S, so the
+//     next item's Q loads during its last softmax;
+//   * the output leaves through a staging tile per warpgroup and TMA
+//     stores that run while the next item starts.
+// Shared memory is the constraint (232,448 bytes a block): the general
+// kernel's 1 KB + Q 32 KB + 3 stages of K and V (192 KB) leave no room
+// for staging.  Here:
+//   Q (32 KB) + output staging (2 x 16 KB) + K ring (2 x 32 KB) + V ring
+//   (3 x 32 KB) = 224 KB, + 1 KB for alignment + 256 bytes of barriers
+//   and slots = 230,656 bytes
+// (3 K and 2 V stages were 1% slower; a second Q buffer with 2 + 2
+// stages, and 3 + 3 with O stored from registers, slower still).
 //
 // fp32 (the reduced configs), and bf16 at D = 16: flash_mha_kernel, the
 // first port, on the CUDA cores.  A block owns 64 queries of one head
@@ -1319,6 +1360,500 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
 
 }  // namespace d64
 
+
+// ---- bf16 at D = 128, causal without window, sink or rho: persistent ----
+
+namespace d128 {
+
+using d64::advance_ring;
+using d64::mask_causal;
+using d64::pack_p;
+using d64::softmax;
+
+constexpr int WGS = 2;                 // consumer warpgroups, 64 rows each
+constexpr int BM = 64 * WGS;           // queries per item
+constexpr int THREADS = 128 * (WGS + 1);
+constexpr int NB = 2;                  // 64-column boxes of a row
+constexpr int Q_BYTES = BM * NB * ROW;
+constexpr int KV_BYTES = BN * NB * ROW;   // K or V of one tile
+constexpr int O_BYTES = 64 * NB * ROW;    // a warpgroup's staged output
+constexpr int Q_BUFS = 1;              // 2: the next item's Q loads early
+constexpr int K_STAGES = 2, V_STAGES = 3;
+constexpr int NS = BN / 2;             // S values per thread (m64n128)
+constexpr int NO = 64;                 // O values per thread (m64n128)
+constexpr int TURN_BAR = 1;            // named barriers 1..2: turns
+constexpr int STORE_BAR = 1 + WGS;     // 3..4: a warpgroup's staging
+// the Q buffers, the output staging, the K and V rings; barriers and slots
+constexpr size_t SMEM_BYTES = 1024 + Q_BUFS * Q_BYTES + WGS * O_BYTES +
+                              (K_STAGES + V_STAGES) * KV_BYTES + 256;
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory on the H100");
+
+// Rank r's (query tile, head, batch row) for blocks of PER heads (PER = 2:
+// a cluster's pair of blocks, head h and h + 1 of one KV group; the block
+// adds its rank in the cluster to h): ranked by (batch row, KV head), then
+// query tile, heaviest first, then the heads within the KV group, so the
+// items in flight read one or two K/V prefixes (ops.fwd_item mirrors it
+// at PER = 1; PER = 2 takes its ranks two by two)
+template <int PER>
+__device__ __forceinline__ void item_of(int r, int n_qt, const Params& p,
+                                        int& qt, int& h, int& b) {
+  const int G = p.Hq / p.Hkv, t = r / (G / PER), bhk = t / n_qt;
+  qt = n_qt - 1 - t % n_qt;
+  h = (bhk % p.Hkv) * G + PER * (r % (G / PER));
+  b = bhk / p.Hkv;
+}
+
+// S = Q K^T over D 128 in k16 steps: box kk / 4, 32 bytes a step inside it
+__device__ __forceinline__ void qk(float (&s)[NS], const uint8_t* q_wg,
+                                   const uint8_t* sk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int off = (kk % 4) * 32;
+    wgmma_m64n128k16_ss_bf16(
+        s, desc_sw128(q_wg + (kk / 4) * BM * ROW + off, 16, 1024),
+        desc_sw128(sk + (kk / 4) * BN * ROW + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O (+)= P V over a tile's keys in k16 steps; scale0 = 0 overwrites O
+__device__ __forceinline__ void pv(float (&o)[NO],
+                                   const uint32_t (&pa)[BN / 16][4],
+                                   const uint8_t* sv, int scale0) {
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < BN / 16; ++t)
+    wgmma_m64n128k16_rs_bf16_tb(
+        o, pa[t], desc_sw128(sv + t * 16 * ROW, BN * ROW, 1024),
+        t == 0 ? scale0 : 1);
+  wgmma_commit();
+}
+
+// The tile's causal mask where it crosses the diagonal or the key axis'
+// end, then the online softmax after the join (at D 128 faster than a
+// softmax in each branch, which doubles the loop's code)
+template <bool FIRST>
+__device__ __forceinline__ bool mask_then_softmax(
+    float (&s)[NS], const Params& p, int first, int row0, int col0, int t0,
+    float (&m)[2], float (&l)[2], float (&alpha)[2], float scale_log2) {
+  if (t0 + BN > p.Skv || t0 + BN - 1 > p.q_offset + first)
+    mask_causal(s, p, row0, col0, t0);
+  return softmax<FIRST>(s, m, l, alpha, scale_log2);
+}
+
+// O *= alpha row by row, where one of the warp's row maxima moved (a
+// warp-uniform test: no wgmma sits under it); O is not in flight
+__device__ __forceinline__ void rescale(float (&o)[NO], const float (&alpha)[2],
+                                        bool row_moved) {
+  if (__any_sync(0xffffffffu, row_moved)) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c) o[c] *= alpha[(c >> 1) & 1];
+  }
+}
+
+// A warp is done with a K or V stage: its arrival on the stage's empty
+// barrier, and with PAIR on the other block's too (whose producer writes
+// the stage's other half into this block)
+template <bool PAIR>
+__device__ __forceinline__ void release_kv(uint64_t* empty, int stage,
+                                           int lane, uint32_t peer) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(&empty[stage]);
+    if (PAIR) mbar_arrive_remote(&empty[stage], peer);
+  }
+}
+
+// O / l in bf16 into the warpgroup's two staging boxes `so_wg` in the
+// 128-byte swizzle (their previous store has read them), then two TMA
+// stores of the 64 rows from `first` (rows past Sq are not written); rows
+// that see nothing give 0 (lse -inf).  l arrives as each lane's share of
+// its row sums; m is in the log2 domain, lse in the natural one.
+__device__ __forceinline__ void store_rows(
+    const Params& p, const CUtensorMap* to, float* __restrict__ lse,
+    const float (&o)[NO], const float (&m)[2], float (&l)[2],
+    uint8_t* so_wg, int cw, int first, int h, int b) {
+  const int tw = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int lr0 = 16 * (tw / 32) + lane / 4, col0 = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {             // the row sums over its 4 lanes
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  named_sync(STORE_BAR + cw, 128);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = lr0 + 8 * r, i = first + lr;
+    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+    uint8_t* dst = so_wg + lr * ROW + col0 * 2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)           // columns 8 j..: box j / 8
+      *reinterpret_cast<uint32_t*>(dst + (j / 8) * 64 * ROW +
+                                   (((j % 8) ^ (lr & 7)) << 4)) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lse != nullptr && lane % 4 == 0 && i < p.Sq)
+      lse[(static_cast<int64_t>(b) * p.Hq + h) * p.Sq + i] =
+          l[r] == 0.f ? -INFINITY : (m[r] + log2f(l[r])) / LOG2E;
+  }
+  fence_proxy_async();
+  named_sync(STORE_BAR + cw, 128);
+  if (tw == 0 && first < p.Sq) {
+    tma_store_4d(to, so_wg, 0, h, first, b);
+    tma_store_4d(to, so_wg + 64 * ROW, 64, h, first, b);
+    bulk_commit();
+  }
+}
+
+// The shared memory's barriers and slots
+struct Bars {
+  uint64_t *kfull, *kempty, *vfull, *vempty, *qfull, *qempty;
+  uint64_t *rfull, *rempty;     // PAIR: the cluster's next rank
+  volatile int* slot;           // a K stage's tile: 2 t0 + (last tile of
+                                // its item), or -1: the item has none
+  volatile int* item_slot;      // a Q buffer's item rank, -1: no more
+  int* rank_slot;               // PAIR: the rank block 0 fetched
+};
+
+template <bool PAIR>
+__device__ __forceinline__ void consume(
+    const Params& p, const CUtensorMap* to, float* __restrict__ lse,
+    const uint8_t* sq, const uint8_t* sk, const uint8_t* sv, uint8_t* so,
+    const Bars& bar, int n_qt, uint32_t cta) {
+  const int cw = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);
+  const int lr0 = 16 * (tw / 32) + lane / 4;  // rows lr0, lr0 + 8 of 64
+  const float scale_log2 = p.scale * LOG2E;
+  const int turn = TURN_BAR + cw, next_turn = TURN_BAR + (cw + 1) % WGS;
+  const uint32_t peer = cta ^ 1;
+  uint8_t* so_wg = so + cw * O_BYTES;
+
+  float o[NO], s[NS];
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) o[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < NS; ++c) s[c] = 0.f;
+
+  // The warpgroups take turns at issuing their products, 0, 1, 0, ...
+  // across tiles and items; warpgroup 1's arrival opens 0's first turn.
+  if (cw == WGS - 1) named_arrive(TURN_BAR, 256);
+  int ks = 0, vs = 0;
+  uint32_t kph = 0, vph = 0;
+  for (int k = 0;; ++k) {
+    const int qb = k % Q_BUFS;
+    mbar_wait(&bar.qfull[qb], (k / Q_BUFS) & 1);
+    const int r = bar.item_slot[qb];         // the item's rank; -1: done
+    if (r < 0) break;
+    int qt, h, b;
+    item_of<PAIR ? 2 : 1>(r, n_qt, p, qt, h, b);
+    h += cta;
+    const int first = qt * BM + 64 * cw;     // the warpgroup's first row
+    const int row0 = first + lr0;
+    const uint8_t* q_wg = sq + qb * Q_BYTES + 64 * cw * ROW;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    mbar_wait(&bar.kfull[ks], kph);
+    int info = bar.slot[ks];
+    // Q is released once the item's last S has read it, so that the next
+    // item's Q loads during this one's last softmax, P V and store
+    if (info < 0) {                          // no visible tile: O = 0
+      release_kv<PAIR>(bar.kempty, ks, lane, peer);
+      advance_ring<K_STAGES>(ks, kph);
+      release(bar.qempty, qb, lane);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) o[c] = 0.f;
+    } else {
+      // the first tile: S only
+      int t0 = info >> 1;
+      bool last = info & 1;
+      named_sync(turn, 256);
+      qk(s, q_wg, sk + ks * KV_BYTES);
+      named_arrive(next_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release_kv<PAIR>(bar.kempty, ks, lane, peer);
+      advance_ring<K_STAGES>(ks, kph);
+      if (last) release(bar.qempty, qb, lane);
+      bool moved = mask_then_softmax<true>(s, p, first, row0, col0, t0, m,
+                                           l, alpha, scale_log2);
+      pack_p(pa, s);
+      int scale0 = 0;                        // the first P V overwrites O
+      while (!last) {
+        mbar_wait(&bar.kfull[ks], kph);
+        info = bar.slot[ks];
+        t0 = info >> 1;
+        last = info & 1;
+        mbar_wait(&bar.vfull[vs], vph);      // the previous tile's V
+        named_sync(turn, 256);
+        qk(s, q_wg, sk + ks * KV_BYTES);
+        // O to the previous tile's maximum, then the previous tile's
+        // O += P V, which runs during this tile's softmax
+        rescale(o, alpha, moved);
+        pv(o, pa, sv + vs * KV_BYTES, scale0);
+        named_arrive(next_turn, 256);
+        wgmma_wait<1>();
+        fence_regs(s);
+        release_kv<PAIR>(bar.kempty, ks, lane, peer);
+        advance_ring<K_STAGES>(ks, kph);
+        if (last) release(bar.qempty, qb, lane);
+        moved = mask_then_softmax<false>(s, p, first, row0, col0, t0, m, l,
+                                         alpha, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(o);
+        release_kv<PAIR>(bar.vempty, vs, lane, peer);
+        advance_ring<V_STAGES>(vs, vph);
+        pack_p(pa, s);
+        scale0 = 1;
+      }
+      // the last tile's P V
+      mbar_wait(&bar.vfull[vs], vph);
+      named_sync(turn, 256);
+      rescale(o, alpha, moved);
+      pv(o, pa, sv + vs * KV_BYTES, scale0);
+      named_arrive(next_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release_kv<PAIR>(bar.vempty, vs, lane, peer);
+      advance_ring<V_STAGES>(vs, vph);
+    }
+    if (tw == 0) bulk_wait_read();          // the last store has read so_wg
+    store_rows(p, to, lse, o, m, l, so_wg, cw, first, h, b);
+  }
+  if (cw == 0) named_sync(TURN_BAR, 256);  // the last one's turn
+  if (tw == 0) bulk_wait_all();
+}
+
+// The next item's rank from the counter the wrapper zeroes, so that a
+// block that finishes early takes more.  PAIR: block 0 of the cluster
+// fetches it and stores it into both blocks' rank slot (once both have
+// read the last one); each block's producer reads its own.
+template <bool PAIR>
+__device__ __forceinline__ int fetch(int* sched, const Bars& bar, int k,
+                                     uint32_t cta) {
+  if (!PAIR) return atomicAdd(sched, 1);
+  if (cta == 0) {
+    const int r = atomicAdd(sched, 1);
+    mbar_wait(bar.rempty, (k & 1) ^ 1);
+    *bar.rank_slot = r;
+    st_cluster(bar.rank_slot, r, 1);
+    mbar_arrive(bar.rfull);
+    mbar_arrive_cluster(bar.rfull, 1);
+  }
+  mbar_wait_cluster(bar.rfull, k & 1);
+  const int r = *reinterpret_cast<volatile int*>(bar.rank_slot);
+  if (cta == 0) {
+    mbar_arrive(bar.rempty);
+  } else {
+    mbar_arrive_cluster(bar.rempty, 0);
+  }
+  return r;
+}
+
+// PAIR: a cluster of two blocks takes heads h and h + 1 of one KV group at
+// one query tile, whose K/V tiles are the same: each block loads one of a
+// tile's two 64-column boxes and multicasts it into both, so that L2 sends
+// each K/V byte to two SMs at once.  The K and V stages' empty barriers
+// count both blocks' consumer warps.
+template <bool PAIR>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to,
+                          float* __restrict__ lse, int* __restrict__ sched,
+                          Params p, int n_qt, int n_ranks) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* so = sq + Q_BUFS * Q_BYTES;
+  uint8_t* sk = so + WGS * O_BYTES;
+  uint8_t* sv = sk + K_STAGES * KV_BYTES;
+  Bars bar;
+  bar.kfull = reinterpret_cast<uint64_t*>(sv + V_STAGES * KV_BYTES);
+  bar.kempty = bar.kfull + K_STAGES;
+  bar.vfull = bar.kempty + K_STAGES;
+  bar.vempty = bar.vfull + V_STAGES;
+  bar.qfull = bar.vempty + V_STAGES;
+  bar.qempty = bar.qfull + Q_BUFS;
+  bar.rfull = bar.qempty + Q_BUFS;
+  bar.rempty = bar.rfull + 1;
+  bar.slot = reinterpret_cast<volatile int*>(bar.rempty + 1);
+  bar.item_slot = bar.slot + K_STAGES;
+  bar.rank_slot = const_cast<int*>(bar.item_slot + Q_BUFS);
+  const uint32_t cta = PAIR ? cluster_ctarank() : 0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < K_STAGES; ++st) {
+      mbar_init(&bar.kfull[st], 1);
+      mbar_init(&bar.kempty[st], 4 * WGS * (PAIR ? 2 : 1));
+    }
+    for (int st = 0; st < V_STAGES; ++st) {
+      mbar_init(&bar.vfull[st], 1);
+      mbar_init(&bar.vempty[st], 4 * WGS * (PAIR ? 2 : 1));
+    }
+    for (int st = 0; st < Q_BUFS; ++st) {
+      mbar_init(&bar.qfull[st], 1);
+      mbar_init(&bar.qempty[st], 4 * WGS);
+    }
+    mbar_init(bar.rfull, 1);
+    mbar_init(bar.rempty, 2);
+    mbar_fence_init();
+  }
+  // the other block's barriers are ready before any arrival on them
+  if constexpr (PAIR) cluster_sync(); else __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread fetches the items and issues every
+    // load, each item's keys [0, q_offset + its last row] in order, a
+    // tile's K one tile ahead of its V (K is released after S, V only
+    // after P V), the item's first K before its Q (a K stage frees up
+    // before the Q buffer does)
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      tma_prefetch(&to);
+      int ks = 0, vs = 0;
+      uint32_t kph = 0, vph = 0;
+      // PAIR: this block's box of each K / V tile, multicast to both
+      const int box0 = PAIR ? static_cast<int>(cta) : 0;
+      const int n_box = PAIR ? 1 : NB;
+      for (int k = 0;; ++k) {
+        const int r = fetch<PAIR>(sched, bar, k, cta);
+        const int qb = k % Q_BUFS;
+        if (r >= n_ranks) {
+          mbar_wait(&bar.qempty[qb], ((k / Q_BUFS) & 1) ^ 1);
+          bar.item_slot[qb] = -1;
+          mbar_arrive(&bar.qfull[qb]);
+          break;
+        }
+        int qt, h, b;
+        item_of<PAIR ? 2 : 1>(r, n_qt, p, qt, h, b);
+        h += cta;
+        const int i0 = qt * BM, hk = h / (p.Hq / p.Hkv);
+        const int kv_end = min(p.Skv, p.q_offset + min(i0 + BM, p.Sq));
+        const int n_t = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+        for (int t = 0; t <= n_t; ++t) {
+          if (t < n_t || n_t == 0) {
+            // K of tile t, or one slot of -1 for an item with no tile
+            mbar_wait(&bar.kempty[ks], kph ^ 1);
+            uint8_t* dst = sk + ks * KV_BYTES;
+            if (n_t == 0) {
+              bar.slot[ks] = -1;
+              mbar_arrive(&bar.kfull[ks]);
+            } else {
+              bar.slot[ks] = 2 * t * BN + (t == n_t - 1);
+              mbar_arrive_expect_tx(&bar.kfull[ks], KV_BYTES);
+              for (int x = box0; x < box0 + n_box; ++x) {
+                if (PAIR)
+                  tma_load_4d_multicast(dst + x * BN * ROW, &tk,
+                                        &bar.kfull[ks], 64 * x, hk, t * BN,
+                                        b, 0x3);
+                else
+                  tma_load_4d(dst + x * BN * ROW, &tk, &bar.kfull[ks],
+                              64 * x, hk, t * BN, b);
+              }
+            }
+            advance_ring<K_STAGES>(ks, kph);
+          }
+          if (t == 0) {
+            uint8_t* sqb = sq + qb * Q_BYTES;
+            mbar_wait(&bar.qempty[qb], ((k / Q_BUFS) & 1) ^ 1);
+            bar.item_slot[qb] = r;
+            mbar_arrive_expect_tx(&bar.qfull[qb], Q_BYTES);
+            tma_load_4d(sqb, &tq, &bar.qfull[qb], 0, h, i0, b);
+            tma_load_4d(sqb + BM * ROW, &tq, &bar.qfull[qb], 64, h, i0, b);
+          } else {
+            mbar_wait(&bar.vempty[vs], vph ^ 1);
+            uint8_t* dst = sv + vs * KV_BYTES;
+            mbar_arrive_expect_tx(&bar.vfull[vs], KV_BYTES);
+            for (int x = box0; x < box0 + n_box; ++x) {
+              if (PAIR)
+                tma_load_4d_multicast(dst + x * BN * ROW, &tv,
+                                      &bar.vfull[vs], 64 * x, hk,
+                                      (t - 1) * BN, b, 0x3);
+              else
+                tma_load_4d(dst + x * BN * ROW, &tv, &bar.vfull[vs], 64 * x,
+                            hk, (t - 1) * BN, b);
+            }
+            advance_ring<V_STAGES>(vs, vph);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consume<PAIR>(p, &to, lse, sq, sk, sv, so, bar, n_qt, cta);
+  }
+  // no block exits while the other may still write or arrive on its
+  // shared memory
+  if constexpr (PAIR) cluster_sync();
+}
+
+// n_blocks: the persistent grid (ops.fwd_blocks at the item's 128
+// queries: one block per SM, at most one per item; rounded down to whole
+// clusters of two where the KV group's size is even, which then takes
+// the PAIR instance); sched: one int32 the wrapper zeroes, the items'
+// counter.  Only the causal mode without window, sink or rho.
+int launch(const void* q, const void* k, const void* v, const int32_t* keep,
+           void* out, float* lse, int B, const Params& p, int n_blocks,
+           int* sched, cudaStream_t stream) {
+  if (!p.causal || p.window || p.sink || keep != nullptr || !sched)
+    return -3;
+  if (p.Skv == 0) {                // every row sees nothing (the wrapper
+                                   // fills lse with -inf)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, 2ull * B * p.Sq * p.Hq * 128, stream));
+  }
+  const int n_qt = (p.Sq + BM - 1) / BM;
+  const long long n_items = static_cast<long long>(B) * p.Hq * n_qt;
+  if (n_blocks <= 0 || n_blocks > n_items || n_items > INT_MAX) return -3;
+  const bool pair = (p.Hq / p.Hkv) % 2 == 0 && n_blocks >= 2;
+  const MapKey keys[4] = {{q, B, p.Sq, p.Hq, 128, BM},
+                          {k, B, p.Skv, p.Hkv, 128, BN},
+                          {v, B, p.Skv, p.Hkv, 128, BN},
+                          {out, B, p.Sq, p.Hq, 128, 64}};
+  CUtensorMap maps[4];
+  if (!pair) {
+    static std::atomic<uint64_t> attribute_set{0};
+    auto kern = flash_mha_wgmma128_kernel<false>;
+    const int err = maps_and_attribute(kern, SMEM_BYTES, attribute_set, keys,
+                                       maps, 4);
+    if (err) return err;
+    kern<<<n_blocks, THREADS, SMEM_BYTES, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, sched, p, n_qt,
+        static_cast<int>(n_items));
+    return static_cast<int>(cudaGetLastError());
+  }
+  static std::atomic<uint64_t> attribute_set{0};
+  auto kern = flash_mha_wgmma128_kernel<true>;
+  const int err = maps_and_attribute(kern, SMEM_BYTES, attribute_set, keys,
+                                     maps, 4);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks & ~1);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, maps[0], maps[1], maps[2], maps[3], lse, sched, p, n_qt,
+      static_cast<int>(n_items / 2));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace d128
+
 }  // namespace tc
 
 
@@ -1356,9 +1891,13 @@ extern "C" int flash_mha_launch(
 }
 
 // The tensor-core kernels: bf16 q, k, v and out, D = 64, 96 or 128, the
-// arguments of flash_mha_launch (dtype must be 1) and, at D 64, the
-// persistent grid n_blocks (ops.fwd_blocks; ignored at D 96 / 128).  q,
-// k, v and out must be 16-byte aligned.  Returns as flash_mha_launch, or
+// arguments of flash_mha_launch (dtype must be 1) and the persistent grid
+// n_blocks (ops.fwd_blocks): at D 64 every call's; at D 128, n_blocks > 0
+// takes the causal instance without window, sink or rho (ops.fwd_instance
+// names the calls that do; -3 for another mode) and 0 the general kernel;
+// ignored at D 96.  sched: the D 128 causal instance's item counter, one
+// int32 zeroed before the launch (null elsewhere).  q, k, v and out must
+// be 16-byte aligned.  Returns as flash_mha_launch, or
 // -4 when a tensor map cannot be encoded (alignment, or a driver without
 // the entry point).
 extern "C" int flash_mha_wgmma_launch(
@@ -1366,7 +1905,7 @@ extern "C" int flash_mha_wgmma_launch(
     void* out, void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
     int causal,
     int q_offset, int window, int sink, int block_q, int block_kv,
-    int n_kv_blocks, int dtype, int n_blocks, void* stream) {
+    int n_kv_blocks, int dtype, int n_blocks, void* sched, void* stream) {
   if (dtype != 1) return -2;
   if (B == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hq > 65535 ||
@@ -1380,7 +1919,11 @@ extern "C" int flash_mha_wgmma_launch(
   switch (D) {
     case 64: return tc::d64::launch(q, k, v, kp, out, lp, B, p, n_blocks, s);
     case 96: return tc::launch<96>(q, k, v, kp, out, lp, B, p, s);
-    case 128: return tc::launch<128>(q, k, v, kp, out, lp, B, p, s);
+    case 128:
+      return n_blocks > 0
+                 ? tc::d128::launch(q, k, v, kp, out, lp, B, p, n_blocks,
+                                    static_cast<int*>(sched), s)
+                 : tc::launch<128>(q, k, v, kp, out, lp, B, p, s);
   }
   return -1;
 }

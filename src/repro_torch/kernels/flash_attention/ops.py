@@ -7,11 +7,16 @@ kernel of ``csrc/flash_mha.cu`` (built with nvcc at first use) or
 raises.  There is no fallback between the two.  ``kernel_path`` picks
 the kernel from the dtype and head dim alone: bf16 at D 64, 96 or 128
 runs on the tensor cores (wgmma fed by TMA), everything else on the CUDA
-cores.  At D 64 the tensor-core kernel is persistent: one block per SM
-walks items of ``FWD_TC64_BLOCK`` queries of one (b, head) in the order
-``fwd_items`` gives (``fwd_blocks`` sizes the grid).
-``flash_mha.launches`` counts kernel launches and
-``flash_mha.launches_tc`` the tensor-core ones among them.
+cores.  ``fwd_instance`` names the tensor-core kernel from the mode too:
+at D 64 (every mode) and at D 128 causal without window, sink or rho the
+kernel is persistent: one block per SM (``fwd_blocks``) computes items
+of ``FWD_ITEM_QUERIES[instance]`` queries of one (b, head) in
+``fwd_item``'s rank order, dealt in snake order at D 64 (``fwd_items``)
+and taken from an atomic counter at D 128; D 96 and D 128's other modes
+take the general tensor-core kernel.
+``flash_mha.launches`` counts kernel launches,
+``flash_mha.launches_tc`` the tensor-core ones among them and
+``flash_mha.launches_d128_causal`` those of the D 128 causal instance.
 
 Gradients: whenever grad mode is on and q, k or v requires grad,
 ``flash_mha`` goes through ``FlashMHA``, whose forward also keeps the
@@ -61,9 +66,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 64, 96, 128)
 # the head dims of the tensor-core kernel (every full-width model)
 WGMMA_HEAD_DIMS = (64, 96, 128)
-# queries of one item of the D 64 tensor-core kernel: three consumer
-# warpgroups of 64 rows
+# queries of one item of the persistent tensor-core kernels: three
+# consumer warpgroups of 64 rows at D 64, two at D 128 causal
 FWD_TC64_BLOCK = 192
+FWD_TC128_BLOCK = 128
+FWD_ITEM_QUERIES = {"wgmma64": FWD_TC64_BLOCK,
+                    "wgmma128_causal": FWD_TC128_BLOCK}
 
 
 def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
@@ -75,6 +83,23 @@ def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_cores"
+
+
+def fwd_instance(dtype: torch.dtype, head_dim: int, causal: bool,
+                 window: int, sink: int, sparsity: float) -> str:
+    """The forward kernel a call takes: ``"wgmma64"`` (bf16 at D 64, every
+    mode: persistent, instantiated per mode), ``"wgmma128_causal"`` (bf16
+    at D 128, causal without window, sink or rho: persistent),
+    ``"wgmma"`` (the general tensor-core kernel: bf16 at D 96 and D 128's
+    other modes) or ``"cuda_cores"`` (``kernel_path``'s rest)."""
+    if kernel_path(dtype, head_dim) != "wgmma":
+        return "cuda_cores"
+    if head_dim == 64:
+        return "wgmma64"
+    if head_dim == 128 and causal and not window and not sink \
+            and sparsity <= 0.0:
+        return "wgmma128_causal"
+    return "wgmma"
 
 
 def bwd_kernel_path(dtype: torch.dtype, head_dim: int) -> str:
@@ -115,10 +140,11 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
     if lib.flash_mha_launch.argtypes is None:
-        for fn, n_int in ((lib.flash_mha_launch, 14),
-                          (lib.flash_mha_wgmma_launch, 15)):
+        # the tensor-core entry also takes the causal instance's counter
+        for fn, n_int, n_ptr in ((lib.flash_mha_launch, 14, 1),
+                                 (lib.flash_mha_wgmma_launch, 15, 2)):
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int \
-                + [ctypes.c_void_p]
+                + [ctypes.c_void_p] * n_ptr
             fn.restype = ctypes.c_int
         lib.flash_mha_error_string.argtypes = [ctypes.c_int]
         lib.flash_mha_error_string.restype = ctypes.c_char_p
@@ -149,36 +175,58 @@ def _bwd_tc_lib() -> ctypes.CDLL:
     return lib
 
 
-def fwd_blocks(b: int, sq: int, hq: int, n_sm: int) -> int:
-    """Persistent blocks of the D 64 tensor-core forward: one per SM
-    (``n_sm``), never more than its items (``FWD_TC64_BLOCK`` queries of
+def fwd_blocks(b: int, sq: int, hq: int, n_sm: int,
+               item_queries: int = FWD_TC64_BLOCK) -> int:
+    """Persistent blocks of a persistent tensor-core forward: one per SM
+    (``n_sm``), never more than its items (``item_queries`` queries of
     one (b, head) each)."""
-    return max(1, min(b * hq * -(-sq // FWD_TC64_BLOCK), n_sm))
+    return max(1, min(b * hq * -(-sq // item_queries), n_sm))
+
+
+def fwd_item(r: int, b: int, sq: int, hq: int, causal: bool,
+             item_queries: int = FWD_TC64_BLOCK,
+             hkv: int = 0) -> Tuple[int, int, int]:
+    """Rank ``r``'s (query tile, head, batch row) among the items of
+    ``item_queries`` queries of one (b, head) (``item_of`` in
+    ``csrc/flash_mha.cu``).  Non-causal items cost the same and rank with
+    the query tile fastest, then the head, then the batch row, so the items
+    in flight share a (b, KV head)'s K/V in L2; causal items rank by query
+    tile, the last (heaviest) first, then head and batch row.  With
+    ``hkv`` (the D 128 causal instance, ``d128::item_of``) causal items
+    rank by (batch row, KV head), then query tile, heaviest first, then
+    the head within its group of ``hq // hkv``, so the items in flight
+    read one or two K/V prefixes and a group's heads at one query tile are
+    neighbours."""
+    n_qt = -(-sq // item_queries)
+    if causal and hkv:
+        g = hq // hkv
+        t, bhk = r // g, r // g // n_qt
+        return n_qt - 1 - t % n_qt, bhk % hkv * g + r % g, bhk // hkv
+    if causal:
+        qt, hb = n_qt - 1 - r // (b * hq), r % (b * hq)
+    else:
+        qt, hb = r % n_qt, r // n_qt
+    return qt, hb % hq, hb // hq
 
 
 def fwd_items(block: int, n_blocks: int, b: int, sq: int, hq: int,
-              causal: bool) -> List[Tuple[int, int, int]]:
-    """The (query tile, head, batch row) items that persistent block
-    ``block`` of ``n_blocks`` computes, in its order (``item_rank`` and
-    ``item_of`` in ``csrc/flash_mha.cu``).  Items are ranked and dealt in
-    snake order: round m gives block j rank m n_blocks + j (m even) or m
-    n_blocks + n_blocks - 1 - j (m odd).  Non-causal items cost the same
-    and rank with the query tile fastest, then the head, then the batch
-    row, so the items in flight share a (b, KV head)'s K/V in L2; causal
-    items rank by query tile, the last (heaviest) first, then head and
-    batch row, so each block's sum of work evens out."""
-    n_qt = -(-sq // FWD_TC64_BLOCK)
-    n_items, n_bh = b * hq * n_qt, b * hq
+              causal: bool, item_queries: int = FWD_TC64_BLOCK
+              ) -> List[Tuple[int, int, int]]:
+    """The items that persistent block ``block`` of ``n_blocks`` computes
+    in the D 64 instance, in its order (``item_rank`` in
+    ``csrc/flash_mha.cu``): ranks (``fwd_item``) are dealt in snake
+    order, round m giving block j rank m n_blocks + j (m even) or m
+    n_blocks + n_blocks - 1 - j (m odd), so that where ranks fall in cost
+    each block's sum of work evens out.  (The D 128 causal instance's
+    blocks take ranks in ``fwd_item`` order as they come free, from an
+    atomic counter.)"""
+    n_items = b * hq * -(-sq // item_queries)
     items = []
     for m in range(-(-n_items // n_blocks)):
         r = m * n_blocks + (n_blocks - 1 - block if m % 2 else block)
         if r >= n_items:
             break
-        if causal:
-            qt, hb = n_qt - 1 - r // n_bh, r % n_bh
-        else:
-            qt, hb = r % n_qt, r // n_qt
-        items.append((qt, hb % hq, hb // hq))
+        items.append(fwd_item(r, b, sq, hq, causal, item_queries))
     return items
 
 
@@ -261,7 +309,8 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
         if skv == 0:                   # every row sees nothing
             lse.fill_(-float("inf"))
     lib = _lib()
-    tc = kernel_path(q.dtype, d) == "wgmma"
+    inst = fwd_instance(q.dtype, d, causal, window, sink, sparsity)
+    tc = inst != "cuda_cores"
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if keep is None else keep.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
@@ -270,7 +319,13 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
             _DTYPES[q.dtype]]
     if tc:
         launch = lib.flash_mha_wgmma_launch
-        args.append(fwd_blocks(b, sq, hq, _sm_count(dev)) if d == 64 else 0)
+        # the persistent grid (0 takes the general kernel) and the D 128
+        # causal instance's item counter, zeroed
+        item = FWD_ITEM_QUERIES.get(inst)
+        sched = torch.zeros(1, dtype=torch.int32, device=dev) \
+            if inst == "wgmma128_causal" else None
+        args += [fwd_blocks(b, sq, hq, _sm_count(dev), item) if item else 0,
+                 None if sched is None else sched.data_ptr()]
     else:
         launch = lib.flash_mha_launch
     with torch.cuda.device(dev):        # the runtime launches on its device
@@ -280,6 +335,7 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
         raise RuntimeError(f"flash_mha launch failed: {msg}")
     flash_mha.launches += 1
     flash_mha.launches_tc += int(tc)
+    flash_mha.launches_d128_causal += int(inst == "wgmma128_causal")
     return (out, lse) if with_lse else out
 
 
@@ -408,5 +464,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_mha.launches = 0
 flash_mha.launches_tc = 0
+flash_mha.launches_d128_causal = 0
 flash_mha.launches_bwd = 0
 flash_mha.launches_bwd_tc = 0

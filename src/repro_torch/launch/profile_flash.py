@@ -8,7 +8,8 @@ kernel table (phase 3 of ``chip_smoke.py`` runs the same shapes):
   over 21,197 keys, 12 heads of 128, non-causal;
 * ``3b`` / ``3c`` / ``3d``: the causal prefills of granite-moe (D 64),
   minitron-8b (D 128, GQA 4) and Jamba (sink 128 + window 8,192), B 2 x
-  32,768;
+  32,768; ``3h``: internvl2-26b's causal prefill, B 1 x 8,192, 48 / 8
+  heads of 128;
 * ``3e`` / ``3f`` / ``3g``: whisper-medium's encoder (1,500 x 1,500), its
   prefill cross-attention (32,768 x 1,500) and a decode step's (1 x
   1,500), B 2, 16 heads of 64; 3g is also timed on the host clock over
@@ -22,17 +23,33 @@ row's exponentials (one per visible (query, key) pair) at 16 a clock an
 SM on 132 SMs at the SM clock ``nvidia-smi --query-gpu=clocks.max.sm``
 reports.  ``--check`` first holds the D 64 kernel to the plain version
 in every mode it takes (non-causal with partial tiles on both axes, Sq
-1, causal GQA with q_offset, sink + window, rho, rows that see nothing),
-its lse to the plain version's, and two calls bit for bit.
+1, causal GQA with q_offset, sink + window, rho, rows that see nothing)
+and the D 128 causal instance in its mode (GQA 4 and 6, q_offset > 0
+and < 0, partial tiles, more items than SMs), their lse to the plain
+version's, and two calls bit for bit.
 ``--variant NAME=OLD=>NEW[||OLD=>NEW...]`` (repeatable; OLD and NEW
-hold neither ``=>`` nor ``||``) also times a copy of
-``csrc/flash_mha.cu`` with each text OLD replaced by NEW at the D 64
-rows, in turns with the source as it is.  ``--digest`` prints a SHA-256
-of each row's output and lse instead of timing it, so that two trees
-run on one card can be compared bit for bit::
+hold neither ``=>`` nor ``||``; ``NAME=`` alone: no edit) also times a
+copy of ``csrc/flash_mha.cu`` with each text OLD replaced by NEW at the
+rows of the persistent instances (D 64, D 128 causal), in turns with the
+source as it is; with ``--general`` a D 128 row's copy runs on the
+general tensor-core kernel instead, to time it and edits of it.
+``--burst N`` times each row as ``chip_smoke.py`` does, in short bursts
+off a rested card: N rounds of the kernel, each variant and SDPA in
+turns (the order reversed every other round), ``--iters`` calls each
+after 1.5 s of rest, and prints each one's sorted times.
+``--power`` also runs the kernel and SDPA back to back for two seconds
+each and prints the mean SM clock and power draw ``nvidia-smi`` sampled
+meanwhile (a card at its power limit lowers its clock).
+``--sass FILE`` writes the order of each tensor-core forward's products,
+waits, barriers and exponentials in the built SASS to FILE and prints,
+for each wait on the products (``WARPGROUP.DEPBAR``), the ``MUFU.EX2``
+issued since the last one.  ``--digest`` prints a SHA-256 of each row's
+output and lse instead of timing it, so that two trees run on one card
+can be compared bit for bit::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_flash [--check]
-        [--rows 3e,3f] [--iters 20] [--variant ...] [--digest]
+        [--rows 3e,3f] [--iters 20] [--variant ...] [--general]
+        [--burst N] [--power] [--sass FILE] [--digest]
 """
 from __future__ import annotations
 
@@ -56,6 +73,7 @@ ROWS = {
     "3": (1, 2640, 21197, 12, 12, 128, False, 0, 0),
     "3b": (2, 32768, 32768, 16, 8, 64, True, 0, 0),
     "3c": (2, 32768, 32768, 32, 8, 128, True, 0, 0),
+    "3h": (1, 8192, 8192, 48, 8, 128, True, 0, 0),
     "3d": (2, 32768, 32768, 32, 8, 128, True, 8192, 128),
     "3e": (2, 1500, 1500, 16, 16, 64, False, 0, 0),
     "3f": (2, 32768, 1500, 16, 16, 64, False, 0, 0),
@@ -79,6 +97,18 @@ CHECKS = [
     ("rho 0.7, blocks 96 x 160", 1, 1920, 1920, 4, 4,
      dict(sparsity=0.7, block_q=96, block_kv=160)),
     ("rows that see nothing", 2, 32, 32, 2, 2, dict(q_offset=-8)),
+]
+# the D 128 causal instance's modes (tests/test_torch_kernel_cuda.py's
+# FLASH_D128_CAUSAL_MODES)
+CHECKS_D128 = [
+    ("causal GQA 4, 1,024", 2, 1024, 1024, 8, 2, dict()),
+    ("causal GQA 6, q_offset 300, partial tiles", 1, 700, 1000, 12, 2,
+     dict(q_offset=300, block_q=700)),
+    ("q_offset -150: an item that sees nothing", 1, 300, 200, 4, 1,
+     dict(q_offset=-150, block_q=300)),
+    ("Sq 1 at q_offset 1,499", 2, 1, 1500, 8, 2, dict(q_offset=1499)),
+    ("ragged 777, GQA 1", 1, 777, 777, 6, 6, dict(block_q=777)),
+    ("more items than SMs", 2, 4096, 4096, 32, 8, dict()),
 ]
 
 
@@ -130,6 +160,28 @@ def cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def clock_power(fn, seconds=2.0):
+    """(mean SM clock MHz, mean power draw W) that ``nvidia-smi`` samples
+    every 50 ms while ``fn`` runs back to back for ``seconds`` (the first
+    quarter of the samples, the ramp, left out)."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "-i", "0",
+                            "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+        fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [[float(x) for x in line.split(",")]
+            for line in smi.communicate()[0].splitlines() if line.strip()]
+    rows = rows[len(rows) // 4:] or [[float("nan")] * 2]
+    return (sum(r[0] for r in rows) / len(rows),
+            sum(r[1] for r in rows) / len(rows))
 
 
 def host_ms(fn, iters):
@@ -200,26 +252,38 @@ def variant_libs(source, variants):
         print(f"  variant {name}:")
         print_ptxas(build.BUILD_LOGS.get(str(path), ""))
         lib.flash_mha_wgmma_launch.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 2
         lib.flash_mha_wgmma_launch.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def lib_call(lib, q, k, v, kw):
-    """One D 64 launch of a built copy, as ``ops._launch`` makes it."""
+def persistent(q, kw):
+    """The persistent instance a row's calls take, or None."""
+    from repro_torch.kernels.flash_attention import ops
+    inst = ops.fwd_instance(q.dtype, q.shape[-1], kw["causal"],
+                            kw["window"], kw["sink"], 0.0)
+    return inst if inst in ops.FWD_ITEM_QUERIES else None
+
+
+def lib_call(lib, q, k, v, kw, general=False):
+    """One launch of a built copy, as ``ops._launch`` makes it on a
+    persistent instance's row; ``general``: on the general kernel."""
     from repro_torch.kernels.flash_attention import ops
     b, sq, hq, d = q.shape
     out = torch.empty_like(q)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_blocks = 0 if general else ops.fwd_blocks(
+        b, sq, hq, n_sm, ops.FWD_ITEM_QUERIES[persistent(q, kw)])
+    sched = torch.zeros(1, dtype=torch.int32, device=q.device)
 
     def call():
+        sched.zero_()
         err = lib.flash_mha_wgmma_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
             None, b, sq, k.shape[1], hq, k.shape[2], d, int(kw["causal"]),
-            0, kw["window"], kw["sink"], 128, 128, 0, 1,
-            ops.fwd_blocks(b, sq, hq, n_sm),
-            torch.cuda.current_stream().cuda_stream)
+            0, kw["window"], kw["sink"], 128, 128, 0, 1, n_blocks,
+            sched.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"variant launch failed: {err}")
         return out
@@ -227,13 +291,16 @@ def lib_call(lib, q, k, v, kw):
 
 
 def check():
-    """The D 64 kernel against the plain version in every mode, its lse,
-    two calls bit for bit; D 96 and 128 once each."""
+    """The D 64 kernel in every mode and the D 128 causal instance in
+    its mode against the plain version, their lse, two calls bit for bit;
+    D 96 and D 128's general kernel once each."""
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device=DEV).manual_seed(64)
     for name, B, Sq, Skv, Hq, Hkv, kw in CHECKS + [
             ("D 96 non-causal", 1, 300, 700, 4, 4, dict(causal=False)),
-            ("D 128 causal GQA 2", 1, 512, 900, 4, 2, dict())]:
+            ("D 128 sink 77 + window 256, GQA 2", 1, 512, 900, 4, 2,
+             dict(window=256, sink=77))] + [
+            ("D 128 " + c[0],) + c[1:] for c in CHECKS_D128]:
         D = 96 if name.startswith("D 96") else \
             128 if name.startswith("D 128") else 64
         q = torch.randn((B, Sq, Hq, D), generator=gen, device=DEV).bfloat16()
@@ -241,6 +308,10 @@ def check():
                 .bfloat16() for _ in range(2))
         kw = {**dict(block_q=128, block_kv=128), **kw}
         before = ops.flash_mha.launches_tc
+        before128 = ops.flash_mha.launches_d128_causal
+        want128 = 2 * int(ops.fwd_instance(
+            q.dtype, D, kw.get("causal", True), kw.get("window", 0),
+            kw.get("sink", 0), kw.get("sparsity", 0.0)) == "wgmma128_causal")
         out, lse = ops._launch(q, k, v, Hkv, kw.get("causal", True),
                                kw.get("q_offset", 0), kw.get("window", 0),
                                kw.get("sink", 0), kw.get("sparsity", 0.0),
@@ -264,21 +335,64 @@ def check():
         bits = bool(torch.equal(out.view(torch.int16),
                                 again.view(torch.int16)))
         ok = err <= limit and lse_err <= 2e-4 and same_inf and bits and \
-            ops.flash_mha.launches_tc == before + 2
+            ops.flash_mha.launches_tc == before + 2 and \
+            ops.flash_mha.launches_d128_causal == before128 + want128
         print(f"  check D {D} {name}: |d| {err:.3g} (limit {limit:.3g}), "
               f"lse |d| {lse_err:.3g} (limit 2e-4), two calls bit for bit "
-              f"{bits}: {'ok' if ok else 'FAILED'}", flush=True)
+              f"{bits}, D 128 causal instance {want128 > 0}: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"D {D} {name}")
 
 
+def sass_order(path, out_file):
+    """Writes, for each tensor-core forward in the library at ``path``,
+    its SASS reduced to products (HGMMA), waits on them (WARPGROUP.DEPBAR),
+    barriers, branches and runs of exponentials, into ``out_file``; prints
+    for each wait how many MUFU.EX2 were issued since the previous one."""
+    import re
+    import shutil
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    lines = []
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if "wgmma" not in name:
+            continue
+        lines.append(f"== {name}")
+        waits, n_ex2 = [], 0
+        for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", func):
+            if "MUFU.EX2" in ins:
+                n_ex2 += 1
+                continue
+            if re.search(r"HGMMA|DEPBAR|BAR\.|SYNCS|\bBRA\b|SETMAXREG|"
+                         r"EXIT|STL|LDL", ins):
+                lines.append(f"{n_ex2:3d} MUFU.EX2 then {ins[:80]}")
+                if "WARPGROUP.DEPBAR" in ins:
+                    waits.append(f"{ins.split()[-1]}:{n_ex2}")
+                n_ex2 = 0
+        print(f"  sass {name[-48:]}: MUFU.EX2 before each WARPGROUP.DEPBAR"
+              f" (wait level:count): {' '.join(waits)}", flush=True)
+    Path(out_file).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_file).write_text("\n".join(lines) + "\n")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--rows", default="3,3b,3c,3d,3e,3f,3g,train")
+    ap.add_argument("--rows", default="3,3b,3c,3d,3e,3f,3g,3h,train")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=OLD=>NEW, OLD and NEW with \\n for newlines")
+    ap.add_argument("--general", action="store_true",
+                    help="run the variants' D 128 rows on the general kernel")
+    ap.add_argument("--sass", default=None,
+                    help="write the forwards' SASS order here")
+    ap.add_argument("--burst", type=int, default=0,
+                    help="rounds of rested short-burst timings in turns")
+    ap.add_argument("--power", action="store_true",
+                    help="sample SM clock and power while kernel / SDPA run")
     ap.add_argument("--json", default=None, help="write the rows here")
     ap.add_argument("--digest", action="store_true",
                     help="print each row's output and lse digest only")
@@ -289,6 +403,8 @@ def main(argv=None):
     from repro_torch.kernels.flash_attention import ops
     ops._lib()
     print_ptxas(build.BUILD_LOGS.get(str(ops.SOURCE), ""))
+    if args.sass:
+        sass_order(build._target(ops.SOURCE), args.sass)
     card = subprocess.run(["nvidia-smi", "-i", "0",
                            "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -301,7 +417,7 @@ def main(argv=None):
     for spec in args.variant:
         name, rest = spec.split("=", 1)
         specs[name] = [tuple(x.replace("\\n", "\n") for x in e.split("=>"))
-                       for e in rest.split("||")]
+                       for e in rest.split("||")] if rest else []
     variants = variant_libs(ops.SOURCE, specs) if specs else {}
     gen = torch.Generator(device=DEV).manual_seed(7)
     results = {}
@@ -326,17 +442,40 @@ def main(argv=None):
         else:
             fn = lambda: ops.flash_mha(q, k, v, **kw)
         lib = sdpa(q, k, v, kw)
+        if args.burst:
+            fns = {"kernel": fn, **{
+                name: lib_call(vlib, q, k, v, kw,
+                               general=args.general and D == 128)
+                for name, vlib in variants.items() if persistent(q, kw)}}
+            if lib is not None:
+                fns["sdpa"] = lib
+            times = {name: [] for name in fns}
+            for rnd in range(args.burst):
+                for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+                    time.sleep(1.5)
+                    times[name].append(round(cuda_ms(fns[name], iters), 4))
+            print(f"  burst row {row} {ROWS[row]}: " + ", ".join(
+                f"{name} {sorted(ts)}" for name, ts in times.items()),
+                flush=True)
+            results[row] = times
+            continue
         res = dict(kernel_ms=cuda_ms(fn, iters))
         for name, vlib in variants.items():
-            if D == 64 and row != "train":
-                call = lib_call(vlib, q, k, v, kw)
+            if persistent(q, kw) and row != "train":
+                call = lib_call(vlib, q, k, v, kw,
+                                general=args.general and D == 128)
                 res[name + "_ms"] = cuda_ms(call, iters)
                 ref_out = fn()
                 res[name + "_bits"] = bool(torch.equal(
                     call().view(torch.int16), ref_out.view(torch.int16)))
-                res["kernel_ms_again"] = cuda_ms(fn, iters)
+                res.setdefault("kernel_ms_again", []).append(
+                    round(cuda_ms(fn, iters), 4))
         if lib is not None:
             res["sdpa_ms"] = cuda_ms(lib, iters)
+        if args.power:
+            res["kernel_mhz"], res["kernel_w"] = clock_power(fn)
+            if lib is not None:
+                res["sdpa_mhz"], res["sdpa_w"] = clock_power(lib)
         if Sq == 1:
             res["host_ms"] = host_ms(fn, 50)
         res.update(bound_ms=bound, bound_by=by,

@@ -177,22 +177,27 @@ def test_wrapper_rejects_modes_without_a_plain_twin(kw, match):
         ops.flash_mha(q, k, v, n_kv_heads=2, **kw)
 
 
-# the D 64 tensor-core forward's persistent schedule (the kernel's
-# item_of): whisper-medium's encoder, prefill cross-attention and decode
-# step, granite-moe's causal prefill, minicpm-2b's training attention, and
+# the persistent tensor-core forwards' schedule (the kernels' item_of),
+# dealt in snake order at items of 192 queries (D 64) and of 128: (B, Sq,
+# Hq, causal) of whisper-medium's encoder, prefill cross-attention and
+# decode step, granite-moe's causal prefill, minicpm-2b's training
+# attention, minitron-8b's and internvl2-26b's causal prefills, and
 # ragged small shapes, on the H100's 132 SMs and on fewer
 FWD_SCHEDULES = [(2, 1500, 16, False), (2, 32768, 16, False),
                  (2, 1, 16, False), (2, 32768, 16, True), (2, 4096, 36, True),
-                 (1, 193, 3, True), (3, 7, 5, False)]
+                 (2, 32768, 32, True), (1, 8192, 48, True),
+                 (1, 193, 3, True), (3, 7, 5, False), (2, 300, 12, True)]
 
 
+@pytest.mark.parametrize("item_queries", [192, 128])
 @pytest.mark.parametrize("n_sm", [132, 7])
 @pytest.mark.parametrize("b,sq,hq,causal", FWD_SCHEDULES)
-def test_fwd_items_cover_every_tile_once(b, sq, hq, causal, n_sm):
-    n_qt = -(-sq // ops.FWD_TC64_BLOCK)
-    n_blocks = ops.fwd_blocks(b, sq, hq, n_sm)
+def test_fwd_items_cover_every_tile_once(b, sq, hq, causal, n_sm,
+                                         item_queries):
+    n_qt = -(-sq // item_queries)
+    n_blocks = ops.fwd_blocks(b, sq, hq, n_sm, item_queries)
     assert n_blocks == min(b * hq * n_qt, n_sm)
-    items = [ops.fwd_items(blk, n_blocks, b, sq, hq, causal)
+    items = [ops.fwd_items(blk, n_blocks, b, sq, hq, causal, item_queries)
              for blk in range(n_blocks)]
     flat = [it for per_block in items for it in per_block]
     assert sorted(flat) == sorted((qt, h, bb) for qt in range(n_qt)
@@ -216,6 +221,40 @@ def test_fwd_items_cover_every_tile_once(b, sq, hq, causal, n_sm):
             (qt, 0, 0) for qt in range(min(n_qt, n_blocks))]
 
 
+# the D 128 causal instance's order (B, Sq, Hq, Hkv): minitron-8b's and
+# internvl2-26b's prefills, a training-length call, and ragged small ones
+FWD_D128_ORDERS = [(2, 32768, 32, 8), (1, 8192, 48, 8), (2, 4096, 32, 8),
+                   (1, 300, 4, 1), (2, 777, 12, 2)]
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv", FWD_D128_ORDERS)
+def test_fwd_item_d128_causal_order(b, sq, hq, hkv):
+    """Every item once; (batch row, KV head) by (batch row, KV head), each
+    heaviest query tile first; a KV group's heads at one query tile are
+    neighbouring ranks; and blocks that take the next rank as they come
+    free (the kernel's atomic counter) finish within one item of the
+    mean on the H100's 132 SMs."""
+    iq = ops.FWD_ITEM_QUERIES["wgmma128_causal"]
+    n_qt, g = -(-sq // iq), hq // hkv
+    order = [ops.fwd_item(r, b, sq, hq, True, iq, hkv)
+             for r in range(b * hq * n_qt)]
+    assert sorted(order) == sorted((qt, h, bb) for qt in range(n_qt)
+                                   for h in range(hq) for bb in range(b))
+    keys = [(bb, h // g, n_qt - 1 - qt) for qt, h, bb in order]
+    assert keys == sorted(keys)
+    for r in range(0, len(order), g):
+        group = order[r:r + g]
+        assert [h % g for _, h, _ in group] == list(range(g))
+        assert len({(qt, h // g, bb) for qt, h, bb in group}) == 1
+    # greedy list scheduling of the ranks' costs (a query tile's key span)
+    n_blocks = ops.fwd_blocks(b, sq, hq, 132, iq)
+    free = [0] * n_blocks
+    for qt, _, _ in order:
+        j = free.index(min(free))
+        free[j] += qt + 1
+    assert max(free) <= sum(free) / n_blocks + n_qt
+
+
 def test_fwd_blocks_at_the_models_shapes():
     # whisper-medium (16 heads of 64, B 2): the encoder's 8 query tiles x
     # 32 (b, head) fill the 132 SMs, a decode step has one item a head
@@ -230,3 +269,52 @@ def test_fwd_blocks_at_the_models_shapes():
     assert len(ops.fwd_items(71, 132, 2, 32768, 16, False)) == 41
     assert len(ops.fwd_items(72, 132, 2, 32768, 16, False)) == 42
     assert len(ops.fwd_items(131, 132, 2, 32768, 16, False)) == 42
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv", [(2, 32768, 32, 8), (1, 8192, 48, 8)],
+                         ids=["minitron-8b", "internvl2-26b"])
+def test_fwd_item_puts_a_kv_groups_heads_in_one_round(b, sq, hq, hkv):
+    """At the D 128 causal instance's items on the H100's 132 SMs, the
+    query heads of one KV group at one query tile and batch row are taken
+    in the same round of 132 ranks, so they read the same causal K/V
+    prefix together in L2."""
+    iq = ops.FWD_ITEM_QUERIES["wgmma128_causal"]
+    n_blocks = ops.fwd_blocks(b, sq, hq, 132, iq)
+    assert n_blocks == 132
+    round_of = {ops.fwd_item(r, b, sq, hq, True, iq, hkv): r // n_blocks
+                for r in range(b * hq * -(-sq // iq))}
+    g = hq // hkv
+    for (qt, h, bb), m in round_of.items():
+        assert round_of[(qt, h - h % g, bb)] == m
+
+
+# (dtype, D, causal, window, sink, sparsity) -> the forward's instance
+FWD_INSTANCES = [
+    (torch.bfloat16, 128, True, 0, 0, 0.0, "wgmma128_causal"),
+    (torch.bfloat16, 128, False, 0, 0, 0.0, "wgmma"),
+    (torch.bfloat16, 128, True, 8192, 128, 0.0, "wgmma"),
+    (torch.bfloat16, 128, True, 256, 0, 0.0, "wgmma"),
+    (torch.bfloat16, 128, True, 0, 77, 0.0, "wgmma"),
+    (torch.bfloat16, 128, True, 0, 0, 0.7, "wgmma"),
+    (torch.bfloat16, 96, True, 0, 0, 0.0, "wgmma"),
+    (torch.bfloat16, 96, False, 0, 0, 0.0, "wgmma"),
+    (torch.bfloat16, 96, True, 300, 77, 0.0, "wgmma"),
+    (torch.bfloat16, 64, True, 0, 0, 0.0, "wgmma64"),
+    (torch.bfloat16, 64, False, 0, 0, 0.0, "wgmma64"),
+    (torch.bfloat16, 64, True, 100, 16, 0.0, "wgmma64"),
+    (torch.bfloat16, 16, True, 0, 0, 0.0, "cuda_cores"),
+    (torch.float32, 128, True, 0, 0, 0.0, "cuda_cores"),
+    (torch.float32, 64, False, 0, 0, 0.0, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,causal,window,sink,sparsity,want",
+                         FWD_INSTANCES)
+def test_fwd_instance_table(dtype, d, causal, window, sink, sparsity, want):
+    assert ops.fwd_instance(dtype, d, causal, window, sink,
+                            sparsity) == want
+    # the persistent instances have items, and only they
+    assert (want in ops.FWD_ITEM_QUERIES) == (want in ("wgmma64",
+                                                       "wgmma128_causal"))
+    assert ops.kernel_path(dtype, d) == (
+        "cuda_cores" if want == "cuda_cores" else "wgmma")

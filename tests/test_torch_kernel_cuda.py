@@ -397,6 +397,71 @@ def test_flash_d64_kernel_matches_plain_version(card, mode):
         assert float(out[:, :8].float().abs().max()) == 0.0
 
 
+# the D 128 causal instance (persistent blocks of 128 queries, causal
+# without window, sink or rho) at every edge of its mode: name -> (B, Sq,
+# Skv, Hq, Hkv, keyword args)
+FLASH_D128_CAUSAL_MODES = {
+    "gqa4-1024": (2, 1024, 1024, 8, 2, dict()),
+    # (a ragged Sq is one block of the plain version's causal schedule)
+    "gqa6-q-offset-partial-tiles": (1, 700, 1000, 12, 2,
+                                    dict(q_offset=300, block_q=700)),
+    # item 0 sees nothing (its slot is -1), item 1 one tile
+    "negative-q-offset": (1, 300, 200, 4, 1, dict(q_offset=-150,
+                                                  block_q=300)),
+    "sq1-q-offset": (2, 1, 1500, 8, 2, dict(q_offset=1499)),
+    "ragged-777-gqa1": (1, 777, 777, 6, 6, dict(block_q=777)),
+    # 2,048 items on 132 blocks: rings and Q buffers wrap around
+    "more-items-than-sms": (2, 4096, 4096, 32, 8, dict()),
+}
+
+
+@pytest.mark.parametrize("mode", list(FLASH_D128_CAUSAL_MODES))
+def test_flash_d128_causal_instance_matches_plain_version(card, mode):
+    """At D 128 causal in bf16: one launch of the causal instance a call,
+    the output within 2 bf16 ulps of the plain version's and within 8 of
+    SDPA's (an explicit causal mask at q_offset; rows that see nothing
+    left out, where SDPA gives NaN), the lse within 2e-4 of the plain
+    version's and -inf exactly where it is, two calls bit for bit."""
+    B, Sq, Skv, Hq, Hkv, kw = FLASH_D128_CAUSAL_MODES[mode]
+    g = torch.Generator(device=card).manual_seed(Sq + 128)
+    q = torch.randn((B, Sq, Hq, 128), generator=g, device=card).bfloat16()
+    k = torch.randn((B, Skv, Hkv, 128), generator=g, device=card).bfloat16()
+    v = torch.randn((B, Skv, Hkv, 128), generator=g, device=card).bfloat16()
+    m = _bwd_mode(Sq, Skv, Hkv, kw)
+    assert fops.fwd_instance(torch.bfloat16, 128, m["causal"], m["window"],
+                             m["sink"], m["sparsity"]) == "wgmma128_causal"
+    fm = fops.flash_mha
+    before = fm.launches, fm.launches_tc, fm.launches_d128_causal
+    out, lse = fops._launch(q, k, v, Hkv, m["causal"], m["q_offset"],
+                            m["window"], m["sink"], m["sparsity"],
+                            m["block_q"], m["block_kv"], with_lse=True)
+    again = fops.flash_mha(q, k, v, **m)
+    torch.cuda.synchronize()
+    assert (fm.launches, fm.launches_tc, fm.launches_d128_causal) == tuple(
+        n + 2 for n in before)
+    want, lse0 = fref.flash_mha_ref(q, k, v, return_lse=True, **m)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= flash_limit(want), (mode, err)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse0))
+    fin = torch.isfinite(lse0)
+    if fin.any():
+        assert float((lse - lse0)[fin].abs().max()) <= 2e-4
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+    pos = torch.arange(Sq, device=card)[:, None] + m["q_offset"]
+    mask = torch.arange(Skv, device=card)[None, :] <= pos
+    rows = mask.any(dim=1)
+    if not rows.all():                  # rows that see nothing give 0
+        assert float(out[:, ~rows].float().abs().max()) == 0.0
+    lib = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(Hq // Hkv, 1),
+        v.transpose(1, 2).repeat_interleave(Hq // Hkv, 1),
+        attn_mask=mask).transpose(1, 2)
+    top = float(out[:, rows].float().abs().max())
+    lib_err = float((out[:, rows].float() - lib[:, rows].float()).abs().max())
+    assert lib_err <= 8 * 2.0 ** (math.floor(math.log2(top)) - 7), (mode,
+                                                                    lib_err)
+
+
 def test_mha_dispatches_to_the_flash_kernel(card):
     g = torch.Generator(device=card).manual_seed(5)
     q = torch.randn((1, 96, 4, 16), generator=g, device=card)
