@@ -17,9 +17,11 @@ Phases (any failure raises and the script exits non-zero):
    checked.  Times the kernel over bf16 and e4m3 pages, the plain
    version and one PyTorch library call computing the same attention,
    with the card's bound and the achieved TFLOP/s; then the same
-   all-visible cases, checks and timings at ardit-causal-forcing's
-   heads (Hq = Hkv = 16, D = 96: two 64-column TMA boxes, the second
-   half zero-filled), on the tensor cores.
+   all-visible and masked cases, checks and timings at
+   ardit-causal-forcing's heads (Hq = Hkv = 16, D = 96): bf16 pages on
+   the persistent D 96 instance (96-column tiles, the context cut into
+   parts merged in the kernel; ``launches_d96``), e4m3 pages on the
+   general tensor-core instance.
 3. Flash kernel vs plain version on the card at the sequential path's
    full-width shapes (B = 1, Sq = 2640, 12 heads of 128, bf16,
    non-causal, Skv = sink + 0 / 3 / 7 chunks + the chunk) and in every
@@ -490,11 +492,12 @@ def sync():
 
 
 def reset_counts(counters):
-    """Sets every launch count (and tensor-core launch count, and kernel
-    3's count of its D 128 causal instance) to 0."""
+    """Sets every launch count (and tensor-core launch count, kernel
+    3's count of its D 128 causal instance and kernel 1's of its D 96
+    instance) to 0."""
     for fn in counters.values():
         fn.launches = 0
-        for name in ("launches_tc", "launches_d128_causal"):
+        for name in ("launches_tc", "launches_d128_causal", "launches_d96"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)
 
@@ -593,13 +596,17 @@ def phase_kernel(record):
 
     def run(name, q, kp, vp, table, mask, **hint):
         """One kernel call against the plain version; checks that it
-        took kernel_path's kernel."""
-        path = ops.kernel_path(q.dtype, kp.dtype, q.shape[-1],
-                               q.shape[2] // kp.shape[2])
-        before = fn.launches_tc
+        took kernel_path's kernel and chunk_instance's instance."""
+        group = q.shape[2] // kp.shape[2]
+        path = ops.kernel_path(q.dtype, kp.dtype, q.shape[-1], group)
+        d96 = ops.chunk_instance(q.dtype, kp.dtype, q.shape[-1],
+                                 group) == "wgmma96"
+        before = (fn.launches_tc, fn.launches_d96)
         got = fn(q, kp, vp, table, mask, **hint)
-        if fn.launches_tc - before != int(path == "wgmma"):
-            raise AssertionError(f"{name}: launch off its path {path}")
+        if (fn.launches_tc - before[0], fn.launches_d96 - before[1]) != (
+                int(path == "wgmma"), int(d96)):
+            raise AssertionError(f"{name}: launch off its path {path} "
+                                 f"(D 96 instance {d96})")
         errs.append(compare_partials(
             name, got, ref.paged_chunk_attention_ref(q, kp, vp, table, mask,
                                                      **hint), path))
@@ -689,25 +696,29 @@ def phase_kernel(record):
     main, (q, kp, vp, kf, vf, table) = timed(H, D, "")
     record.update(main)
 
-    # (b) explicit mask: sparsity-style 128-token drops on ring pages, a
-    # hole row (ring entry 3 remapped to the row's sink page, mask slice
-    # false) and a row that sees nothing at all
-    mask = torch.zeros((B, n, page), dtype=torch.bool, device=DEV)
-    mask[:, 0, :sink] = True
-    mask[:, 1:, :tc] = True
-    for j in range(1, n - 1):
-        mask[0, j, 128 * j:128 * (j + 2)] = False
-    table_b = table.clone()
-    table_b[0, 3] = table_b[0, 0]
-    mask[0, 3] = False
-    mask[1] = False
-    mask = mask.view(B, n * page)
-    run("masked bf16 (drops, hole, empty row)", q, kp, vp, table_b, mask,
-        **hint)
-    run("masked fp8 pages (drops, hole, empty row)", q, kf, vf, table_b,
-        mask, **hint)
-    # ... and the same mask without the extent hint (full pages)
-    run("masked bf16, full pages", q, kp, vp, table_b, mask)
+    def masked(q, kp, vp, kf, vf, table, label):
+        """(b) explicit mask: sparsity-style 128-token drops on ring
+        pages, a hole row (ring entry 3 remapped to the row's sink page,
+        mask slice false) and a row that sees nothing at all, over bf16
+        and e4m3 pages, and over bf16 pages without the extent hint"""
+        mask = torch.zeros((B, n, page), dtype=torch.bool, device=DEV)
+        mask[:, 0, :sink] = True
+        mask[:, 1:, :tc] = True
+        for j in range(1, n - 1):
+            mask[0, j, 128 * j:128 * (j + 2)] = False
+        table_b = table.clone()
+        table_b[0, 3] = table_b[0, 0]
+        mask[0, 3] = False
+        mask[1] = False
+        mask = mask.view(B, n * page)
+        run(f"masked bf16 (drops, hole, empty row){label}", q, kp, vp,
+            table_b, mask, **hint)
+        run(f"masked fp8 pages (drops, hole, empty row){label}", q, kf, vf,
+            table_b, mask, **hint)
+        # ... and the same mask without the extent hint (full pages)
+        run(f"masked bf16, full pages{label}", q, kp, vp, table_b, mask)
+
+    masked(q, kp, vp, kf, vf, table, "")
     del kf, vf, q, kp, vp
 
     # (c) GQA, group of 4, random token mask
@@ -719,12 +730,15 @@ def phase_kernel(record):
     del q, kp, vp
     torch.cuda.empty_cache()
 
-    # (f) ardit-causal-forcing's heads at the same shape: D 96 loads as
-    # two 64-column TMA boxes, the second half zero-filled
-    d96, _ = timed(KERNEL_D96["H"], KERNEL_D96["D"], " (D 96)")
+    # (f) ardit-causal-forcing's heads at the same shape: bf16 pages on
+    # the D 96 instance (run() checks each launch's instance), all
+    # visible and (b)'s masks
+    d96, tensors = timed(KERNEL_D96["H"], KERNEL_D96["D"], " (D 96)")
     if d96["path"] != "wgmma":
         raise AssertionError(f"D 96 took the {d96['path']} path")
+    masked(*tensors, " (D 96)")
     record["d96"] = d96
+    del tensors
     torch.cuda.empty_cache()
 
     # (d) fp32 queries and pages (the reduced configs' dtype), 3 entries
@@ -3614,6 +3628,12 @@ def phase_modelplane(cfg, params, counters):
             or paged.launches_tc != paged.launches:
         raise AssertionError("co-serve: paged launches are not n_layers x "
                              "dispatches per model on the tensor cores")
+    # every D 96 launch (bf16 pages) on the D 96 instance
+    print(f"  paged launches on the D 96 instance {paged.launches_d96}")
+    if paged.launches_d96 != by_dim[cf_cfg.head_dim]:
+        raise AssertionError(f"co-serve: {paged.launches_d96} of "
+                             f"{by_dim[cf_cfg.head_dim]} D 96 launches on "
+                             f"the D 96 instance")
     for b in co.bundles:
         print(f"  {b.name}: warm-up chunk {b.top_latency:.3f} s, "
               f"time scale {b.time_scale:.3f}, page {b.page_bytes / 1e6:.1f}"

@@ -14,7 +14,8 @@
 //     TMA, or by threads widening an e4m3 tile) and starts on a 1024-byte
 //     boundary of shared memory: rows of 128 bytes (64 bf16 values),
 //     eight rows to a 1024-byte atom (a tile of 16-value rows: the
-//     32-byte swizzle, `desc_sw32`);
+//     32-byte swizzle, `desc_sw32`; of 32-value rows: the 64-byte
+//     swizzle, `desc_sw64`);
 //   * a "full" barrier per ring stage is armed by the producer with the
 //     stage's byte count (arrive.expect_tx) and completes when TMA has
 //     written them; an "empty" barrier per stage completes when every
@@ -350,6 +351,22 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
   const uint64_t addr = smem_u32(smem);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
          (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// The same descriptor for a tile in the 64-byte swizzle (layout type 2):
+// rows of 64 bytes (32 bf16 values), the four 16-byte chunks of a row
+// permuted by address bits 7-8 within each eight-row, 512-byte atom (what
+// TMA's CU_TENSOR_MAP_SWIZZLE_64B writes).
+//   K-major (one 64-byte row per M/N index): SBO = 512, the step between
+//     8-row atoms; LBO is unused; a k16 step moves the start by 32 bytes.
+//   MN-major (one 64-byte row per K index, 32 M/N values; bf16 only):
+//     SBO = 512, the step between groups of 8 K rows; LBO = the step
+//     between 32-wide M/N column blocks.
+__device__ __forceinline__ uint64_t desc_sw64(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(2) << 62);
 }
 
 // The same descriptor for a tile in the 32-byte swizzle (layout type 3):

@@ -43,11 +43,12 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.common.device import sm_count as _sm_count
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha.cu"
@@ -228,17 +229,6 @@ def fwd_items(block: int, n_blocks: int, b: int, sq: int, hq: int,
             break
         items.append(fwd_item(r, b, sq, hq, causal, item_queries))
     return items
-
-
-_SM_COUNT: Dict[int, int] = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
 
 
 def bwd_blocks(b: int, sq: int, skv: int, hq: int, hkv: int,

@@ -39,10 +39,37 @@
 // it is compute-bound, 0.60 TFLOP per call, 0.609 ms at the 989 TFLOP/s
 // bf16 tensor-core peak.
 //
-// Two kernels; the wrapper picks one by dtype, head dim and group.
+// Three kernels; the wrapper picks one by dtype, head dim and group
+// (ops.chunk_instance).
+//
+// bf16 queries over bf16 pages at D = 96, G dividing 64
+// (ardit-causal-forcing): paged_chunk_attention_wgmma96_kernel, the
+// general tensor-core design below made persistent.  At the causal-forcing
+// shape (B 2, 16 heads, 2,640 rows a head) the general grid of 128-row
+// blocks is 672 blocks, 5.1 waves of 132 run as 6, and each 128-column
+// tile carried 32 zero columns.  Here one block an SM takes items from an
+// atomic counter the wrapper zeroes (ops.chunk_items mirrors the order):
+// an item is 192 rows (three consumer warpgroups of 64) of one (b, KV
+// head) over one part of the context, the parts cut every 128 key tiles
+// of the table's extents (1b's 148 tiles: 128 + 20), full parts ranked
+// first, then (b, KV head) and row tile, so the short last parts fill the
+// blocks' ends (ops.chunk_items: max / mean work 1.014 at 1b, against
+// 1.18 with whole items).  Each warpgroup writes its part's (O, m, l) to
+// scratch and counts it done (acq_rel atomics); the last part to finish
+// merges every part's slot in part order, so a row's result does not
+// depend on which finishes last, nor on B, Hkv, the view or the SMs.
+// Tiles are 96 columns: three 32-column TMA boxes in the 64-byte swizzle
+// (desc_sw64), S in six k16 steps, P V one n96 product a k16 step.  Three
+// warpgroups leave 160 registers a thread, too few for S, P and O live
+// together (ptxas then serializes the wgmmas), so each warpgroup runs a
+// tile's S, softmax and P V in turn, and the other two warpgroups'
+// products cover its softmax; its row sums stay per lane until the item
+// ends.  Shared memory: two Q buffers of 36 KB (the next item's Q loads
+// during this one) and three 48 KB stages of K and V: 222,848 B.
 //
 // bf16 queries over bf16 or e4m3 pages at D = 96 or 128, G dividing 128
-// (every full-width model): paged_chunk_attention_wgmma, on the tensor
+// (every other full-width call, and D 96's groups of 128):
+// paged_chunk_attention_wgmma, on the tensor
 // cores, after flash_mha's tensor-core kernel.  Grid (ceil(R/128), Hkv,
 // B).  A block owns 128 rows: one producer warpgroup and two consumer
 // warpgroups of 64 rows (setmaxnreg moves the producer's registers to
@@ -102,6 +129,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include "hopper.cuh"
 
@@ -905,6 +934,566 @@ int launch(const Args& a, int n_pages) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 pages at D = 96: persistent blocks over parts of the context ----
+
+namespace d96 {
+
+constexpr int D = 96;
+// three consumer warpgroups of 64 rows (an item's rows, ops.CHUNK_ROWS):
+// each one's softmax has the two others' products to hide behind
+constexpr int WGS = 3;
+constexpr int BM = 64 * WGS;
+constexpr int THREADS = 128 * (WGS + 1);
+constexpr int TURN_BAR = 1;               // named barriers 1..WGS: turns
+constexpr int STORE_BAR = 1 + WGS;        // a warpgroup's own barrier
+// registers per thread after setmaxnreg: the producer warpgroup's and the
+// consumers' (the block's 64 K registers)
+constexpr int PRODUCER_REGS = 32;
+constexpr int CONSUMER_REGS = 160;
+// the tiles' layout: three 32-column boxes in the 64-byte swizzle (24 KB a
+// tile, no zero-filled columns)
+constexpr int BOX = 32;                   // head-dim columns of a TMA box
+constexpr int ROW = 2 * BOX;              // bytes of a box row
+constexpr int NBOX = D / BOX;
+constexpr int KSTEPS = BOX / 16;          // k16 steps in a box
+constexpr int Q_BYTES = BM * NBOX * ROW;
+constexpr int KV_BYTES = BN * NBOX * ROW; // K (or V) of one tile
+constexpr int STAGE_BYTES = 2 * KV_BYTES;
+constexpr int Q_BUFS = 2;                 // the next item's Q loads early
+constexpr int STAGES = 3;
+constexpr int NO = D / 2;                 // O values per thread (m64n96)
+constexpr int NS = BN / 2;                // S values per thread (m64n128)
+constexpr int SLOT = NO + 4;              // a thread's partial: O, m, l
+constexpr size_t SMEM = 1024 + Q_BUFS * Q_BYTES + STAGES * STAGE_BYTES +
+                        STAGES * BN + 256;
+static_assert(SMEM <= 232448, "over the 227 KB a block may use");
+
+struct Params {
+  const int32_t* table;     // [B, n]
+  const uint8_t* mask;      // [B, n * page] or null
+  const uint8_t* any;       // [B, n]
+  float* m;                 // [B, Hkv, G, Sq]
+  float* l;
+  float* acc;               // [B, Hkv, G, Sq, D]
+  int* sched;               // [0]: the item counter; [1 + u]: unit u's
+                            // parts done (the wrapper zeroes both)
+  float* scratch;           // [units, n_parts, SLOT, 128] (null: one part)
+  int B, Sq, Hkv, G, n, page;
+  int ext0, ext1;           // valid prefix of entry 0 / of the others
+  int T0, T1;               // key tiles of entry 0 / of the others
+  int n_pos;                // key-tile positions: T0 + (n - 1) T1
+  int part_tiles, n_parts;  // a part: part_tiles positions, the last less
+  int n_rt, n_items;        // row tiles of BM; items
+  float scale_log2;
+};
+
+// Rank r's item (ops.chunk_item mirrors it): parts first, so that every
+// row tile's first parts (the longest) come before any last part, then
+// batch row, KV head and row tile, so that the items in flight share a
+// (b, KV head)'s K and V in L2
+__device__ __forceinline__ void item_of(const Params& p, int r, int& part,
+                                        int& b, int& h, int& rt) {
+  rt = r % p.n_rt;
+  int t = r / p.n_rt;
+  h = t % p.Hkv;
+  t /= p.Hkv;
+  b = t % p.B;
+  part = t / p.B;
+}
+
+// The online softmax of a tile's scores in the log2 domain: the row
+// maxima over the 4 lanes of a row, P = 2^(s scale - m) in place, this
+// lane's share of the row sums into l (the lanes' shares add up when the
+// item ends); alpha: the factor the rows' O takes to the new maximum
+__device__ __forceinline__ void softmax(float (&s)[NS], float (&m)[2],
+                                        float (&l)[2], float (&alpha)[2],
+                                        float scale) {
+  float mx[2] = {NEG_INF, NEG_INF}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NS; ++c)
+    mx[(c >> 1) & 1] = fmaxf(mx[(c >> 1) & 1], s[c]);
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    float& mr = mx[x];
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    const float m_new = fmaxf(m[x], mr * scale);
+    alpha[x] = exp2_approx(m[x] - m_new);
+    m[x] = m_new;
+  }
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    s[c] = exp2_approx(fmaf(s[c], scale, -m[(c >> 1) & 1]));
+    rs[(c >> 1) & 1] += s[c];
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) l[x] = l[x] * alpha[x] + rs[x];
+}
+
+// a wgmma descriptor of a tile in the boxes' swizzle (SBO: eight rows)
+__device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo) {
+  return desc_sw64(smem, lbo, 8 * ROW);
+}
+
+// atomicAdd with acquire and release at GPU scope: after a block barrier,
+// it orders the block's earlier writes before it (release is cumulative)
+// and later reads after the other blocks' writes it observes
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// the first key-tile position of table entry e
+__device__ __forceinline__ int entry_pos(const Params& p, int e) {
+  return e == 0 ? 0 : p.T0 + (e - 1) * p.T1;
+}
+
+// O += P V over a tile's keys in k16 steps: V's boxes are the n96
+// operand's column blocks (LBO: one box to the next)
+__device__ __forceinline__ void pv_tile(float (&o)[NO],
+                                        const uint32_t (&pa)[BN / 16][4],
+                                        const uint8_t* sv) {
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < BN / 16; ++t)
+    wgmma_m64n96k16_rs_bf16_tb(o, pa[t], desc(sv + t * 16 * ROW, BN * ROW),
+                               1);
+  wgmma_commit();
+}
+
+// The warpgroup's 64 rows of an item out: straight to m, l, acc when the
+// context is one part; else into the part's scratch slot, and the last of
+// the unit's parts to finish merges every part's slot in part order (so
+// the result does not depend on which finishes last) and stores it.
+__device__ __forceinline__ void store_rows(const Params& p, float (&o)[NO],
+                                           float (&m)[2], float (&l)[2],
+                                           volatile int* done, int part,
+                                           int b, int h, int rt, int cw) {
+  const int tw = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {             // the row sums over its 4 lanes
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (p.n_parts > 1) {
+    const int64_t unit =
+        ((static_cast<int64_t>(b) * p.Hkv + h) * p.n_rt + rt) * WGS + cw;
+    float* base = p.scratch + unit * p.n_parts * (SLOT * 128) + tw;
+    float* mine = base + part * (SLOT * 128);
+#pragma unroll
+    for (int c = 0; c < NO; ++c) mine[c * 128] = o[c];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mine[(NO + r) * 128] = m[r];
+      mine[(NO + 2 + r) * 128] = l[r];
+    }
+    named_sync(STORE_BAR + cw, 128);
+    if (tw == 0) done[cw] = atomic_add_acq_rel(p.sched + 1 + unit, 1);
+    named_sync(STORE_BAR + cw, 128);
+    // (the next write of done[cw] follows the next item's first sync,
+    // which every thread reaches after this read)
+    if (done[cw] != p.n_parts - 1) return;
+    float mx[2] = {NEG_INF, NEG_INF};
+    for (int k = 0; k < p.n_parts; ++k)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(mx[r], __ldcg(base + k * (SLOT * 128) +
+                                    (NO + r) * 128));
+#pragma unroll
+    for (int c = 0; c < NO; ++c) o[c] = 0.f;
+    l[0] = l[1] = 0.f;
+    for (int k = 0; k < p.n_parts; ++k) {
+      const float* src = base + k * (SLOT * 128);
+      float w[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // a part at the maximum weighs exactly 1: a row whose other parts
+        // see nothing gets the one part's partial bit for bit
+        const float mk = __ldcg(src + (NO + r) * 128);
+        w[r] = mk == mx[r] ? 1.f : exp2_approx(mk - mx[r]);
+        l[r] = fmaf(__ldcg(src + (NO + 2 + r) * 128), w[r], l[r]);
+      }
+#pragma unroll
+      for (int c = 0; c < NO; ++c)
+        o[c] = fmaf(__ldcg(src + c * 128), w[(c >> 1) & 1], o[c]);
+    }
+    m[0] = mx[0];
+    m[1] = mx[1];
+  }
+  // partials out in the [B,Hkv,G,Sq(,D)] layout, m in natural units
+  // (scores x scale); a row that saw nothing keeps exactly (-1e30, 0, 0)
+  const int R = p.Sq * p.G;
+  const int col0 = 2 * (lane % 4);
+  const int rloc = rt * BM + 64 * cw + 16 * (tw / 32) + lane / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rloc + 8 * r;
+    if (row >= R) continue;
+    const int i = row / p.G, g = row - i * p.G;
+    const int64_t at =
+        ((static_cast<int64_t>(b) * p.Hkv + h) * p.G + g) * p.Sq + i;
+    if (lane % 4 == 0) {
+      p.m[at] = m[r] == NEG_INF ? NEG_INF : m[r] * LN2;
+      p.l[at] = l[r];
+    }
+    float* dst = p.acc + at * D + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+  }
+}
+
+// The consumer warpgroups: for each item the producer hands over (its rank
+// in the Q buffer's slot; -1: no more), each of the item's tiles in turn:
+// S = Q K^T, the mask, the softmax, O's rescale and P V (the other two
+// warpgroups' products cover this one's softmax, and S, P and O are never
+// all live), turns through named barriers 1..3, the same wgmma sequence on
+// every tile, until the item's end word; then its rows out.  The end
+// word's stage and the Q buffer are released at once, so the next item's
+// Q and tiles load meanwhile.
+__device__ __forceinline__ void consume(
+    const Params& p, const uint8_t* sq, const uint8_t* skv, uint64_t* full,
+    uint64_t* empty, uint64_t* qfull, uint64_t* qempty,
+    const volatile int* info, const volatile int* item_slot,
+    const uint8_t* vis, volatile int* done) {
+  const int cw = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);
+  const float scale = p.scale_log2;
+
+  float o[NO], s[NS];
+  uint32_t pa[BN / 16][4];          // P of the tile, bf16 pairs
+#pragma unroll
+  for (int c = 0; c < NS; ++c) s[c] = 0.f;
+
+  // the warpgroups take turns at issuing their products, 0, 1, 2, 0, ..
+  // across tiles and items; the last one's arrival opens 0's first turn
+  const int turn = TURN_BAR + cw, next_turn = TURN_BAR + (cw + 1) % WGS;
+  if (cw == WGS - 1) named_arrive(TURN_BAR, 256);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int k = 0;; ++k) {
+    const int qb = k % Q_BUFS;
+    mbar_wait(&qfull[qb], (k / Q_BUFS) & 1);
+    const int r = item_slot[qb];
+    if (r < 0) break;
+    int part, b, h, rt;
+    item_of(p, r, part, b, h, rt);
+    const uint8_t* q_wg = sq + qb * Q_BYTES + 64 * cw * ROW;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) o[c] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      if (info[2 * stage] < 0) break;
+      const bool mixed = info[2 * stage + 1] != 0;
+      const uint8_t* sk = skv + stage * STAGE_BYTES;
+      named_sync(turn, 256);
+      // S = Q K^T over D 96 in k16 steps: box kk / KSTEPS, 32 bytes a
+      // step inside its rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % KSTEPS) * 32;
+        wgmma_m64n128k16_ss_bf16(
+            s, desc(q_wg + (kk / KSTEPS) * BM * ROW + off, 16),
+            desc(sk + (kk / KSTEPS) * BN * ROW + off, 16), kk > 0);
+      }
+      wgmma_commit();
+      named_arrive(next_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      // hidden tokens' scores become -inf, then the softmax; K, the words
+      // and the bytes are released once read, V after P V
+      if (mixed) mask_cols(s, vis + stage * BN, col0);
+      release(empty, stage, lane);
+      float alpha[2];
+      softmax(s, m, l, alpha, scale);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) o[c] *= alpha[(c >> 1) & 1];
+#pragma unroll
+      for (int t = 0; t < BN / 16; ++t)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          pa[t][x] = pack_bf16(s[8 * t + 2 * x], s[8 * t + 2 * x + 1]);
+      pv_tile(o, pa, sk + KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(empty, stage, lane);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // the end word's stage (both of each warp's arrivals), and Q: every S
+    // of the item has completed
+    release(empty, stage, lane);
+    release(empty, stage, lane);
+    release(qempty, qb, lane);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+    store_rows(p, o, m, l, done, part, b, h, rt, cw);
+  }
+  if (cw == 0) named_sync(TURN_BAR, 256);  // the last one's last turn
+}
+
+// Warp 0 of the producer warpgroup, all 32 lanes: takes items from the
+// counter as its Q buffers free up (lane 0's atomicAdd), loads each item's
+// Q (three boxes of 128 / G positions x G heads), then walks the table
+// entries of the item's part (key-tile positions [part x part_tiles, +
+// part_tiles)), skipping entries with page_any == 0 and tiles no token
+// of which is visible, and stages each tile as the general instance does
+// (visibility bytes, words, three 32-column boxes each of K and V); ends
+// the item with a word of -1 and the kernel with a Q slot of -1.
+__device__ __forceinline__ void produce(
+    const Params& p, const CUtensorMap* tq, const CUtensorMap* tk0,
+    const CUtensorMap* tk1, const CUtensorMap* tv0, const CUtensorMap* tv1,
+    uint8_t* sq, uint8_t* skv, uint64_t* full, uint64_t* empty,
+    uint64_t* qfull, uint64_t* qempty, volatile int* info,
+    volatile int* item_slot, uint8_t* vis) {
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    tma_prefetch(tq);
+    tma_prefetch(tk0);
+    tma_prefetch(tk1);
+    tma_prefetch(tv0);
+    tma_prefetch(tv1);
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int k = 0;; ++k) {
+    const int qb = k % Q_BUFS;
+    mbar_wait(&qempty[qb], ((k / Q_BUFS) & 1) ^ 1);
+    int r = 0;
+    if (lane == 0) r = atomicAdd(p.sched, 1);
+    r = __shfl_sync(0xffffffffu, r, 0);
+    if (r >= p.n_items) {
+      if (lane == 0) {
+        item_slot[qb] = -1;
+        mbar_arrive(&qfull[qb]);
+      }
+      break;
+    }
+    int part, b, h, rt;
+    item_of(p, r, part, b, h, rt);
+    if (lane == 0) {
+      // rows rt*128 .. +127 are (query i, group g) = (row / G, row % G)
+      uint8_t* dq = sq + qb * Q_BYTES;
+      item_slot[qb] = r;
+      mbar_arrive_expect_tx(&qfull[qb], Q_BYTES);
+#pragma unroll
+      for (int x = 0; x < NBOX; ++x)
+        tma_load_4d(dq + x * BM * ROW, tq, &qfull[qb], BOX * x, h * p.G,
+                    rt * BM / p.G, b);
+    }
+    const int p0 = part * p.part_tiles;
+    const int p1 = min(p0 + p.part_tiles, p.n_pos);
+    const int64_t row_bn = static_cast<int64_t>(b) * p.n;
+    for (int e = p0 < p.T0 ? 0 : 1 + (p0 - p.T0) / p.T1;
+         e < p.n && entry_pos(p, e) < p1; ++e) {
+      // a page no token of which is visible contributes nothing
+      if (!p.any[row_bn + e]) continue;
+      const int pid = p.table[row_bn + e];
+      const int base = entry_pos(p, e);
+      const int limit = e == 0 ? p.ext0 : p.ext1;
+      const CUtensorMap* tk = e == 0 ? tk0 : tk1;
+      const CUtensorMap* tv = e == 0 ? tv0 : tv1;
+      const uint8_t* mrow =
+          p.mask ? p.mask + (row_bn + e) * p.page : nullptr;
+      const int ta = max(p0 - base, 0);
+      const int tb = min(p1 - base, e == 0 ? p.T0 : p.T1);
+      for (int t = ta; t < tb; ++t) {
+        const int t0 = t * BN;
+        const int nvalid = min(BN, limit - t0);
+        uint32_t word = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = 4 * lane + c;
+          bool v = col < nvalid;
+          if (v && mrow != nullptr) v = mrow[t0 + col] != 0;
+          word |= static_cast<uint32_t>(v) << (8 * c);
+        }
+        if (!__any_sync(0xffffffffu, word != 0)) continue;
+        const bool all = __all_sync(0xffffffffu, word == 0x01010101u);
+        mbar_wait(&empty[stage], phase ^ 1);
+        reinterpret_cast<uint32_t*>(vis + stage * BN)[lane] = word;
+        if (lane == 0) {
+          info[2 * stage] = nvalid;
+          info[2 * stage + 1] = all ? 0 : 1;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          uint8_t* dk = skv + stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+#pragma unroll
+          for (int x = 0; x < NBOX; ++x) {
+            tma_load_4d(dk + x * BN * ROW, tk, &full[stage], BOX * x, h, t0,
+                        pid);
+            tma_load_4d(dk + KV_BYTES + x * BN * ROW, tv, &full[stage],
+                        BOX * x, h, t0, pid);
+          }
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) {
+      info[2 * stage] = -1;          // end of the item
+      mbar_arrive(&full[stage]);
+    }
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+paged_chunk_attention_wgmma96_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk0,
+                                     const __grid_constant__ CUtensorMap tk1,
+                                     const __grid_constant__ CUtensorMap tv0,
+                                     const __grid_constant__ CUtensorMap tv1,
+                                     Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* skv = sq + Q_BUFS * Q_BYTES;
+  uint8_t* vis = skv + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vis + STAGES * BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + Q_BUFS;
+  volatile int* info = reinterpret_cast<volatile int*>(qempty + Q_BUFS);
+  volatile int* item_slot = info + 2 * STAGES;
+  volatile int* done = item_slot + Q_BUFS;       // one slot a warpgroup
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      // full: TMA's one arrival; empty: every consumer warp after S and
+      // after P V
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8 * WGS);
+    }
+    for (int st = 0; st < Q_BUFS; ++st) {
+      mbar_init(&qfull[st], 1);
+      mbar_init(&qempty[st], 4 * WGS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x < 32)
+      produce(p, &tq, &tk0, &tk1, &tv0, &tv1, sq, skv, full, empty, qfull,
+              qempty, info, item_slot, vis);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume(p, sq, skv, full, empty, qfull, qempty, info, item_slot, vis,
+            done);
+  }
+}
+
+// The pool view [n_pages, page, Hkv, 96] as a 4-D tensor map from its own
+// strides (in elements) with `extent` tokens per page, in boxes of BOX
+// head-dim columns x BN tokens in the boxes' swizzle
+constexpr CUtensorMapSwizzle SWIZZLE = CU_TENSOR_MAP_SWIZZLE_64B;
+
+inline int pool_map(CUtensorMap* map, const void* base, int Hkv, int extent,
+                    int n_pages, int64_t page_stride, int64_t tok_stride) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(extent),
+                              static_cast<cuuint64_t>(n_pages)};
+  const cuuint64_t strides[3] = {2ull * D,
+                                 2ull * static_cast<cuuint64_t>(tok_stride),
+                                 2ull * static_cast<cuuint64_t>(page_stride)};
+  const cuuint32_t box[4] = {BOX, 1, BN, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                      strides, box, SWIZZLE);
+}
+
+// n_blocks: the persistent grid (ops: one block per SM, at most one per
+// item); sched: 1 + B * Hkv * n_rt * WGS int32 the wrapper zeroes;
+// scratch: B * Hkv * n_rt * WGS * n_parts * SLOT * 128 floats when the
+// context is cut into more than one part of part_tiles key tiles.
+int launch(const Args& a, int n_pages, int part_tiles, int n_blocks,
+           int* sched, float* scratch) {
+  const int G = a.Hq / a.Hkv;
+  const bool hinted = a.sink > 0 && a.chunk_tokens > 0;
+  Params p{};
+  p.table = a.bt;
+  p.mask = a.mask;
+  p.any = a.any;
+  p.m = a.m;
+  p.l = a.l;
+  p.acc = a.acc;
+  p.sched = sched;
+  p.scratch = scratch;
+  p.B = a.B;
+  p.Sq = a.Sq;
+  p.Hkv = a.Hkv;
+  p.G = G;
+  p.n = a.n;
+  p.page = a.page;
+  p.ext0 = hinted && a.sink < a.page ? a.sink : a.page;
+  p.ext1 = hinted && a.chunk_tokens < a.page ? a.chunk_tokens : a.page;
+  p.T0 = (p.ext0 + BN - 1) / BN;
+  p.T1 = (p.ext1 + BN - 1) / BN;
+  p.n_pos = a.n > 0 ? p.T0 + (a.n - 1) * p.T1 : 0;
+  p.part_tiles = part_tiles;
+  p.n_parts = p.n_pos > part_tiles ? (p.n_pos + part_tiles - 1) / part_tiles
+                                   : 1;
+  p.n_rt = (a.Sq * G + BM - 1) / BM;
+  p.scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
+  const long long n_items =
+      static_cast<long long>(p.n_parts) * a.B * a.Hkv * p.n_rt;
+  if (part_tiles <= 0 || n_items > INT_MAX || n_blocks <= 0 ||
+      n_blocks > n_items || sched == nullptr ||
+      (p.n_parts > 1 && scratch == nullptr))
+    return -5;
+  p.n_items = static_cast<int>(n_items);
+  // q [B, Sq, Hq, 96] bf16: boxes of BOX columns x G heads x BM / G rows
+  CUtensorMap tq, tk0, tk1, tv0, tv1;
+  const cuuint64_t qd[4] = {static_cast<cuuint64_t>(D),
+                            static_cast<cuuint64_t>(a.Hq),
+                            static_cast<cuuint64_t>(a.Sq),
+                            static_cast<cuuint64_t>(a.B)};
+  const cuuint64_t qs[3] = {2ull * D, 2ull * D * a.Hq, 2ull * D * a.Hq * a.Sq};
+  const cuuint32_t qb[4] = {BOX, static_cast<cuuint32_t>(G),
+                            static_cast<cuuint32_t>(BM / G), 1};
+  if (encode_tiled(&tq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.q, qd, qs, qb,
+                   SWIZZLE) ||
+      pool_map(&tk0, a.k, a.Hkv, p.ext0, n_pages, a.page_stride,
+               a.tok_stride) ||
+      pool_map(&tk1, a.k, a.Hkv, p.ext1, n_pages, a.page_stride,
+               a.tok_stride) ||
+      pool_map(&tv0, a.v, a.Hkv, p.ext0, n_pages, a.page_stride,
+               a.tok_stride) ||
+      pool_map(&tv1, a.v, a.Hkv, p.ext1, n_pages, a.page_stride,
+               a.tok_stride))
+    return -4;
+  auto kern = paged_chunk_attention_wgmma96_kernel;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<n_blocks, THREADS, SMEM, a.stream>>>(tq, tk0, tk1, tv0, tv1, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace d96
+
 }  // namespace tc
 
 }  // namespace
@@ -970,6 +1559,36 @@ extern "C" int paged_chunk_attention_wgmma_launch(
   return -1;
 }
 
+// The D 96 instance (bf16 q over bf16 pages at D 96): the arguments of
+// paged_chunk_attention_wgmma_launch, then the persistent grid n_blocks,
+// the part length part_tiles (key tiles; ops.CHUNK_PART_TILES), sched
+// (1 + B * Hkv * ceil(Sq * G / 192) * 3 zeroed int32) and scratch (null,
+// or the parts' partials: ops.chunk_scratch_floats).  The group must
+// divide an item's 192 rows.  Returns as paged_chunk_attention_wgmma_launch.
+extern "C" int paged_chunk_attention_wgmma96_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_table, const void* page_mask, const void* page_any,
+    void* m, void* l, void* acc, int B, int Sq, int Hq, int Hkv, int D,
+    int page, int n, int sink, int chunk_tokens, int q_dtype, int kv_dtype,
+    long long page_stride, long long tok_stride, int n_pages, int part_tiles,
+    int n_blocks, void* sched, void* scratch, void* stream) {
+  Args a{q, k_pages, v_pages, static_cast<const int32_t*>(block_table),
+         static_cast<const uint8_t*>(page_mask),
+         static_cast<const uint8_t*>(page_any), static_cast<float*>(m),
+         static_cast<float*>(l), static_cast<float*>(acc), B, Sq, Hq, Hkv,
+         page, n, sink, chunk_tokens, page_stride, tok_stride,
+         static_cast<cudaStream_t>(stream)};
+  if (B == 0 || Sq == 0) return 0;
+  if (D != 96) return -1;
+  if (q_dtype != 1) return -3;
+  if (kv_dtype != 1) return -2;
+  if (Hkv <= 0 || Hq % Hkv || tc::d96::BM % (Hq / Hkv) || n_pages <= 0)
+    return -5;
+  return tc::d96::launch(a, n_pages, part_tiles, n_blocks,
+                         static_cast<int*>(sched),
+                         static_cast<float*>(scratch));
+}
+
 extern "C" const char* paged_chunk_attention_error_string(int code) {
   switch (code) {
     case -1: return "unsupported head dim (16, 96 or 128; 96 or 128 on the "
@@ -979,7 +1598,8 @@ extern "C" const char* paged_chunk_attention_error_string(int code) {
     case -4: return "tensor map encoding failed (alignment, or no "
                     "cuTensorMapEncodeTiled in the driver)";
     case -5: return "unsupported shape (the group Hq / Hkv must divide 128; "
-                    "heads, batch or pages)";
+                    "heads, batch or pages; the D 96 instance's grid, "
+                    "counters or scratch)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

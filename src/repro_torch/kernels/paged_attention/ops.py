@@ -10,23 +10,31 @@ fallback between the two.  ``kernel_path`` picks the chunk kernel from
 the dtypes, head dim and group alone: bf16 queries over bf16 or e4m3
 pages at D 96 or 128 with a group dividing 128 (every full-width model)
 run on the tensor cores (wgmma fed by TMA through the page table),
-everything else on the CUDA cores; ``decode_kernel_path`` sends bf16
+everything else on the CUDA cores; ``chunk_instance`` names the
+tensor-core instance: bf16 pages at D 96 (ardit-causal-forcing) take the
+persistent D 96 instance, whose items cut a row tile's context into parts
+(``chunk_parts``, ``chunk_items``), the rest the general one.
+``decode_kernel_path`` sends bf16
 decode queries over bf16 or e4m3 pages at D 64 or 128 (minitron-8b's
 decode) to the split, TMA-fed tensor-core decode kernel.  Each wrapper's
 ``launches`` counts its kernel launches; ``launches_tc`` counts the
 tensor-core launches among them (the chunk kernel's and the decode
 kernel's), ``view_launches`` those that read
-a head-range view of a wider pool (elastic SP2's half-head shards), and
-the chunk kernel's ``launches_by_dim`` its launches per head dim (two
-co-served models of different head dims share the one kernel).
+a head-range view of a wider pool (elastic SP2's half-head shards), the
+chunk kernel's ``launches_by_dim`` its launches per head dim (two
+co-served models of different head dims share the one kernel) and
+``launches_d96`` its launches of the D 96 instance.
 """
 from __future__ import annotations
 
 import ctypes
+import heapq
 from pathlib import Path
+from typing import List, Tuple
 
 import torch
 
+from repro_torch.kernels.common.device import sm_count
 from repro_torch.kernels.common.grad import no_grad_through
 from repro_torch.kernels.paged_attention import ref as _ref
 
@@ -59,9 +67,173 @@ def kernel_path(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int,
     return "cuda_cores"
 
 
-def _lib() -> ctypes.CDLL:
-    from repro_torch.kernels.build import load
-    lib = load(SOURCE)
+# The D 96 instance (the constants of csrc's d96 namespace): items of
+# CHUNK_ROWS query rows (three consumer warpgroups of 64) over one part of
+# a row tile's context, key tiles of CHUNK_TILE tokens cut into parts of
+# CHUNK_PART_TILES tiles (16,384 key positions; the last part less); a
+# part's partial per warpgroup is CHUNK_SLOT floats of scratch (48 of O,
+# 2 of m, 2 of l a thread)
+CHUNK_ROWS = 192
+CHUNK_TILE = 128
+CHUNK_PART_TILES = 128
+CHUNK_SLOT = (96 // 2 + 4) * 128
+# what chunk_items charges an item beyond its key tiles, in key tiles: the
+# last P V, the rows out or into scratch, the merge
+CHUNK_ITEM_COST = 1
+
+
+def chunk_instance(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                   head_dim: int, group: int) -> str:
+    """The kernel instance that takes chunk queries of ``q_dtype`` over
+    pages of ``kv_dtype``: ``"wgmma96"`` (persistent blocks over parts
+    of the context, ``paged_chunk_attention_wgmma96_kernel``) for bf16
+    queries over bf16 pages at D 96 with a group that divides 64 (an
+    item's 192 rows are whole groups, as a general block's 128 are),
+    else ``kernel_path``'s ``"wgmma"`` (the general tensor-core instance)
+    or ``"cuda_cores"``."""
+    path = kernel_path(q_dtype, kv_dtype, head_dim, group)
+    if path == "wgmma" and kv_dtype == torch.bfloat16 and head_dim == 96 \
+            and CHUNK_ROWS % group == 0:
+        return "wgmma96"
+    return path
+
+
+def chunk_extents(page: int, sink: int = 0,
+                  chunk_tokens: int = 0) -> Tuple[int, int]:
+    """Tokens read of table entry 0 and of the others: the hint's
+    ``sink`` / ``chunk_tokens`` when both are given, else whole pages."""
+    if sink > 0 and chunk_tokens > 0:
+        return min(sink, page), min(chunk_tokens, page)
+    return page, page
+
+
+def chunk_parts(n: int, page: int, sink: int = 0, chunk_tokens: int = 0,
+                part_tiles: int = CHUNK_PART_TILES) -> List[Tuple[int, int]]:
+    """The parts the D 96 instance cuts every row tile's context into,
+    as key-tile positions [p0, p1): entry 0's ceil(ext0 / 128) tiles,
+    then each other entry's ceil(ext1 / 128), cut every ``part_tiles``
+    positions (one part when they fit).  A function of the table's
+    extents alone: never of the batch, the heads, a view's head offset or
+    the SM count, so a row's result depends only on its own inputs."""
+    ext0, ext1 = chunk_extents(page, sink, chunk_tokens)
+    n_pos = -(-ext0 // CHUNK_TILE) + (n - 1) * -(-ext1 // CHUNK_TILE) \
+        if n > 0 else 0
+    if n_pos <= part_tiles:
+        return [(0, n_pos)]
+    return [(p0, min(p0 + part_tiles, n_pos))
+            for p0 in range(0, n_pos, part_tiles)]
+
+
+def part_token_mask(n: int, page: int, sink: int, chunk_tokens: int,
+                    p0: int, p1: int) -> torch.Tensor:
+    """[n * page] bool: the tokens of key-tile positions [p0, p1) (in
+    the entries' extents)."""
+    ext0, ext1 = chunk_extents(page, sink, chunk_tokens)
+    t0, t1 = -(-ext0 // CHUNK_TILE), -(-ext1 // CHUNK_TILE)
+    out = torch.zeros((n, page), dtype=torch.bool)
+    for e in range(n):
+        base, ext = (0, ext0) if e == 0 else (t0 + (e - 1) * t1, ext1)
+        lo = max(p0 - base, 0) * CHUNK_TILE
+        hi = min(max(p1 - base, 0) * CHUNK_TILE, ext)
+        if lo < hi:
+            out[e, lo:hi] = True
+    return out.view(-1)
+
+
+def merge_parts(parts):
+    """The plain form of the D 96 instance's merge: partials (m, l, acc)
+    of the parts, in part order, into one: m the maximum, l and acc the
+    parts' sums rescaled to it, added in part order; a row that sees
+    nothing in every part keeps (-1e30, 0, 0)."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pacc in parts:
+        w = torch.exp(pm - m)
+        l = l + pl * w
+        acc = acc + pacc * w[..., None]
+    return m, l, acc
+
+
+def chunk_item(r: int, b: int, hkv: int,
+               n_rt: int) -> Tuple[int, int, int, int]:
+    """Rank ``r``'s (part, batch row, KV head, row tile) in the D 96
+    instance (``d96::item_of``): parts first, so that every row tile's
+    full parts come before any shorter last part, then batch row, KV
+    head and row tile, so that the items in flight share a (b, KV
+    head)'s K and V in L2."""
+    rt, t = r % n_rt, r // n_rt
+    return t // hkv // b, t // hkv % b, t % hkv, rt
+
+
+def chunk_blocks(n_items: int, n_sm: int) -> int:
+    """The D 96 instance's persistent grid: one block per SM, never
+    more than its items."""
+    return max(1, min(n_items, n_sm))
+
+
+def chunk_items(b: int, hkv: int, sq: int, group: int, n: int, page: int,
+                sink: int = 0, chunk_tokens: int = 0, n_sm: int = 132,
+                part_tiles: int = CHUNK_PART_TILES):
+    """The D 96 instance's items in rank order, each (part, batch row,
+    KV head, row tile, p0, p1), and the max / mean work per block of the
+    schedule its atomic counter gives on ``n_sm`` SMs when an item costs
+    its key tiles (all visible) plus ``CHUNK_ITEM_COST``: each block
+    takes the next rank as it comes free."""
+    parts = chunk_parts(n, page, sink, chunk_tokens, part_tiles)
+    n_rt = -(-sq * group // CHUNK_ROWS)
+    n_items = len(parts) * b * hkv * n_rt
+    items = []
+    for r in range(n_items):
+        part, bb, h, rt = chunk_item(r, b, hkv, n_rt)
+        items.append((part, bb, h, rt) + parts[part])
+    n_blocks = chunk_blocks(n_items, n_sm)
+    free = [(0, j) for j in range(n_blocks)]
+    total = 0
+    for it in items:
+        cost = it[5] - it[4] + CHUNK_ITEM_COST
+        t, j = heapq.heappop(free)
+        heapq.heappush(free, (t + cost, j))
+        total += cost
+    return items, max(t for t, _ in free) / (total / n_blocks)
+
+
+def chunk_units(b: int, hkv: int, sq: int, group: int) -> int:
+    """The D 96 instance's warpgroup units: (batch row, KV head, row
+    tile of CHUNK_ROWS, warpgroup of 64 rows), each with a count of its
+    parts done and a scratch slot per part."""
+    return b * hkv * -(-sq * group // CHUNK_ROWS) * (CHUNK_ROWS // 64)
+
+
+def chunk_scratch_floats(b: int, hkv: int, sq: int, group: int,
+                         n_parts: int) -> int:
+    """Floats of the D 96 instance's scratch: a CHUNK_SLOT per unit
+    and part; none for one part."""
+    if n_parts <= 1:
+        return 0
+    return chunk_units(b, hkv, sq, group) * n_parts * CHUNK_SLOT
+
+
+def chunk_buffers(b: int, hkv: int, sq: int, group: int, n: int, page: int,
+                  sink: int, chunk_tokens: int, dev: torch.device,
+                  part_tiles: int = CHUNK_PART_TILES):
+    """What the D 96 instance takes after the pool's page count: the part
+    length, the persistent grid (``chunk_blocks`` on the card's SMs), the
+    item counter and each unit's count of parts done (zeroed int32), and
+    the parts' partials when there are several (else None)."""
+    n_parts = len(chunk_parts(n, page, sink, chunk_tokens, part_tiles))
+    n_items = n_parts * b * hkv * -(-sq * group // CHUNK_ROWS)
+    sched = torch.zeros(1 + chunk_units(b, hkv, sq, group),
+                        dtype=torch.int32, device=dev)
+    floats = chunk_scratch_floats(b, hkv, sq, group, n_parts)
+    scratch = torch.empty(floats, dtype=torch.float32,
+                          device=dev) if floats else None
+    return part_tiles, chunk_blocks(n_items, sm_count(dev)), sched, scratch
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument types of a built ``paged_chunk_attention.cu``'s
+    entry points (also of an edited copy's, for ``profile_paged``)."""
     fn = lib.paged_chunk_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
@@ -71,13 +243,24 @@ def _lib() -> ctypes.CDLL:
         tc.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
             + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
         tc.restype = ctypes.c_int
+        d96 = lib.paged_chunk_attention_wgmma96_launch
+        d96.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p] * 3
+        d96.restype = ctypes.c_int
         lib.paged_chunk_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_chunk_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    return bind(load(SOURCE))
+
+
 def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
             chunk_tokens):
+    """One launch of the instance ``chunk_instance`` names."""
     b, sq, hq, d = q.shape
     n_total, page, hkv, dk = k_pages.shape
     n = block_table.shape[1]
@@ -119,7 +302,8 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         mask = page_mask.to(torch.uint8).contiguous()
         page_any = mask.view(b, n, page).amax(dim=-1).contiguous()
     g = hq // hkv
-    tc = kernel_path(q.dtype, k_pages.dtype, d, g) == "wgmma"
+    inst = chunk_instance(q.dtype, k_pages.dtype, d, g)
+    tc = inst != "cuda_cores"
     if tc and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("the tensor-core path reads q and the pools by "
                          "TMA: they must be 16-byte aligned")
@@ -135,7 +319,13 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
             k_pages.stride(1))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):        # the runtime launches on its device
-        if tc:
+        if inst == "wgmma96":
+            part_tiles, n_blocks, sched, scratch = chunk_buffers(
+                b, hkv, sq, g, n, page, sink, chunk_tokens, dev)
+            err = lib.paged_chunk_attention_wgmma96_launch(
+                *args, n_total, part_tiles, n_blocks, sched.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), stream)
+        elif tc:
             err = lib.paged_chunk_attention_wgmma_launch(*args, n_total,
                                                          stream)
         else:
@@ -145,6 +335,7 @@ def _launch(q, k_pages, v_pages, block_table, page_mask, sink,
         raise RuntimeError(f"paged_chunk_attention launch failed: {msg}")
     paged_chunk_attention.launches += 1
     paged_chunk_attention.launches_tc += int(tc)
+    paged_chunk_attention.launches_d96 += int(inst == "wgmma96")
     by_dim = paged_chunk_attention.launches_by_dim
     by_dim[d] = by_dim.get(d, 0) + 1
     if k_pages.stride(1) != hkv * d:
@@ -183,6 +374,7 @@ def paged_chunk_attention(q, k_pages, v_pages, block_table, page_mask,
 
 paged_chunk_attention.launches = 0
 paged_chunk_attention.launches_tc = 0
+paged_chunk_attention.launches_d96 = 0
 paged_chunk_attention.view_launches = 0
 paged_chunk_attention.launches_by_dim = {}
 

@@ -229,10 +229,19 @@ def print_ptxas(log):
             print("   ", line.strip()[:200])
 
 
-def variant_libs(source, variants):
+def bind_flash(lib):
+    """Argument types of a built ``flash_mha.cu``'s tensor-core entry."""
+    lib.flash_mha_wgmma_launch.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 2
+    lib.flash_mha_wgmma_launch.restype = ctypes.c_int
+    return lib
+
+
+def variant_libs(source, variants, bind=bind_flash):
     """Copies of ``source``, one per name in ``variants`` with each of its
     (old, new) edits applied once, built beside the kernels (one nvcc
-    each, all started together)."""
+    each, all started together), each passed through ``bind`` (which
+    sets its entry points' argument types)."""
     from repro_torch.kernels import build
     paths = {}
     for name, edits in variants.items():
@@ -242,7 +251,7 @@ def variant_libs(source, variants):
                 raise ValueError(f"variant {name}: {old!r} occurs "
                                  f"{text.count(old)} times")
             text = text.replace(old, new)
-        paths[name] = build.build_dir() / f"flash_mha_{name}.cu"
+        paths[name] = build.build_dir() / f"{source.stem}_{name}.cu"
         paths[name].parent.mkdir(parents=True, exist_ok=True)
         paths[name].write_text(text)
     build.build(list(paths.values()))
@@ -251,10 +260,7 @@ def variant_libs(source, variants):
         lib = build.load(path)
         print(f"  variant {name}:")
         print_ptxas(build.BUILD_LOGS.get(str(path), ""))
-        lib.flash_mha_wgmma_launch.argtypes = [ctypes.c_void_p] * 6 \
-            + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 2
-        lib.flash_mha_wgmma_launch.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = bind(lib)
     return libs
 
 

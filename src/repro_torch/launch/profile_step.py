@@ -2,7 +2,9 @@
 device time.
 
 Builds a ``BatchedChunkExecutor`` for full-width ``ardit-self-forcing``
-on the card with random weights from a seed (adaLN gates opened), fills
+(or ``--arch ardit-causal-forcing``: 16 heads of 96, kernel 1's D 96
+instance) on the card with random weights from a seed (adaLN gates
+opened), fills
 3 streams to ``--fill`` chunks of context, then traces 2 batched steps
 with ``torch.profiler`` and prints the device time by kernel and by
 category (the paged attention kernel, the attention segments' fp32
@@ -14,6 +16,8 @@ through the flash kernel)::
 
     python -m repro_torch.launch.profile_step            # 2 chunks
     python -m repro_torch.launch.profile_step --fill 7   # full window
+    python -m repro_torch.launch.profile_step --arch ardit-causal-forcing \
+        --fill 7
     python -m repro_torch.launch.profile_step --sequential --fill 2
 """
 from __future__ import annotations
@@ -24,7 +28,7 @@ import time
 
 import torch
 
-ARCH = "ardit-self-forcing"
+ARCHS = ("ardit-self-forcing", "ardit-causal-forcing")
 STREAMS = 3
 STEPS = 2
 GEMM = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
@@ -55,6 +59,7 @@ def main() -> None:
                     help="chunks of context each stream holds when traced")
     ap.add_argument("--sequential", action="store_true",
                     help="trace one whole chunk of the sequential executor")
+    ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
     args = ap.parse_args()
 
     from repro_torch.configs.base import get_config
@@ -62,7 +67,7 @@ def main() -> None:
     from repro_torch.models import ardit as A
     from repro_torch.serve.batcher import BatchedChunkExecutor
 
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     params = A.open_gates(A.init_params(cfg, gen, dev), gen)
@@ -95,7 +100,8 @@ def main() -> None:
         wall = time.perf_counter() - t0
 
     report(prof, category, STEPS, wall,
-           f"{ARCH}: {STREAMS} rows, context {ctx} tokens, {STEPS} steps")
+           f"{cfg.name}: {STREAMS} rows, context {ctx} tokens, {STEPS} "
+           f"steps")
 
 
 def profile_sequential(cfg, params, dev, fid, fill: int, ctx: int) -> None:
@@ -118,7 +124,8 @@ def profile_sequential(cfg, params, dev, fid, fill: int, ctx: int) -> None:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     report(prof, category, 1, wall,
-           f"{ARCH}: sequential, 1 row, context {ctx} tokens, one chunk")
+           f"{cfg.name}: sequential, 1 row, context {ctx} tokens, one "
+           f"chunk")
 
 
 def report(prof, category, steps: int, wall: float, title: str,

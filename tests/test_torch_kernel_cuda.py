@@ -15,7 +15,11 @@ explicit masks with and without the extent hint, a hole row and a row
 that sees nothing, the main path's 2,640-token pages with a 77-token
 sink, and ``ardit-causal-forcing``'s full-width chunk (2,640 queries,
 16 heads of 96); every launch is checked to take the path ``kernel_path`` names
-(``launches_tc``).  Tolerance: both accumulate in fp32 — m within 1e-4,
+(``launches_tc``).  bf16 pages at D 96 take the persistent D 96 instance
+(``chunk_instance``, counted in ``launches_d96``): at GQA 1, 2 and 4, on
+the main path's pages with a context cut into parts, masked and not,
+with and without the hint; an 8-head view of a 16-head pool gives the
+full launch's rows bit for bit, and two calls give the same bits.  Tolerance: both accumulate in fp32 — m within 1e-4,
 l within 1e-4 relative; the finalized acc / l within 1e-4 on the
 CUDA-core kernel (summation order only) and within 2 bf16 ulps at its
 largest magnitude on the tensor-core kernel (bf16 queries over bf16 or
@@ -196,6 +200,8 @@ SHAPES = [  # B, Sq, Hq, Hkv, D, page, n
     (2, 70, 4, 2, 16, 77, 3),       # reduced ardit: D 16, page 77
     (3, 65, 8, 2, 16, 40, 4),       # GQA 4, ragged row tile
     (2, 96, 16, 16, 96, 100, 3),    # ardit-causal-forcing head dim
+    (2, 80, 8, 4, 96, 150, 3),      # GQA 2 at D 96
+    (3, 70, 16, 4, 96, 120, 4),     # GQA 4 at D 96, ragged row tile
     (2, 64, 12, 12, 128, 200, 3),   # ardit-self-forcing head dim
     (3, 70, 16, 4, 128, 150, 3),    # GQA 4 at D 128, ragged row tile
 ]
@@ -217,8 +223,10 @@ def test_kernel_matches_plain_version(card, shape, dtypes):
     if B > 2:
         mask3[-1] = False                          # a row seeing nothing
     path = _path(q, kp)
+    d96 = ops.chunk_instance(q.dtype, kp.dtype, D, Hq // Hkv) == "wgmma96"
     before = (ops.paged_chunk_attention.launches,
-              ops.paged_chunk_attention.launches_tc)
+              ops.paged_chunk_attention.launches_tc,
+              ops.paged_chunk_attention.launches_d96)
     for m, hint in ((None, dict(sink=sink, chunk_tokens=tc)),
                     (mask, {}),
                     (mask, dict(sink=sink, chunk_tokens=tc))):
@@ -227,17 +235,23 @@ def test_kernel_matches_plain_version(card, shape, dtypes):
                path)
     torch.cuda.synchronize()
     assert (ops.paged_chunk_attention.launches,
-            ops.paged_chunk_attention.launches_tc) == (
-        before[0] + 3, before[1] + 3 * (path == "wgmma"))
+            ops.paged_chunk_attention.launches_tc,
+            ops.paged_chunk_attention.launches_d96) == (
+        before[0] + 3, before[1] + 3 * (path == "wgmma"), before[2] + 3 * d96)
 
 
-@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn],
-                         ids=["bf16", "fp8"])
-def test_kernel_at_the_main_paths_page(card, kv_dtype):
+@pytest.mark.parametrize("kv_dtype,D,n", [
+    (torch.bfloat16, 128, 3), (torch.float8_e4m3fn, 128, 3),
+    (torch.bfloat16, 96, 8)], ids=["bf16", "fp8", "bf16-d96"])
+def test_kernel_at_the_main_paths_page(card, kv_dtype, D, n):
     """The main path's geometry: 2,640-token pages (20 full 128-token
     tiles and one of 80) behind a 77-token sink (one masked tile), all
-    visible and with a token mask that drops 128-token runs."""
-    B, Sq, H, D, page, n, sink = 1, 200, 2, 128, 2640, 3, 77
+    visible and with a token mask that drops 128-token runs; at D 96 on
+    the D 96 instance, 7 ring pages (148 key tiles: a context cut into
+    two parts), with and without the hint, and a fully-masked page, a
+    hole row and a row that sees nothing."""
+    B, Sq, H, page, sink = (1, 200, 2, 2640, 77) if D == 128 else \
+        (3, 150, 2, 2640, 77)
     q, kp, vp, table, _ = _inputs(card, B, Sq, H, H, D, page, n,
                                   torch.bfloat16, kv_dtype, seed=2640)
     hint = dict(sink=sink, chunk_tokens=page)
@@ -246,13 +260,51 @@ def test_kernel_at_the_main_paths_page(card, kv_dtype):
     mask[:, 1:] = True
     mask[:, 1, 128:384] = False
     mask[:, 2, 1000:1100] = False
-    before = ops.paged_chunk_attention.launches_tc
-    for m in (None, mask.view(B, n * page)):
-        _check(ops.paged_chunk_attention(q, kp, vp, table, m, **hint),
-               ref.paged_chunk_attention_ref(q, kp, vp, table, m, **hint),
+    cases = [(None, hint), (mask.view(B, n * page), hint)]
+    if D == 96:
+        assert len(ops.chunk_parts(n, page, **hint)) == 2
+        mask[0, 3] = False                         # a fully-masked page
+        table[1, -1] = table[1, 0]                 # a hole row ...
+        mask[1, -1] = False                        # ... that never shows
+        mask[2] = False                            # a row seeing nothing
+        cases.append((mask.view(B, n * page), {}))
+    before = (ops.paged_chunk_attention.launches_tc,
+              ops.paged_chunk_attention.launches_d96)
+    for m, h in cases:
+        _check(ops.paged_chunk_attention(q, kp, vp, table, m, **h),
+               ref.paged_chunk_attention_ref(q, kp, vp, table, m, **h),
                "wgmma")
     torch.cuda.synchronize()
-    assert ops.paged_chunk_attention.launches_tc == before + 2
+    assert (ops.paged_chunk_attention.launches_tc,
+            ops.paged_chunk_attention.launches_d96) == (
+        before[0] + len(cases), before[1] + len(cases) * (D == 96))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["hint", "masked"])
+def test_d96_instance_views_and_repeats_bit_for_bit(card, masked):
+    """The D 96 instance's rows depend on their own inputs alone: an
+    8-head view (offset 0 and 8) of a 16-head pool gives the full
+    launch's rows bit for bit, and a second call the first's bits; both
+    agree with the plain version.  A context of 8 table entries of 700
+    tokens behind a 77-token sink is cut into parts."""
+    B, Sq, H, D, page, n, sink = 2, 130, 16, 96, 700, 24, 77
+    q, kp, vp, table, mask = _inputs(card, B, Sq, H, H, D, page, n,
+                                     torch.bfloat16, torch.bfloat16,
+                                     seed=96)
+    hint = dict(sink=sink, chunk_tokens=page)
+    assert len(ops.chunk_parts(n, page, **hint)) > 1
+    m = mask if masked else None
+    full = ops.paged_chunk_attention(q, kp, vp, table, m, **hint)
+    again = ops.paged_chunk_attention(q, kp, vp, table, m, **hint)
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    for lo in (0, 8):
+        half = ops.paged_chunk_attention(
+            q[:, :, lo:lo + 8].contiguous(), kp[:, :, lo:lo + 8],
+            vp[:, :, lo:lo + 8], table, m, **hint)
+        assert all(torch.equal(h, f[:, lo:lo + 8])
+                   for h, f in zip(half, full))
+    _check(full, ref.paged_chunk_attention_ref(q, kp, vp, table, m, **hint),
+           "wgmma")
 
 
 def test_kernel_rejects_what_it_cannot_run(card):
