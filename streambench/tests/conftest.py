@@ -1,0 +1,22 @@
+"""The benchmark's tests: the repository's root and ``src`` on the path,
+one CPU thread (the tiny model is dominated by thread overhead)."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
+
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    """Skip unless a CUDA card is present (decided inside the test)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
