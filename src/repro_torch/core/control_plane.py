@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from repro_torch.core import elastic_sp, queues, rehoming, slack
 from repro_torch.core.bmpr import BMPR, BMPRDecision
 from repro_torch.core.types import ClusterView, Stream, Tier, Worker
+from repro_torch.profiler import trace
 
 DEFAULT_TICK_S = 3.0
 TTFC_FACTOR = 4.0          # initial playout slack = 4x first-chunk estimate
@@ -146,8 +147,12 @@ class ControlPlane:
                 # never shed and add capacity in the same tick
                 scale_in = self.front_door.maybe_scale_in(view, now)
 
-        dt = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        dt = t1 - t0
         self.tick_times.append(dt)
+        rec = trace.active()
+        if rec is not None:
+            rec.add_span("session.tick", t0, t1)
         return TickDecisions(migrations, sp_decisions, dt, scale_out,
                              scale_in)
 

@@ -346,18 +346,28 @@ def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     two merge before the softmax divide.  No contiguous context is
     materialized.  ``sink``/``chunk_tokens`` give the valid prefixes of
     the sink/ring pages so neither form computes dead page tails.
+
+    Traced as two device spans (``profiler/trace.py``):
+    ``device.attn.context`` over the paged segment and
+    ``device.attn.chunk`` over the in-chunk segment, the merge and the
+    output's layout.
     """
-    # late import: keeps ``models`` importable without the kernel package
+    # late imports: keep ``models`` importable without the kernel package,
+    # and out of the import cycle through ``profiler``
     from repro_torch.kernels.paged_attention.ops import paged_chunk_attention
+    from repro_torch.profiler import trace
     b, sq, hq, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    ctx = paged_chunk_attention(q, k_pages, v_pages, block_table,
-                                page_mask, sink=sink,
-                                chunk_tokens=chunk_tokens)
-    own = _segment_attn(_group(q, n_kv_heads), chunk_k, chunk_v, None,
-                        scale)
-    out = _finalize(_merge(ctx, own), q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    with trace.device_span("device.attn.context", q.device):
+        ctx = paged_chunk_attention(q, k_pages, v_pages, block_table,
+                                    page_mask, sink=sink,
+                                    chunk_tokens=chunk_tokens)
+    with trace.device_span("device.attn.chunk", q.device):
+        own = _segment_attn(_group(q, n_kv_heads), chunk_k, chunk_v, None,
+                            scale)
+        out = _finalize(_merge(ctx, own), q.dtype)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

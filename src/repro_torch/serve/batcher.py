@@ -52,6 +52,7 @@ from repro_torch.core.types import Stream
 from repro_torch.models import ardit as A
 from repro_torch.models import kvcache
 from repro_torch.models.stepcache import StepCacheManager
+from repro_torch.profiler import trace
 from repro_torch.serve.executor import (EMA_DECAY, ChunkExecutor,
                                         ServedStream, chunk_noise,
                                         cond_noise)
@@ -1057,7 +1058,27 @@ class BatchedChunkExecutor(ChunkExecutor):
         completed chunk, which also yields the measured whole-chunk
         wall latency fed into ``latency_ema``/``step_ema``.  Returns
         (completed sids, wall seconds of this call).
+
+        Traced as ``executor.run_step`` (``profiler/trace.py``), with the
+        rows, their fidelity keys, chunk indices and phases, and whether
+        the step launched.
         """
+        with trace.span("executor.run_step") as span:
+            if span is None:
+                return self._step(sids, sp_serve)
+            flights = [self.inflight[sid] for sid in sids]
+            span.attrs.update(
+                sids=list(sids), rows=len(sids),
+                keys=[f.fidelity.key for f in flights],
+                chunk_idx=[int(self.pool.chunks[sid]) for sid in sids],
+                denoise=[f.step < f.fidelity.steps for f in flights])
+            before = self.dispatch_count
+            out = self._step(sids, sp_serve)
+            span.attrs["launched"] = self.dispatch_count > before
+            return out
+
+    def _step(self, sids: Sequence[int],
+              sp_serve: bool) -> Tuple[List[int], float]:
         flights = [self.inflight[sid] for sid in sids]
         fids = [f.fidelity for f in flights]
         quant = fids[0].quant
@@ -1110,31 +1131,35 @@ class BatchedChunkExecutor(ChunkExecutor):
                 f.active_s += dt
             return [], dt
 
-        bnd = self._boundary(sids, chunk_idx, fids, sp=sp)
-        x = (flights[0].x if len(flights) == 1
-             else torch.cat([f.x for f in flights], dim=0))
-        t, dt_sig, is_dn = self._staging(
-            fids, tuple(f.step for f in flights), denoising)
+        with trace.span("executor.boundary"):
+            bnd = self._boundary(sids, chunk_idx, fids, sp=sp)
+        with trace.span("executor.staging"):
+            x = (flights[0].x if len(flights) == 1
+                 else torch.cat([f.x for f in flights], dim=0))
+            t, dt_sig, is_dn = self._staging(
+                fids, tuple(f.step for f in flights), denoising)
         self.dispatch_count += 1
-        if sp is not None:
-            x_new, new_kv = A.denoise_step_paged_sp(
-                self.cfg, self.params, x, t, dt_sig, self.pool.k,
-                self.pool.v, sp.pool.k, sp.pool.v, bnd["tables"],
-                bnd["tables_d"], bnd["dn"], bnd["cl"], bnd["q_offset"],
-                is_dn)
-        elif self.context_backend == "paged":
-            # context stays IN the pool: the step reads the current
-            # device buffers through the cached block tables (appends
-            # only ever touch pages outside every in-flight window)
-            x_new, new_kv = A.denoise_step_paged(
-                self.cfg, self.params, x, t, dt_sig, self.pool.k,
-                self.pool.v, bnd["tables"], bnd["dn"], bnd["cl"],
-                bnd["q_offset"], is_dn)
-        else:
-            x_new, new_kv = A.denoise_step(
-                self.cfg, self.params, x, t, dt_sig, bnd["ctx_k"],
-                bnd["ctx_v"], bnd["q_offset"], bnd["dn"], bnd["cl"],
-                is_dn)
+        with trace.span("model.launch"), \
+                trace.device_span("device.step", self.device):
+            if sp is not None:
+                x_new, new_kv = A.denoise_step_paged_sp(
+                    self.cfg, self.params, x, t, dt_sig, self.pool.k,
+                    self.pool.v, sp.pool.k, sp.pool.v, bnd["tables"],
+                    bnd["tables_d"], bnd["dn"], bnd["cl"], bnd["q_offset"],
+                    is_dn)
+            elif self.context_backend == "paged":
+                # context stays IN the pool: the step reads the current
+                # device buffers through the cached block tables (appends
+                # only ever touch pages outside every in-flight window)
+                x_new, new_kv = A.denoise_step_paged(
+                    self.cfg, self.params, x, t, dt_sig, self.pool.k,
+                    self.pool.v, bnd["tables"], bnd["dn"], bnd["cl"],
+                    bnd["q_offset"], is_dn)
+            else:
+                x_new, new_kv = A.denoise_step(
+                    self.cfg, self.params, x, t, dt_sig, bnd["ctx_k"],
+                    bnd["ctx_v"], bnd["q_offset"], bnd["dn"], bnd["cl"],
+                    is_dn)
 
         completed: List[int] = []
         clean_rows: List[int] = []
@@ -1156,55 +1181,57 @@ class BatchedChunkExecutor(ChunkExecutor):
                 clean_rows.append(i)
                 completed.append(sid)
         if clean_rows:
-            # effective window BEFORE the append advances chunk counts
-            eff_w = {sids[i]: self.pool.effective_window(
-                sids[i], fids[i].window) for i in clean_rows}
-            rows = torch.as_tensor(clean_rows, device=self.device)
-            self.pool.append([sids[i] for i in clean_rows],
-                             {"k": new_kv["k"][:, rows],
-                              "v": new_kv["v"][:, rows]}, quant)
-            for i in clean_rows:
-                row = {"k": new_kv["k"][:, i:i + 1],
-                       "v": new_kv["v"][:, i:i + 1]}
-                link = self.sp_links.get(sids[i])
-                if link is not None:
-                    # the donor's half-head mirror tracks the home pool:
-                    # ring-write this chunk's upper half into the donor
-                    # page set (solo mode: batch-linked streams never
-                    # step on this lane)
-                    self._append_sp_half(link, sids[i], row, quant)
-                guest = self.sp_guests.get(sids[i])
-                if guest is not None:
-                    # batch-axis SP: the guest's home pool is the system
-                    # of record — append the full-head chunk there too
-                    guest.pool.append([sids[i]], row, quant)
-            now_wall = None
-            for i in clean_rows:
-                sid = sids[i]
-                fid = fids[i]
-                f = self.inflight.pop(sid)
-                self.chunks[sid].append(f.x)
-                self.fidelity_log[sid].append(fid.key)
-                self.effective_window_log.setdefault(sid, []).append(
-                    eff_w[sid])
-                self.chunk_seq[sid] = self.chunk_seq.get(sid, 0) + 1
-                if now_wall is None:        # one sync per completion step
-                    self._sync()
-                    now_wall = time.perf_counter()
-                # measured chunk wall -> timing priors, attributed to each
-                # completing row's OWN fidelity key (``active_s`` accrued
-                # per launch the row was live in); spill/restore waits
-                # charged by the transfer engine ride on the chunk they
-                # delayed
-                lat = (f.active_s + (now_wall - t0)
-                       + self._pending_wait.pop(sid, 0.0))
-                self.latency_ema[fid.key] = (
-                    EMA_DECAY * self.latency_ema.get(fid.key, lat)
-                    + (1.0 - EMA_DECAY) * lat)
-                step = lat / (fid.steps + 1)
-                self.step_ema[fid.key] = (
-                    EMA_DECAY * self.step_ema.get(fid.key, step)
-                    + (1.0 - EMA_DECAY) * step)
+            with trace.span("executor.append"):
+                # effective window BEFORE the append advances chunk counts
+                eff_w = {sids[i]: self.pool.effective_window(
+                    sids[i], fids[i].window) for i in clean_rows}
+                rows = torch.as_tensor(clean_rows, device=self.device)
+                self.pool.append([sids[i] for i in clean_rows],
+                                 {"k": new_kv["k"][:, rows],
+                                  "v": new_kv["v"][:, rows]}, quant)
+                for i in clean_rows:
+                    row = {"k": new_kv["k"][:, i:i + 1],
+                           "v": new_kv["v"][:, i:i + 1]}
+                    link = self.sp_links.get(sids[i])
+                    if link is not None:
+                        # the donor's half-head mirror tracks the home
+                        # pool: ring-write this chunk's upper half into
+                        # the donor page set (solo mode: batch-linked
+                        # streams never step on this lane)
+                        self._append_sp_half(link, sids[i], row, quant)
+                    guest = self.sp_guests.get(sids[i])
+                    if guest is not None:
+                        # batch-axis SP: the guest's home pool is the
+                        # system of record — append the full-head chunk
+                        # there too
+                        guest.pool.append([sids[i]], row, quant)
+            with trace.span("executor.sync"):
+                self._sync()                # one sync per completion step
+            now_wall = time.perf_counter()
+            with trace.span("executor.complete"):
+                for i in clean_rows:
+                    sid = sids[i]
+                    fid = fids[i]
+                    f = self.inflight.pop(sid)
+                    self.chunks[sid].append(f.x)
+                    self.fidelity_log[sid].append(fid.key)
+                    self.effective_window_log.setdefault(sid, []).append(
+                        eff_w[sid])
+                    self.chunk_seq[sid] = self.chunk_seq.get(sid, 0) + 1
+                    # measured chunk wall -> timing priors, attributed to
+                    # each completing row's OWN fidelity key (``active_s``
+                    # accrued per launch the row was live in, this one
+                    # up to the sync); spill/restore waits charged by
+                    # the transfer engine ride on the chunk they delayed
+                    f.active_s += now_wall - t0
+                    lat = f.active_s + self._pending_wait.pop(sid, 0.0)
+                    self.latency_ema[fid.key] = (
+                        EMA_DECAY * self.latency_ema.get(fid.key, lat)
+                        + (1.0 - EMA_DECAY) * lat)
+                    step = lat / (fid.steps + 1)
+                    self.step_ema[fid.key] = (
+                        EMA_DECAY * self.step_ema.get(fid.key, step)
+                        + (1.0 - EMA_DECAY) * step)
         dt = time.perf_counter() - t0
         for sid in sids:
             f = self.inflight.get(sid)

@@ -23,6 +23,7 @@ from repro_torch.core.state_plane import AsyncTransferEngine
 from repro_torch.core.types import Stream
 from repro_torch.models import ardit as A
 from repro_torch.models.convert import params_to
+from repro_torch.profiler import trace
 
 # blend of the prior vs the newest measured latency in the online
 # re-profiling EMAs (shared with the batched executor)
@@ -87,9 +88,11 @@ class ChunkExecutor:
 
     def _sync(self) -> None:
         """Wait for the device: the latency clock must measure compute,
-        not launch (the reference's ``block_until_ready``)."""
+        not launch (the reference's ``block_until_ready``).  The idle
+        card then anchors the tracer's device clock."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            trace.synced(self.device)
 
     def open_stream(self, sid: int, target_chunks: int, *,
                     now: float, ttfc_slack: float,
@@ -124,6 +127,7 @@ class _Flight:
     fidelity: FidelityConfig
     started: float = 0.0
     step: int = 0
+    active_s: float = 0.0             # wall of the chunk's one step
 
 
 class SequentialChunkExecutor(ChunkExecutor):
@@ -172,6 +176,7 @@ class SequentialChunkExecutor(ChunkExecutor):
         sid = sids[0]
         f = self.inflight.pop(sid)
         _, dt = self.generate_chunk(self.streams[sid], f.fidelity)
+        f.active_s = dt
         return [sid], dt
 
     def remaining_estimate(self, sid: int) -> float:

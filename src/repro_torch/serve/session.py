@@ -56,6 +56,7 @@ from repro_torch.core.elastic_sp import SPDecision
 from repro_torch.core.fidelity import FidelityConfig, HIGHEST_QUALITY
 from repro_torch.core.state_plane import AsyncTransferEngine
 from repro_torch.core.types import ClusterView, Stream, Worker
+from repro_torch.profiler import trace
 from repro_torch.profiler.profiles import get_profile
 from repro_torch.sched_sim import cost_model as cm
 from repro_torch.sched_sim.frontdoor import FrontDoor, FrontDoorConfig
@@ -604,37 +605,9 @@ class StreamingSession:
         """Drive every submitted stream to completion (or starvation
         stand-still) and return the session's metrics record."""
         while not self._all_done():
-            now = self._now()
-            self._drain_events(now)
-            if self.front_door is not None and self.front_door.waiting:
-                self._drain_front_door(now)
-
-            # Algorithm 2 control tick: BMPR fidelity -> Eq. 1 credit ->
-            # three-tier queue ordering.  R_u comes from the executor's
-            # measured step EMAs first so the tick sees honest remaining
-            # times.
-            for s in self.view.active_streams():
-                s.remaining = self.lanes.remaining_estimate(s.sid)
-                if self.lanes.is_inflight(s.sid):
-                    lane = self.lanes.lane_of.get(s.sid, 0)
-                    link = self.lanes.sp_link(s.sid)
-                    s.running_on = ((lane, link.donor) if link is not None
-                                    else (lane,))
-                else:
-                    s.running_on = None
-            if now >= self._next_tick:
-                decisions = self.control.tick(self.view, now)
-                self._apply_decisions(decisions)
-                self._sample_tiers()
-                self._next_tick = now + self.cfg.tick_interval
-            else:
-                # between ticks the queues keep tracking credit at step
-                # boundaries, exactly like the simulator policy's order()
-                for s in self.view.active_streams():
-                    slack.update_stream_credit(s, now,
-                                               self.control.config.alpha)
-                queues.order_all(self.view)
-
+            with trace.span("session.schedule"):
+                now = self._now()
+                self._schedule(now)
             any_ran, any_runnable = self._dispatch_round(now)
             if any_ran:
                 continue
@@ -646,22 +619,65 @@ class StreamingSession:
                         self._wait_for(self._events[0][0])
                         continue
                     break      # no residency, no work: stand-still
-                time.sleep(0.0005)
+                with trace.span("session.idle"):
+                    time.sleep(0.0005)
                 continue
             if self._events:
                 self._wait_for(self._events[0][0])
                 continue
             if self.front_door is not None and self.front_door.waiting:
-                time.sleep(0.005)
+                with trace.span("session.idle"):
+                    time.sleep(0.005)
                 continue
             break                                # nothing left to serve
         return self.result()
+
+    def _schedule(self, now: float) -> None:
+        """Between rounds: arrivals and stream events, then the control
+        tick or, between ticks, the credit order."""
+        self._drain_events(now)
+        if self.front_door is not None and self.front_door.waiting:
+            self._drain_front_door(now)
+
+        # Algorithm 2 control tick: BMPR fidelity -> Eq. 1 credit ->
+        # three-tier queue ordering.  R_u comes from the executor's
+        # measured step EMAs first so the tick sees honest remaining
+        # times.
+        for s in self.view.active_streams():
+            s.remaining = self.lanes.remaining_estimate(s.sid)
+            if self.lanes.is_inflight(s.sid):
+                lane = self.lanes.lane_of.get(s.sid, 0)
+                link = self.lanes.sp_link(s.sid)
+                s.running_on = ((lane, link.donor) if link is not None
+                                else (lane,))
+            else:
+                s.running_on = None
+        if now >= self._next_tick:
+            decisions = self.control.tick(self.view, now)
+            self._apply_decisions(decisions)
+            self._sample_tiers()
+            self._next_tick = now + self.cfg.tick_interval
+        else:
+            # between ticks the queues keep tracking credit at step
+            # boundaries, exactly like the simulator policy's order()
+            for s in self.view.active_streams():
+                slack.update_stream_credit(s, now,
+                                           self.control.config.alpha)
+            queues.order_all(self.view)
 
     def _dispatch_round(self, now: float) -> Tuple[bool, bool]:
         """One step round over every lane: each lane advances at most
         one micro-batch (or one solo SP2 stream, which also consumes its
         donor lane's slot) by one denoise step.  Returns (any step ran,
-        any lane had runnable streams)."""
+        any lane had runnable streams).
+
+        Traced as ``session.round`` with its counters
+        (``profiler/trace.py``)."""
+        with trace.span("session.round") as span:
+            return self._round(now, span)
+
+    def _round(self, now: float, span: Optional[trace.Span]
+               ) -> Tuple[bool, bool]:
         streams = self.view.streams
         runnables = {w.wid: queues.next_dispatch_set(w, streams, now)
                      for w in self.view.workers}
@@ -707,6 +723,12 @@ class StreamingSession:
 
         any_ran = False
         any_runnable = False
+        # per lane: runnable streams (capped at the micro-batch), streams
+        # admitted to it, launches
+        n_runnable: List[int] = []
+        n_admitted: List[int] = []
+        n_launched: List[int] = []
+        rows = refused = 0
         for w in self.view.workers:
             runnable = runnables[w.wid]
             glist = guests.get(w.wid, [])
@@ -727,12 +749,19 @@ class StreamingSession:
                 sp_ex = ex_of(sp_sid)
                 self._begin_if_needed(sp_ex, sp_sid, now)
                 flights = {sp_sid: sp_ex.inflight[sp_sid]}
+                before = getattr(sp_ex, "dispatch_count", None)
                 completed, _ = sp_ex.run_step([sp_sid], sp_serve=True)
                 any_ran = True
                 now = self._now()
+                launched = before is None or sp_ex.dispatch_count > before
+                n_runnable.append(1)
+                n_admitted.append(1)
+                n_launched.append(int(launched))
+                rows += int(launched)
                 for sid in completed:
-                    self._complete_chunk(sid, flights[sid].fidelity,
-                                         flights[sid].started, now)
+                    f = flights[sid]
+                    self._complete_chunk(sid, f.fidelity, f.started, now,
+                                         f.active_s)
                 continue
             # the sequential executor (no page pool) serves one stream
             # per step
@@ -744,12 +773,27 @@ class StreamingSession:
             # Batch-axis guests ride ON TOP of max_batch (their donor
             # pages are resident and eviction-protected)
             sids: List[int] = list(glist)
-            for sid in runnable:
-                if len(sids) >= max_batch + len(glist):
-                    break
-                if ex_of(sid).ensure_resident(sid, streams,
-                                              protect=sids + [sid]):
-                    sids.append(sid)
+            with trace.span("session.residency") as res:
+                moves = self._residency_counts() if res is not None else None
+                lane_refused = 0
+                for sid in runnable:
+                    if len(sids) >= max_batch + len(glist):
+                        break
+                    if ex_of(sid).ensure_resident(sid, streams,
+                                                  protect=sids + [sid]):
+                        sids.append(sid)
+                    else:
+                        lane_refused += 1
+                refused += lane_refused
+                if res is not None:
+                    res.attrs.update(zip(
+                        ("evictions", "restores", "deferrals"),
+                        (b - a for a, b in zip(
+                            moves, self._residency_counts()))))
+                    res.attrs["refused"] = lane_refused
+            n_runnable.append(len(glist) + min(len(runnable), max_batch))
+            n_admitted.append(len(sids))
+            n_launched.append(0)
             if not sids:
                 continue
             for sid in sids:
@@ -763,13 +807,36 @@ class StreamingSession:
                 # one sub-batch = one model's step on one pool
                 grp_ex = ex_of(grp[0])
                 flights = {sid: grp_ex.inflight[sid] for sid in grp}
+                before = getattr(grp_ex, "dispatch_count", None)
                 completed, _ = grp_ex.run_step(grp)
                 any_ran = True
                 now = self._now()
+                if before is None or grp_ex.dispatch_count > before:
+                    n_launched[-1] += 1
+                    rows += len(grp)
                 for sid in completed:
-                    self._complete_chunk(sid, flights[sid].fidelity,
-                                         flights[sid].started, now)
+                    f = flights[sid]
+                    self._complete_chunk(sid, f.fidelity, f.started, now,
+                                         f.active_s)
+        rec = trace.active()
+        if span is not None and rec is not None:
+            launches = sum(n_launched)
+            span.attrs.update(runnable=n_runnable, admitted=n_admitted,
+                              launches=launches)
+            c = rec.counters
+            c["rounds"] += 1
+            c["launches"] += launches
+            c["split_launches"] += sum(max(n - 1, 0) for n in n_launched)
+            c["rows"] += rows
+            c["runnable"] += sum(n_runnable)
+            c["residency_refused"] += refused
         return any_ran, any_runnable
+
+    def _residency_counts(self) -> Tuple[int, int, int]:
+        """Evictions, restores and deferrals over every executor."""
+        exs = self.lanes.all_executors
+        return tuple(sum(getattr(ex, k, 0) for ex in exs)
+                     for k in ("evictions", "restores", "deferrals"))
 
     def _begin_if_needed(self, ex: Any, sid: int, now: float) -> None:
         if sid in ex.inflight:
@@ -779,17 +846,24 @@ class StreamingSession:
         # B = max(P_u - R_u, 0); R_u = 0 here because the stream is
         # between chunks.  The wall->profile unit conversion lives in
         # _HostCalibratedPolicy.
-        budget = max(s.playout_slack(now) - s.remaining, 0.0)
-        pol = self.control.fidelity_policy
-        sel = getattr(pol, "select_for", None)
-        dec = (sel(s.model, budget)
-               if sel is not None and s.model is not None
-               else pol.select(budget))
-        s.next_fidelity = dec.fidelity
-        s.t_next = dec.latency
-        s.chunk_started = now
-        s.step_done = 0
-        ex.begin_chunk(sid, dec.fidelity, now)
+        with trace.span("session.begin_chunk") as span:
+            budget = max(s.playout_slack(now) - s.remaining, 0.0)
+            pol = self.control.fidelity_policy
+            sel = getattr(pol, "select_for", None)
+            dec = (sel(s.model, budget)
+                   if sel is not None and s.model is not None
+                   else pol.select(budget))
+            s.next_fidelity = dec.fidelity
+            s.t_next = dec.latency
+            s.chunk_started = now
+            s.step_done = 0
+            ex.begin_chunk(sid, dec.fidelity, now)
+            rec = trace.active()
+            if span is not None and rec is not None:
+                choice = dict(tier=s.tier.name, budget=budget,
+                              fidelity=dec.fidelity.key)
+                span.attrs.update(sid=sid, predicted=dec.latency, **choice)
+                rec.begun[sid] = choice
 
     # ---- decision apply (the simulator's policy.on_tick equivalent) --------
     def _apply_decisions(self, decisions: TickDecisions) -> None:
@@ -827,8 +901,17 @@ class StreamingSession:
 
     # ---- playout bookkeeping (the single per-stream record) ----------------
     def _complete_chunk(self, sid: int, fid: FidelityConfig,
-                        started: float, now: float) -> None:
+                        started: float, now: float,
+                        active_s: float = 0.0) -> None:
+        """Playout bookkeeping of a chunk ready at ``now`` (begun at
+        ``started``; ``active_s`` seconds in steps).  Traced as
+        ``session.complete_chunk`` and one chunk record."""
+        rec = trace.active()
+        t_span = time.perf_counter() if rec is not None else 0.0
         s = self.view.streams[sid]
+        # the chunk became runnable when its predecessor was ready, or
+        # when the stream arrived
+        runnable = s.ready_times[-1] if s.ready_times else s.arrival
         ddl = s.next_deadline
         s.ready_times.append(now)
         s.deadlines.append(ddl)
@@ -874,11 +957,21 @@ class StreamingSession:
                   f"{s.chunks_done}/{s.target_chunks} "
                   f"fid={fid.key:22s} lat={now - started:.2f}s "
                   f"{'LATE' if now > ddl else 'on-time'}")
+        if rec is not None:
+            rec.add_span("session.complete_chunk", t_span,
+                         time.perf_counter(), sid=sid, lateness=now - ddl)
+            choice = rec.begun.pop(sid, {})
+            rec.chunks.append(dict(
+                sid=sid, tier=choice.get("tier"), fidelity=fid.key,
+                budget=choice.get("budget"), runnable=self._t0 + runnable,
+                begin=self._t0 + started, ready=self._t0 + now,
+                active_s=active_s))
 
     def _wait_for(self, t_event: float) -> None:
         """Idle until the next workload event (capped nap)."""
         now = self._now()
-        time.sleep(max(0.0005, min(t_event - now, 0.05)))
+        with trace.span("session.idle"):
+            time.sleep(max(0.0005, min(t_event - now, 0.05)))
 
     # ---- results -----------------------------------------------------------
     def result(self) -> SessionResult:
