@@ -54,7 +54,8 @@ Phases (any failure raises and the script exits non-zero):
    (steps + 1) per chunk, warm-up included, no paged launch) and the
    batched gather-backend session (2 x 2; flash launches = n_layers x
    unmasked steps, no paged launch); in phase 5 every paged launch, in
-   phases 6 and 7 every flash launch must be a tensor-core launch.
+   phases 6 and 7 every flash launch must be a tensor-core launch; in
+   phase 5 every in-chunk segment on the flash kernel's seeded form.
 8. SSD kernel vs plain version on the card at the full-width shape
    (mamba2-780m: B = 2, S = 32,768, 48 heads of 64, state 128, chunk
    128, bf16 x/B/C), a ragged S, S < chunk, an init_state, x/B/C as
@@ -191,10 +192,11 @@ Phases (any failure raises and the script exits non-zero):
    top fidelity and one fp8 chunk each; before each chunk the pool's
    pages are assembled into the ring layout and ``serve_chunk_batched``
    serves the same chunk from it with the same noise: its latents'
-   relative L2 gap to the executor's (kernel 1 against the plain masked
-   segment) within twice the gap that rounding the context's P to bf16
-   (kernel 1's rounding) makes in the ring path itself, and at least
-   within 2^-6; the ring outside the chunk's new slot unchanged; then
+   relative L2 gap to the executor's (kernel 1 and the seeded form
+   against the plain masked segment) within twice the gap that rounding
+   the context's P to bf16 (kernel 1's rounding) makes in the ring path
+   itself, and at least within 2^-6 (the gap against the limit that
+   rounding every P gives printed beside); the ring outside the chunk's new slot unchanged; then
    the ring on its own from ``init_batched_cache`` (gaps printed: they
    compound through the context); the ring path launches no kernel.
 
@@ -254,6 +256,16 @@ Phases (any failure raises and the script exits non-zero):
    the optimizer state bit for bit, or it raises; kernel 3's forward and
    CUDA-core backward launches counted per train step), each one's
    seconds printed.
+22. The flash kernel's seeded form (run right after 3; ``paged_mha``'s
+   in-chunk segment on the card) against its plain version on kernel
+   1's partials over a 77-token sink and two ring pages: sf-overload's
+   4,680 x 4,680 chunk, 12 heads of 128, at 1 and 4 rows (at 4 also with
+   a row whose mask hides every context token), and
+   ardit-causal-forcing's 2,640 x 2,640, 16 heads of 96, within 2 bf16
+   ulps at the output's largest magnitude; each timed beside the plain
+   version, SDPA over the chunk followed by the plain merge, and the
+   bound (operations at 989 TFLOP/s).  Its record's launches are phase
+   5's, where every in-chunk segment must take it.
 
 Every phase prints its seconds.
 
@@ -372,6 +384,13 @@ KERNEL_SHAPES = dict(B=2, Sq=2640, H=12, D=128, page=2640, n=8, sink=77)
 # ardit-causal-forcing's attention at the same shape: 16 heads of 96
 # (16 x 96 = 12 x 128 = 1,536 per token, so the same operations)
 KERNEL_D96 = dict(H=16, D=96)
+# kernel 3's seeded form (phase 22) at sf-overload's chunk, ardit-self-
+# forcing at 832x480 (4,680 queries over their own 4,680 keys, 12 heads
+# of 128, 1 and 4 rows), and at ardit-causal-forcing's (2,640 x 2,640,
+# 16 heads of 96): label -> (B, S, H, D); the partials come from kernel
+# 1 over a sink page of 77 tokens and two S-token ring pages
+SEEDED_SHAPES = {"B 1": (1, 4680, 12, 128), "B 4": (4, 4680, 12, 128),
+                 "D 96": (1, 2640, 16, 96)}
 # the sequential path's attention at full width: one stream, the chunk's
 # 2640 queries over sink + w chunks + the chunk itself
 FLASH_SKV = (77 + 2640, 77 + 3 * 2640 + 2640, 77 + 7 * 2640 + 2640)
@@ -493,11 +512,13 @@ def sync():
 
 def reset_counts(counters):
     """Sets every launch count (and tensor-core launch count, kernel
-    3's count of its D 128 causal instance and kernel 1's of its D 96
-    instance) to 0."""
+    3's counts of its D 128 causal instance, of its seeded form and of
+    the seeded form's calls on the plain version, and kernel 1's of its
+    D 96 instance) to 0."""
     for fn in counters.values():
         fn.launches = 0
-        for name in ("launches_tc", "launches_d128_causal", "launches_d96"):
+        for name in ("launches_tc", "launches_d128_causal",
+                     "launches_seeded", "plain_segments", "launches_d96"):
             if hasattr(fn, name):
                 setattr(fn, name, 0)
 
@@ -897,6 +918,101 @@ def phase_flash(record):
     torch.cuda.empty_cache()
     errs += flash_prefill_shapes(gen, launch)
     errs += flash_whisper_shapes(gen, launch)
+    record["max_abs_err"] = max(errs)
+
+
+def phase_seeded(record):
+    """Phase 22: kernel 3's seeded form (``flash_mha_seeded``,
+    ``paged_mha``'s in-chunk segment) against its plain version
+    (``flash_mha_seeded_ref``) on kernel 1's partials at SEEDED_SHAPES,
+    within PAGED_BF16_ULPS bf16 ulps at the output's largest magnitude;
+    at B 4 also with one row's page mask hiding every context token (its
+    seed m = -1e30, l = 0).  Each shape timed beside the plain version,
+    SDPA over the chunk followed by the plain merge with the partials
+    (the library's way to the same output) and the bound.  The B 1
+    shape fills the record; the others are printed."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+
+    gen = torch.Generator(device=DEV).manual_seed(4680)
+    bf16, sink = torch.bfloat16, 77
+    fn = ops.flash_mha_seeded
+    errs, rows = [], {}
+
+    def check(name, q, ck, cv, part, H):
+        """One call against the plain version; one seeded launch."""
+        before = (ops.flash_mha.launches_seeded, ops.flash_mha.plain_segments)
+        got = fn(q, ck, cv, *part, n_kv_heads=H)
+        want = ref.flash_mha_seeded_ref(q, ck, cv, *part, n_kv_heads=H)
+        sync()
+        if (ops.flash_mha.launches_seeded, ops.flash_mha.plain_segments) \
+                != (before[0] + 1, before[1]):
+            raise AssertionError(f"{name}: not one seeded launch")
+        err = float((got.float() - want.float()).abs().max())
+        limit = PAGED_BF16_ULPS * ulp_bf16(float(want.float().abs().max()))
+        print(f"  {name}: |d| {err:.3g} (limit {limit:.3g})")
+        if not err <= limit or got.shape != want.shape \
+                or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: seeded form disagrees with the "
+                                 f"plain version ({err} > {limit})")
+        errs.append(err)
+
+    for label, (B, S, H, D) in SEEDED_SHAPES.items():
+        q, kp, vp, table = paged_case(gen, B, S, H, H, D, S, 3, bf16, bf16)
+        ck, cv = (torch.randn((B, S, H, D), generator=gen, device=DEV)
+                  .to(bf16) for _ in range(2))
+        hint = dict(sink=sink, chunk_tokens=S)
+        part = paged_ops.paged_chunk_attention(q, kp, vp, table, None,
+                                               **hint)
+        check(f"{label} {B} x {S}^2 x {H} x {D}", q, ck, cv, part, H)
+        if B > 1:
+            mask = torch.zeros((B, 3, S), dtype=torch.bool, device=DEV)
+            mask[:, 0, :sink] = True
+            mask[:, 1:] = True
+            mask[1] = False
+            dead = paged_ops.paged_chunk_attention(
+                q, kp, vp, table, mask.view(B, 3 * S), **hint)
+            if not bool((dead[1][1] == 0).all()):
+                raise AssertionError("the masked row saw context")
+            check(f"{label}, row 1 sees no context", q, ck, cv, dead, H)
+            del dead
+        del kp, vp
+        ms = cuda_ms(lambda: fn(q, ck, cv, *part, n_kv_heads=H), 10)
+        plain_ms = cuda_ms(lambda: ref.flash_mha_seeded_ref(
+            q, ck, cv, *part, n_kv_heads=H), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, ck, cv))
+        m3, l3, acc3 = (t[:, :, 0] for t in part)
+
+        def library():
+            out, lse = torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, False)[:2]
+            mx = torch.maximum(m3, lse)
+            c0, c1 = torch.exp(m3 - mx), torch.exp(lse - mx)
+            o = (acc3 * c0[..., None] + out.float() * c1[..., None]) \
+                / (l3 * c0 + c1)[..., None]
+            return o.to(bf16).transpose(1, 2).contiguous()
+
+        library_ms = cuda_ms(library, 5)
+        # bound: q, k, v read and the output written in bf16, the
+        # partials read in fp32; 4 * S * S * D operations per (b, head)
+        flops = 4.0 * B * H * S * S * D
+        nbytes = 2 * 4 * B * S * H * D + 4 * B * H * S * (D + 2)
+        t_ops = flops / PEAK_FLOPS[str(bf16)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[label] = dict(ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes", library_ms=library_ms)
+        print(f"  {label} B={B} S={S} H={H} D={D}: kernel {ms:.4f} ms "
+              f"({100.0 * rows[label]['bound_ms'] / ms:.1f}% of the bound), "
+              f"plain {plain_ms:.3f} ms, SDPA + plain merge "
+              f"{library_ms:.4f} ms, bound {rows[label]['bound_ms']:.4f} ms "
+              f"({rows[label]['bound_by']}; {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e6:.1f} MB), achieved {flops / ms / 1e9:.2f} "
+              f"TFLOP/s")
+        del q, ck, cv, part, qt, kt, vt, m3, l3, acc3
+        torch.cuda.empty_cache()
+    record.update(rows["B 1"])
     record["max_abs_err"] = max(errs)
 
 
@@ -1975,7 +2091,9 @@ def run_session(label, cfg, make_executor, config, n_streams, n_chunks,
 
 def phase_batched(cfg, params, counters):
     """Phase 5: the batched paged path (3 streams x 3 chunks): paged
-    launches = n_layers x dispatches, no flash launch."""
+    launches = n_layers x dispatches, no flash launch; every in-chunk
+    segment on kernel 3's seeded form (one a paged launch), none on its
+    plain version.  Returns the paged and the seeded launches."""
     from repro_torch.serve.batcher import BatchedChunkExecutor
     from repro_torch.serve.session import SessionConfig
 
@@ -1998,7 +2116,14 @@ def phase_batched(cfg, params, counters):
     if paged_tc != expected:
         raise AssertionError(f"{expected} bf16 paged launches, {paged_tc} "
                              f"on the tensor cores")
-    return launches["paged_chunk_attention"]
+    seeded = counters["flash_mha"].launches_seeded
+    plain = counters["flash_mha"].plain_segments
+    print(f"  in-chunk segments on the seeded form {seeded}, on the plain "
+          f"version {plain}")
+    if (seeded, plain) != (expected, 0):
+        raise AssertionError(f"{expected} paged launches, {seeded} seeded "
+                             f"and {plain} plain segments")
+    return launches["paged_chunk_attention"], seeded
 
 
 def phase_sequential(cfg, params, counters):
@@ -2982,11 +3107,13 @@ def phase_lanes(cfg, params, counters):
     return worst
 
 
-def bf16_p_segment(tc):
-    """``attention._segment_attn`` with the probabilities of the context
-    (every key but the chunk's own ``tc``) rounded to bf16 before P V and
-    their sum kept in fp32, as kernel 1 treats them (``paged_mha``'s
-    in-chunk segment stays fp32)."""
+def bf16_p_segment(own):
+    """``attention._segment_attn`` with the probabilities rounded to bf16
+    before P V and their sum kept in fp32, as kernel 1 treats the
+    context's, except those of the last ``own`` keys (the chunk's own):
+    with ``own`` the chunk's length, the context's P alone (``paged_mha``
+    before the seeded form); with 0, every P, as the seeded form also
+    treats the in-chunk segment's."""
     import math
 
     def segment(q, k, v, mask, scale):
@@ -3001,7 +3128,7 @@ def bf16_p_segment(tc):
         if mask is not None:
             p = torch.where(mask, p, 0.0)
         l = torch.sum(p, dim=-1)
-        n = k.shape[1] - tc
+        n = k.shape[1] - own
         p[..., :n] = p[..., :n].to(torch.bfloat16).float()
         return m_safe, l, torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
 
@@ -3016,10 +3143,12 @@ def phase_ring(cfg, params, counters):
     pool's pages are assembled into the ring layout (``KVPool.gather``)
     and ``serve_chunk_batched`` serves the chunk from that ring with the
     same noise (the reference's paged-vs-ring test, in bf16 at full
-    width, where kernel 1 stands against the plain masked segment), then
-    again with the context's P rounded to bf16 (``bf16_p_segment``): the
-    latents' gap to the executor's within RING_SENSITIVITY_FACTOR times
-    the gap that rounding makes, and at least within ``TOL_RING_REL``;
+    width, where kernels 1 and 3's seeded form stand against the plain
+    masked segment), then again with the context's P rounded to bf16
+    (``bf16_p_segment``): the latents' gap to the executor's within
+    RING_SENSITIVITY_FACTOR times the gap that rounding makes, and at
+    least within ``TOL_RING_REL``; the gap against the limit that
+    rounding every P (the seeded form's too) would give printed beside;
     the ring outside the chunk's new slot unchanged, the new slot's KV
     gap printed.
     (ii) The ring on its own from ``init_batched_cache``: each chunk's
@@ -3067,19 +3196,23 @@ def phase_ring(cfg, params, counters):
         ring_s.append(time.perf_counter() - t0)
         if any(fn.launches for fn in counters.values()):
             raise AssertionError("the ring path launched a kernel")
-        attention._segment_attn = bf16_p_segment(tc)
+        x_p = {}
         try:
-            x_p, _ = A.serve_chunk_batched(
-                cfg, params, {"k": k0, "v": v0, "chunks": chunks},
-                noise_of(c), fid)
+            for own in (tc, 0):
+                attention._segment_attn = bf16_p_segment(own)
+                x_p[own], _ = A.serve_chunk_batched(
+                    cfg, params, {"k": k0, "v": v0, "chunks": chunks},
+                    noise_of(c), fid)
         finally:
             attention._segment_attn = segment_attn
         pk, pv = ex.pool.gather(list(sids), w)
         slots = kvcache.chunk_slot(chunks, w, A.COND_TOKENS, tc)
         for i, sid in enumerate(sids):
             want = ex.chunks[sid][c][0]
-            gap, sens = rel(x[i], want), rel(x_p[i], x[i])
+            gap, sens = rel(x[i], want), rel(x_p[tc][i], x[i])
             limit = max(TOL_RING_REL, RING_SENSITIVITY_FACTOR * sens)
+            sens_all = rel(x_p[0][i], x[i])
+            limit_all = max(TOL_RING_REL, RING_SENSITIVITY_FACTOR * sens_all)
             worst = max(worst, gap / limit)
             lo = int(slots[i])
             kv_gap = max(rel(ring[n][:, i, lo:lo + tc], p[:, i, lo:lo + tc])
@@ -3090,9 +3223,13 @@ def phase_ring(cfg, params, counters):
                        for n, p in (("k", pk), ("v", pv)))
             print(f"  (i) chunk {c} ({fid.key}), stream {sid}, from the "
                   f"pool's context: latents relative L2 {gap:.4g} (limit "
-                  f"{limit:.4g}: the ring's own gap with P rounded to bf16 "
-                  f"{sens:.4g}, x {RING_SENSITIVITY_FACTOR:g}, at least "
-                  f"{TOL_RING_REL:.4g}); new slot {lo}: KV relative L2 "
+                  f"{limit:.4g}: the ring's own gap with the context's P "
+                  f"rounded to bf16 {sens:.4g}, x "
+                  f"{RING_SENSITIVITY_FACTOR:g}, at least "
+                  f"{TOL_RING_REL:.4g}; {gap / limit:.3f} of it; with every "
+                  f"P rounded {sens_all:.4g}, limit {limit_all:.4g}, "
+                  f"{gap / limit_all:.3f} of it); new slot {lo}: KV "
+                  f"relative L2 "
                   f"{kv_gap:.4g}; rest of the ring "
                   f"{'unchanged' if kept else 'CHANGED'}")
             if not kept:
@@ -4195,6 +4332,11 @@ def main():
                     "replaces": "src/repro/kernels/flash_attention/"
                                 "kernel.py:132",
                     "path": "wgmma"}
+    seeded = {"name": "flash_mha_seeded", "route": "cuda",
+              "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_mha.cu",
+              "replaces": "src/repro/models/attention.py:286",
+              "path": "wgmma"}
     fp8 = {"name": "fp8_matmul", "route": "cuda",
            "source": "src/repro_torch/kernels/fp8_matmul/csrc/fp8_matmul.cu",
            "replaces": "src/repro/kernels/fp8_matmul/kernel.py:42",
@@ -4218,9 +4360,11 @@ def main():
     phase("2: paged kernel vs plain version at full-width shapes",
           phase_kernel, paged)
     phase("3: flash kernel vs plain version", phase_flash, flash)
+    phase("22: the flash kernel's seeded form vs plain version on the "
+          "paged kernel's partials", phase_seeded, seeded)
     phase("4: reduced config, card vs CPU", phase_integration)
     cfg, params = full_width_params()
-    paged["launches"] = phase(
+    paged["launches"], seeded["launches"] = phase(
         "5: full-width ardit-self-forcing, batched paged session",
         phase_batched, cfg, params, counters)
     seq_launches = phase(
@@ -4314,8 +4458,9 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in (paged, decode, flash, flash_bwd,
-                                            flash_bwd_tc, ssd, fp8)]}))
+                                  for r in (paged, decode, flash, seeded,
+                                            flash_bwd, flash_bwd_tc, ssd,
+                                            fp8)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

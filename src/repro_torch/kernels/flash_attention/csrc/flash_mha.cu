@@ -28,8 +28,9 @@
 // sees nothing), when given an lse buffer; flash_mha_bwd.cu recomputes
 // P from it.  Serving passes null and launches exactly as before.
 //
-// Four kernels; the wrapper picks one by dtype, head dim and mode
-// (ops.fwd_instance).
+// Four kernels of flash_mha; the wrapper picks one by dtype, head dim and
+// mode (ops.fwd_instance).  A fifth, the seeded form below, is an op of
+// its own (ops.flash_mha_seeded).
 //
 // bf16 at D = 96, and at D = 128 in every mode but the plain causal one:
 // flash_mha_wgmma, on the tensor cores.  A block owns 128 queries of one (b, head): a producer
@@ -140,6 +141,27 @@
 //   and slots = 230,656 bytes
 // (3 K and 2 V stages were 1% slower; a second Q buffer with 2 + 2
 // stages, and 3 + 3 with O stored from registers, slower still).
+//
+// The seeded form, flash_mha_seeded_kernel (bf16 at D 96 and 128): the
+// in-chunk segment of attention.paged_mha, which replaces no TPU kernel
+// (the reference runs that segment as jnp).  Each query row attends to
+// its chunk's own keys, all visible, and its online softmax starts from
+// kernel 1's partials of the same row over the paged context
+// (paged_chunk_attention.cu: m in natural units, l, acc in fp32; a row
+// that sees nothing holds m = -1e30, l = 0, acc = 0), so that the merge,
+// the divide and the output's [B, S, H, D] layout are this launch's and
+// no fp32 score tensor is made.  Bound: 4 Sq Skv D Hq operations (134.6
+// GFLOP a row and layer at 4,680 tokens, 12 heads of 128; 0.136 ms at 989
+// TFLOP/s) against ~90 MB of q, k, v, partials and output: operations-
+// bound.  It is the D 128 instance's code without its clusters, with the
+// mask of the key axis' end only, at D 96 too (two 64-column boxes, the
+// second half zeros; O m64n96): the consumers load the seed into O, m
+// (times log2 e) and l (one lane's share) when an item starts, every P V
+// accumulates, and the first tile's softmax rescales the seed.  Items of
+// 128 queries of one (b, head), all of one cost, in (b, KV head)-major
+// order, so that a head's chunk K/V stays in L2 while its query tiles
+// run.  K and V may be head-range views (elastic SP2): their maps take
+// the view's position stride.
 //
 // fp32 (the reduced configs), and bf16 at D = 16: flash_mha_kernel, the
 // first port, on the CUDA cores.  A block owns 64 queries of one head
@@ -745,15 +767,17 @@ flash_mha_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // [B, S, H, D] bf16 rows as a 4-D tensor map (D innermost), boxes of 64
-// head-dim columns x `rows` positions of one head
+// head-dim columns x `rows` positions of one head; ss: the stride of a
+// position in elements (a head-range view of a wider tensor), 0: H D
 inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                    int D, int rows) {
+                    int D, int rows, long long ss) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t row = 2ull * D;
-  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint64_t pos = ss > 0 ? 2ull * ss : row * H;
+  const cuuint64_t strides[3] = {row, pos, pos * S};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
                       strides, box);
@@ -766,9 +790,10 @@ inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
 struct MapKey {
   const void* base;
   int B, S, H, D, rows;
+  long long ss;                  // bshd_map's position stride; 0: dense
   bool operator==(const MapKey& o) const {
     return base == o.base && B == o.B && S == o.S && H == o.H && D == o.D &&
-           rows == o.rows;
+           rows == o.rows && ss == o.ss;
   }
 };
 
@@ -833,7 +858,8 @@ int maps_and_attribute(Kernel kern, size_t smem, std::atomic<uint64_t>& set,
   for (int i = 0; i < n; ++i) {
     if (found[i]) continue;
     const MapKey& k = keys[i];
-    if (bshd_map(&maps[i], k.base, k.B, k.S, k.H, k.D, k.rows)) return -4;
+    if (bshd_map(&maps[i], k.base, k.B, k.S, k.H, k.D, k.rows, k.ss))
+      return -4;
     map_cache().put(k, maps[i]);
   }
   return 0;
@@ -1362,25 +1388,27 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
 
 
 // ---- bf16 at D = 128, causal without window, sink or rho: persistent ----
+// ---- and the seeded non-causal form at D = 96 and 128 -------------------
 
 namespace d128 {
 
 using d64::advance_ring;
 using d64::mask_causal;
+using d64::mask_tail;
 using d64::pack_p;
 using d64::softmax;
 
 constexpr int WGS = 2;                 // consumer warpgroups, 64 rows each
 constexpr int BM = 64 * WGS;           // queries per item
 constexpr int THREADS = 128 * (WGS + 1);
-constexpr int NB = 2;                  // 64-column boxes of a row
+constexpr int NB = 2;                  // 64-column boxes of a row (D 96:
+                                       // the second box half zeros)
 constexpr int Q_BYTES = BM * NB * ROW;
 constexpr int KV_BYTES = BN * NB * ROW;   // K or V of one tile
 constexpr int O_BYTES = 64 * NB * ROW;    // a warpgroup's staged output
 constexpr int Q_BUFS = 1;              // 2: the next item's Q loads early
 constexpr int K_STAGES = 2, V_STAGES = 3;
 constexpr int NS = BN / 2;             // S values per thread (m64n128)
-constexpr int NO = 64;                 // O values per thread (m64n128)
 constexpr int TURN_BAR = 1;            // named barriers 1..2: turns
 constexpr int STORE_BAR = 1 + WGS;     // 3..4: a warpgroup's staging
 // the Q buffers, the output staging, the K and V rings; barriers and slots
@@ -1403,12 +1431,13 @@ __device__ __forceinline__ void item_of(int r, int n_qt, const Params& p,
   b = bhk / p.Hkv;
 }
 
-// S = Q K^T over D 128 in k16 steps: box kk / 4, 32 bytes a step inside it
+// S = Q K^T over D in k16 steps: box kk / 4, 32 bytes a step inside it
+template <int D>
 __device__ __forceinline__ void qk(float (&s)[NS], const uint8_t* q_wg,
                                    const uint8_t* sk) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int off = (kk % 4) * 32;
     wgmma_m64n128k16_ss_bf16(
         s, desc_sw128(q_wg + (kk / 4) * BM * ROW + off, 16, 1024),
@@ -1418,32 +1447,42 @@ __device__ __forceinline__ void qk(float (&s)[NS], const uint8_t* q_wg,
 }
 
 // O (+)= P V over a tile's keys in k16 steps; scale0 = 0 overwrites O
-__device__ __forceinline__ void pv(float (&o)[NO],
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2],
                                    const uint32_t (&pa)[BN / 16][4],
                                    const uint8_t* sv, int scale0) {
   wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < BN / 16; ++t)
-    wgmma_m64n128k16_rs_bf16_tb(
-        o, pa[t], desc_sw128(sv + t * 16 * ROW, BN * ROW, 1024),
-        t == 0 ? scale0 : 1);
+  for (int t = 0; t < BN / 16; ++t) {
+    const uint64_t desc = desc_sw128(sv + t * 16 * ROW, BN * ROW, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs_bf16_tb(o, pa[t], desc, t == 0 ? scale0 : 1);
+    else
+      wgmma_m64n96k16_rs_bf16_tb(o, pa[t], desc, t == 0 ? scale0 : 1);
+  }
   wgmma_commit();
 }
 
-// The tile's causal mask where it crosses the diagonal or the key axis'
-// end, then the online softmax after the join (at D 128 faster than a
-// softmax in each branch, which doubles the loop's code)
-template <bool FIRST>
+// The tile's mask, then the online softmax after the join (at D 128
+// faster than a softmax in each branch, which doubles the loop's code).
+// CAUSAL: where the tile crosses the diagonal or the key axis' end; else
+// (the seeded form) only the key axis' end.
+template <bool CAUSAL, bool FIRST>
 __device__ __forceinline__ bool mask_then_softmax(
     float (&s)[NS], const Params& p, int first, int row0, int col0, int t0,
     float (&m)[2], float (&l)[2], float (&alpha)[2], float scale_log2) {
-  if (t0 + BN > p.Skv || t0 + BN - 1 > p.q_offset + first)
-    mask_causal(s, p, row0, col0, t0);
+  if constexpr (CAUSAL) {
+    if (t0 + BN > p.Skv || t0 + BN - 1 > p.q_offset + first)
+      mask_causal(s, p, row0, col0, t0);
+  } else {
+    if (t0 + BN > p.Skv) mask_tail(s, col0, p.Skv - t0);
+  }
   return softmax<FIRST>(s, m, l, alpha, scale_log2);
 }
 
 // O *= alpha row by row, where one of the warp's row maxima moved (a
 // warp-uniform test: no wgmma sits under it); O is not in flight
+template <int NO>
 __device__ __forceinline__ void rescale(float (&o)[NO], const float (&alpha)[2],
                                         bool row_moved) {
   if (__any_sync(0xffffffffu, row_moved)) {
@@ -1467,12 +1506,14 @@ __device__ __forceinline__ void release_kv(uint64_t* empty, int stage,
 
 // O / l in bf16 into the warpgroup's two staging boxes `so_wg` in the
 // 128-byte swizzle (their previous store has read them), then two TMA
-// stores of the 64 rows from `first` (rows past Sq are not written); rows
-// that see nothing give 0 (lse -inf).  l arrives as each lane's share of
-// its row sums; m is in the log2 domain, lse in the natural one.
+// stores of the 64 rows from `first` (rows past Sq are not written; at
+// D 96 the second box's columns past 96 neither); rows that see nothing
+// give 0 (lse -inf).  l arrives as each lane's share of its row sums; m is
+// in the log2 domain, lse in the natural one.
+template <int D>
 __device__ __forceinline__ void store_rows(
     const Params& p, const CUtensorMap* to, float* __restrict__ lse,
-    const float (&o)[NO], const float (&m)[2], float (&l)[2],
+    const float (&o)[D / 2], const float (&m)[2], float (&l)[2],
     uint8_t* so_wg, int cw, int first, int h, int b) {
   const int tw = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int lr0 = 16 * (tw / 32) + lane / 4, col0 = 2 * (lane % 4);
@@ -1488,7 +1529,7 @@ __device__ __forceinline__ void store_rows(
     const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
     uint8_t* dst = so_wg + lr * ROW + col0 * 2;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)           // columns 8 j..: box j / 8
+    for (int j = 0; j < D / 8; ++j)        // columns 8 j..: box j / 8
       *reinterpret_cast<uint32_t*>(dst + (j / 8) * 64 * ROW +
                                    (((j % 8) ^ (lr & 7)) << 4)) =
           pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
@@ -1515,11 +1556,54 @@ struct Bars {
   int* rank_slot;               // PAIR: the rank block 0 fetched
 };
 
-template <bool PAIR>
+// The seeded form's partials of every row (kernel 1's, paged_chunk_
+// attention.cu): m (natural units: scores x scale) and l [B, Hq, Sq], acc
+// [B, Hq, Sq, D], fp32; a row that sees nothing holds m = -1e30, l = 0,
+// acc = 0
+struct Seed {
+  const float* __restrict__ m;
+  const float* __restrict__ l;
+  const float* __restrict__ acc;
+};
+
+// The seeded form's start of an item: each of the thread's two rows takes
+// its partial as its running maximum (in the log2 domain), sum and O, in
+// the accumulator's layout; l as the share of the row's first lane (the
+// lanes' shares add up at the store).  Rows past Sq start empty.
+template <int D>
+__device__ __forceinline__ void seed_rows(const Seed& seed, const Params& p,
+                                          float (&o)[D / 2], float (&m)[2],
+                                          float (&l)[2], int row0, int col0,
+                                          int h, int b, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + 8 * r;
+    const bool live = i < p.Sq;
+    const int64_t row =
+        (static_cast<int64_t>(b) * p.Hq + h) * p.Sq + (live ? i : 0);
+    m[r] = live ? seed.m[row] * LOG2E : NEG_INF;
+    l[r] = live && lane % 4 == 0 ? seed.l[row] : 0.f;
+    const float2* src = reinterpret_cast<const float2*>(seed.acc + row * D +
+                                                        col0);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = live ? __ldg(src + 4 * j) : make_float2(0.f, 0.f);
+      o[4 * j + 2 * r] = x.x;
+      o[4 * j + 2 * r + 1] = x.y;
+    }
+  }
+}
+
+// SEEDED: the non-causal form whose rows start from `seed` (O holds it:
+// every P V accumulates, and an item with no tile keeps it); else causal,
+// from an empty state, the first tile's P V overwriting O.
+template <int D, bool PAIR, bool SEEDED>
 __device__ __forceinline__ void consume(
     const Params& p, const CUtensorMap* to, float* __restrict__ lse,
-    const uint8_t* sq, const uint8_t* sk, const uint8_t* sv, uint8_t* so,
-    const Bars& bar, int n_qt, uint32_t cta) {
+    const Seed& seed, const uint8_t* sq, const uint8_t* sk,
+    const uint8_t* sv, uint8_t* so, const Bars& bar, int n_qt,
+    uint32_t cta) {
+  constexpr int NO = D / 2;              // O values per thread (m64nD)
   const int cw = threadIdx.x / 128 - 1;
   const int tw = threadIdx.x % 128;
   const int lane = threadIdx.x % 32;
@@ -1554,52 +1638,57 @@ __device__ __forceinline__ void consume(
     const int row0 = first + lr0;
     const uint8_t* q_wg = sq + qb * Q_BYTES + 64 * cw * ROW;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+    if constexpr (SEEDED)
+      seed_rows<D>(seed, p, o, m, l, row0, col0, h, b, lane);
     mbar_wait(&bar.kfull[ks], kph);
     int info = bar.slot[ks];
     // Q is released once the item's last S has read it, so that the next
     // item's Q loads during this one's last softmax, P V and store
-    if (info < 0) {                          // no visible tile: O = 0
-      release_kv<PAIR>(bar.kempty, ks, lane, peer);
+    if (info < 0) {                          // no visible tile: O = 0, or
+      release_kv<PAIR>(bar.kempty, ks, lane, peer);   // the seed
       advance_ring<K_STAGES>(ks, kph);
       release(bar.qempty, qb, lane);
+      if constexpr (!SEEDED) {
 #pragma unroll
-      for (int c = 0; c < NO; ++c) o[c] = 0.f;
+        for (int c = 0; c < NO; ++c) o[c] = 0.f;
+      }
     } else {
       // the first tile: S only
       int t0 = info >> 1;
       bool last = info & 1;
       named_sync(turn, 256);
-      qk(s, q_wg, sk + ks * KV_BYTES);
+      qk<D>(s, q_wg, sk + ks * KV_BYTES);
       named_arrive(next_turn, 256);
       wgmma_wait<0>();
       fence_regs(s);
       release_kv<PAIR>(bar.kempty, ks, lane, peer);
       advance_ring<K_STAGES>(ks, kph);
       if (last) release(bar.qempty, qb, lane);
-      bool moved = mask_then_softmax<true>(s, p, first, row0, col0, t0, m,
-                                           l, alpha, scale_log2);
+      bool moved = mask_then_softmax<!SEEDED, !SEEDED>(
+          s, p, first, row0, col0, t0, m, l, alpha, scale_log2);
       pack_p(pa, s);
-      int scale0 = 0;                        // the first P V overwrites O
-      while (!last) {
+      int scale0 = SEEDED;                   // the first P V overwrites O,
+      while (!last) {                        // or adds to the seed
         mbar_wait(&bar.kfull[ks], kph);
         info = bar.slot[ks];
         t0 = info >> 1;
         last = info & 1;
         mbar_wait(&bar.vfull[vs], vph);      // the previous tile's V
         named_sync(turn, 256);
-        qk(s, q_wg, sk + ks * KV_BYTES);
+        qk<D>(s, q_wg, sk + ks * KV_BYTES);
         // O to the previous tile's maximum, then the previous tile's
         // O += P V, which runs during this tile's softmax
         rescale(o, alpha, moved);
-        pv(o, pa, sv + vs * KV_BYTES, scale0);
+        pv<D>(o, pa, sv + vs * KV_BYTES, scale0);
         named_arrive(next_turn, 256);
         wgmma_wait<1>();
         fence_regs(s);
         release_kv<PAIR>(bar.kempty, ks, lane, peer);
         advance_ring<K_STAGES>(ks, kph);
         if (last) release(bar.qempty, qb, lane);
-        moved = mask_then_softmax<false>(s, p, first, row0, col0, t0, m, l,
-                                         alpha, scale_log2);
+        moved = mask_then_softmax<!SEEDED, false>(s, p, first, row0, col0,
+                                                  t0, m, l, alpha,
+                                                  scale_log2);
         wgmma_wait<0>();
         fence_regs(o);
         release_kv<PAIR>(bar.vempty, vs, lane, peer);
@@ -1611,7 +1700,7 @@ __device__ __forceinline__ void consume(
       mbar_wait(&bar.vfull[vs], vph);
       named_sync(turn, 256);
       rescale(o, alpha, moved);
-      pv(o, pa, sv + vs * KV_BYTES, scale0);
+      pv<D>(o, pa, sv + vs * KV_BYTES, scale0);
       named_arrive(next_turn, 256);
       wgmma_wait<0>();
       fence_regs(o);
@@ -1619,7 +1708,7 @@ __device__ __forceinline__ void consume(
       advance_ring<V_STAGES>(vs, vph);
     }
     if (tw == 0) bulk_wait_read();          // the last store has read so_wg
-    store_rows(p, to, lse, o, m, l, so_wg, cw, first, h, b);
+    store_rows<D>(p, to, lse, o, m, l, so_wg, cw, first, h, b);
   }
   if (cw == 0) named_sync(TURN_BAR, 256);  // the last one's turn
   if (tw == 0) bulk_wait_all();
@@ -1651,19 +1740,20 @@ __device__ __forceinline__ int fetch(int* sched, const Bars& bar, int k,
   return r;
 }
 
-// PAIR: a cluster of two blocks takes heads h and h + 1 of one KV group at
-// one query tile, whose K/V tiles are the same: each block loads one of a
-// tile's two 64-column boxes and multicasts it into both, so that L2 sends
-// each K/V byte to two SMs at once.  The K and V stages' empty barriers
-// count both blocks' consumer warps.
-template <bool PAIR>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap to,
-                          float* __restrict__ lse, int* __restrict__ sched,
-                          Params p, int n_qt, int n_ranks) {
+// A block's whole work, for both kernels below (the maps lie in their
+// parameter space).  PAIR: a cluster of two blocks takes heads h and h + 1
+// of one KV group at one query tile, whose K/V tiles are the same: each
+// block loads one of a tile's two 64-column boxes and multicasts it into
+// both, so that L2 sends each K/V byte to two SMs at once.  The K and V
+// stages' empty barriers count both blocks' consumer warps.
+template <int D, bool PAIR, bool SEEDED>
+__device__ __forceinline__ void run(const CUtensorMap* tq,
+                                    const CUtensorMap* tk,
+                                    const CUtensorMap* tv,
+                                    const CUtensorMap* to,
+                                    float* __restrict__ lse, const Seed& seed,
+                                    int* __restrict__ sched, const Params& p,
+                                    int n_qt, int n_ranks) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -1706,16 +1796,16 @@ flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x < 128) {
     // producer warpgroup: one thread fetches the items and issues every
-    // load, each item's keys [0, q_offset + its last row] in order, a
-    // tile's K one tile ahead of its V (K is released after S, V only
-    // after P V), the item's first K before its Q (a K stage frees up
-    // before the Q buffer does)
+    // load, each item's keys [0, q_offset + its last row] (SEEDED: every
+    // key) in order, a tile's K one tile ahead of its V (K is released
+    // after S, V only after P V), the item's first K before its Q (a K
+    // stage frees up before the Q buffer does)
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      tma_prefetch(&tq);
-      tma_prefetch(&tk);
-      tma_prefetch(&tv);
-      tma_prefetch(&to);
+      tma_prefetch(tq);
+      tma_prefetch(tk);
+      tma_prefetch(tv);
+      tma_prefetch(to);
       int ks = 0, vs = 0;
       uint32_t kph = 0, vph = 0;
       // PAIR: this block's box of each K / V tile, multicast to both
@@ -1734,7 +1824,8 @@ flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
         item_of<PAIR ? 2 : 1>(r, n_qt, p, qt, h, b);
         h += cta;
         const int i0 = qt * BM, hk = h / (p.Hq / p.Hkv);
-        const int kv_end = min(p.Skv, p.q_offset + min(i0 + BM, p.Sq));
+        const int kv_end =
+            SEEDED ? p.Skv : min(p.Skv, p.q_offset + min(i0 + BM, p.Sq));
         const int n_t = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
         for (int t = 0; t <= n_t; ++t) {
           if (t < n_t || n_t == 0) {
@@ -1749,11 +1840,11 @@ flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
               mbar_arrive_expect_tx(&bar.kfull[ks], KV_BYTES);
               for (int x = box0; x < box0 + n_box; ++x) {
                 if (PAIR)
-                  tma_load_4d_multicast(dst + x * BN * ROW, &tk,
+                  tma_load_4d_multicast(dst + x * BN * ROW, tk,
                                         &bar.kfull[ks], 64 * x, hk, t * BN,
                                         b, 0x3);
                 else
-                  tma_load_4d(dst + x * BN * ROW, &tk, &bar.kfull[ks],
+                  tma_load_4d(dst + x * BN * ROW, tk, &bar.kfull[ks],
                               64 * x, hk, t * BN, b);
               }
             }
@@ -1764,19 +1855,19 @@ flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
             mbar_wait(&bar.qempty[qb], ((k / Q_BUFS) & 1) ^ 1);
             bar.item_slot[qb] = r;
             mbar_arrive_expect_tx(&bar.qfull[qb], Q_BYTES);
-            tma_load_4d(sqb, &tq, &bar.qfull[qb], 0, h, i0, b);
-            tma_load_4d(sqb + BM * ROW, &tq, &bar.qfull[qb], 64, h, i0, b);
+            tma_load_4d(sqb, tq, &bar.qfull[qb], 0, h, i0, b);
+            tma_load_4d(sqb + BM * ROW, tq, &bar.qfull[qb], 64, h, i0, b);
           } else {
             mbar_wait(&bar.vempty[vs], vph ^ 1);
             uint8_t* dst = sv + vs * KV_BYTES;
             mbar_arrive_expect_tx(&bar.vfull[vs], KV_BYTES);
             for (int x = box0; x < box0 + n_box; ++x) {
               if (PAIR)
-                tma_load_4d_multicast(dst + x * BN * ROW, &tv,
+                tma_load_4d_multicast(dst + x * BN * ROW, tv,
                                       &bar.vfull[vs], 64 * x, hk,
                                       (t - 1) * BN, b, 0x3);
               else
-                tma_load_4d(dst + x * BN * ROW, &tv, &bar.vfull[vs], 64 * x,
+                tma_load_4d(dst + x * BN * ROW, tv, &bar.vfull[vs], 64 * x,
                             hk, (t - 1) * BN, b);
             }
             advance_ring<V_STAGES>(vs, vph);
@@ -1786,11 +1877,39 @@ flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<PAIR>(p, &to, lse, sq, sk, sv, so, bar, n_qt, cta);
+    consume<D, PAIR, SEEDED>(p, to, lse, seed, sq, sk, sv, so, bar, n_qt,
+                             cta);
   }
   // no block exits while the other may still write or arrive on its
   // shared memory
   if constexpr (PAIR) cluster_sync();
+}
+
+// The causal instance (D 128)
+template <bool PAIR>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mha_wgmma128_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to,
+                          float* __restrict__ lse, int* __restrict__ sched,
+                          Params p, int n_qt, int n_ranks) {
+  run<128, PAIR, false>(&tq, &tk, &tv, &to, lse, Seed{}, sched, p, n_qt,
+                        n_ranks);
+}
+
+// The seeded form (D 96 and 128; no clusters: the AR-DiT's KV groups are
+// of one head)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_mha_seeded_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap to, Seed seed,
+                        int* __restrict__ sched, Params p, int n_qt,
+                        int n_ranks) {
+  run<D, false, true>(&tq, &tk, &tv, &to, nullptr, seed, sched, p, n_qt,
+                      n_ranks);
 }
 
 // n_blocks: the persistent grid (ops.fwd_blocks at the item's 128
@@ -1849,6 +1968,35 @@ int launch(const void* q, const void* k, const void* v, const int32_t* keep,
       &cfg, kern, maps[0], maps[1], maps[2], maps[3], lse, sched, p, n_qt,
       static_cast<int>(n_items / 2));
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The seeded form: n_blocks and sched as for the causal instance; k and v
+// read through their position stride kv_ss (elements; 0: dense), so that a
+// head-range view of a wider tensor is read in place.
+template <int D>
+int launch_seeded(const void* q, const void* k, const void* v,
+                  const Seed& seed, void* out, int B, const Params& p,
+                  long long kv_ss, int n_blocks, int* sched,
+                  cudaStream_t stream) {
+  const int n_qt = (p.Sq + BM - 1) / BM;
+  const long long n_items = static_cast<long long>(B) * p.Hq * n_qt;
+  if (p.Skv <= 0 || !sched || n_blocks <= 0 || n_blocks > n_items ||
+      n_items > INT_MAX)
+    return -3;
+  const MapKey keys[4] = {{q, B, p.Sq, p.Hq, D, BM},
+                          {k, B, p.Skv, p.Hkv, D, BN, kv_ss},
+                          {v, B, p.Skv, p.Hkv, D, BN, kv_ss},
+                          {out, B, p.Sq, p.Hq, D, 64}};
+  CUtensorMap maps[4];
+  static std::atomic<uint64_t> attribute_set{0};
+  auto kern = flash_mha_seeded_kernel<D>;
+  const int err = maps_and_attribute(kern, SMEM_BYTES, attribute_set, keys,
+                                     maps, 4);
+  if (err) return err;
+  kern<<<n_blocks, THREADS, SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], seed, sched, p, n_qt,
+      static_cast<int>(n_items));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1924,6 +2072,40 @@ extern "C" int flash_mha_wgmma_launch(
                  ? tc::d128::launch(q, k, v, kp, out, lp, B, p, n_blocks,
                                     static_cast<int*>(sched), s)
                  : tc::launch<128>(q, k, v, kp, out, lp, B, p, s);
+  }
+  return -1;
+}
+
+// The seeded form (flash_mha_seeded_kernel): bf16 q [B,Sq,Hq,D] attends to
+// bf16 k/v [B,Skv,Hkv,D] (Skv >= 1), every key visible, each row's online
+// softmax starting from its partial m, l [B,Hq,Sq] and acc [B,Hq,Sq,D]
+// (fp32, m in natural units: kernel 1's outputs); out [B,Sq,Hq,D] bf16 is
+// acc / l over both (0 where l is 0).  k and v: position stride kv_ss
+// elements (0: dense), batch stride Skv kv_ss, heads dense; q, k, v and
+// out 16-byte aligned.  D 96 or 128; n_blocks and sched as for the D 128
+// causal instance (ops.fwd_blocks; one int32 zeroed before the launch).
+// Returns as flash_mha_wgmma_launch.
+extern "C" int flash_mha_seeded_launch(
+    const void* q, const void* k, const void* v, const void* m,
+    const void* l, const void* acc, void* out, int B, int Sq, int Skv,
+    int Hq, int Hkv, int D, long long kv_ss, int n_blocks, void* sched,
+    void* stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0) return -3;
+  Params p{Sq, Skv, Hq, Hkv, 0, 0, 0, 0, 0, 0, 0,
+           1.0f / sqrtf(static_cast<float>(D))};
+  const tc::d128::Seed seed{static_cast<const float*>(m),
+                            static_cast<const float*>(l),
+                            static_cast<const float*>(acc)};
+  int* sp = static_cast<int*>(sched);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 96:
+      return tc::d128::launch_seeded<96>(q, k, v, seed, out, B, p, kv_ss,
+                                         n_blocks, sp, s);
+    case 128:
+      return tc::d128::launch_seeded<128>(q, k, v, seed, out, B, p, kv_ss,
+                                          n_blocks, sp, s);
   }
   return -1;
 }

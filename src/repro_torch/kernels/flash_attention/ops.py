@@ -18,6 +18,18 @@ take the general tensor-core kernel.
 ``flash_mha.launches_tc`` the tensor-core ones among them and
 ``flash_mha.launches_d128_causal`` those of the D 128 causal instance.
 
+``flash_mha_seeded`` is the kernel's seeded form, an op of its own:
+``attention.paged_mha``'s in-chunk segment, whose queries attend to the
+chunk's own keys with every row's online softmax continued from kernel
+1's partials over the paged context, the divide and the output's layout
+in the same launch.  ``seeded_path`` sends bf16 CUDA tensors at D 96 and
+128 (the AR-DiT configs) to it; the rest (CPU tensors, fp32, other head
+dims) keeps the plain version (``ref.flash_mha_seeded_ref``).  Built on
+the D 128 causal instance's persistent design (items of 128 queries from
+an atomic counter, two consumer warpgroups), non-causal, at D 96 too;
+``flash_mha.launches_seeded`` counts its launches (not in ``launches``),
+``flash_mha.plain_segments`` the calls that took the plain version.
+
 Gradients: whenever grad mode is on and q, k or v requires grad,
 ``flash_mha`` goes through ``FlashMHA``, whose forward also keeps the
 rows' log-sum-exp and whose backward is a hand-written kernel too, or on
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common.device import sm_count as _sm_count
+from repro_torch.kernels.common.grad import no_grad_through
 from repro_torch.kernels.flash_attention import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_mha.cu"
@@ -73,6 +86,9 @@ FWD_TC64_BLOCK = 192
 FWD_TC128_BLOCK = 128
 FWD_ITEM_QUERIES = {"wgmma64": FWD_TC64_BLOCK,
                     "wgmma128_causal": FWD_TC128_BLOCK}
+# the seeded form's head dims: ardit-causal-forcing's 96, ardit-self-
+# forcing's 128
+SEEDED_HEAD_DIMS = (96, 128)
 
 
 def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
@@ -101,6 +117,19 @@ def fwd_instance(dtype: torch.dtype, head_dim: int, causal: bool,
             and sparsity <= 0.0:
         return "wgmma128_causal"
     return "wgmma"
+
+
+def seeded_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The path of ``paged_mha``'s in-chunk segment over CUDA tensors of
+    ``dtype`` at ``head_dim``: ``"wgmma"`` (``flash_mha_seeded``, the
+    tensor-core kernel's seeded form) for bf16 at D 96 or 128, else
+    ``"plain"`` (``ref.flash_mha_seeded_ref`` on the card: fp32 keeps its
+    1e-5 agreement with the CPU; the other head dims are the reduced
+    configs').  ``flash_mha_seeded`` sends CPU tensors to the plain version
+    whatever this says."""
+    if dtype == torch.bfloat16 and head_dim in SEEDED_HEAD_DIMS:
+        return "wgmma"
+    return "plain"
 
 
 def bwd_kernel_path(dtype: torch.dtype, head_dim: int) -> str:
@@ -147,6 +176,10 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p] * n_ptr
             fn.restype = ctypes.c_int
+        lib.flash_mha_seeded_launch.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int] \
+            + [ctypes.c_void_p] * 2
+        lib.flash_mha_seeded_launch.restype = ctypes.c_int
         lib.flash_mha_error_string.argtypes = [ctypes.c_int]
         lib.flash_mha_error_string.restype = ctypes.c_char_p
     return lib
@@ -329,6 +362,83 @@ def _launch(q, k, v, n_kv_heads, causal, q_offset, window, sink, sparsity,
     return (out, lse) if with_lse else out
 
 
+def _launch_seeded(q, k, v, m, l, acc, n_kv_heads):
+    """The seeded form's launch: checks, output, item counter, grid."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("m", m), ("l", l), ("acc", acc)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_mha_seeded: no kernel for q/k/v "
+                        f"{q.dtype}/{k.dtype}/{v.dtype} (one dtype)")
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape \
+            or hkv != n_kv_heads or hq % hkv or skv < 1:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} (n_kv_heads {n_kv_heads})")
+    part = (b, hkv, hq // hkv, sq)
+    for name, t, shape in (("m", m, part), ("l", l, part),
+                           ("acc", acc, part + (d,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    # k and v may be head-range views [..., lo:hi, :] of a wider tensor
+    # (elastic SP2): read through their position stride, heads and D
+    # dense, 16-byte strides for TMA
+    ss = k.stride(1)
+    if not q.is_contiguous() or v.stride() != k.stride() \
+            or k.stride(3) != 1 or k.stride(2) != d or ss % 8 \
+            or k.stride(0) != skv * ss:
+        raise ValueError(f"q must be contiguous, k and v [B,S,H,D] with "
+                         f"dense heads and D (strides {k.stride()}, "
+                         f"{v.stride()})")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v are read by TMA: 16-byte aligned")
+    out = torch.empty_like(q)
+    sched = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):        # the runtime launches on its device
+        err = lib.flash_mha_seeded_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), out.data_ptr(), b, sq, skv, hq,
+            hkv, d, ss, fwd_blocks(b, sq, hq, _sm_count(dev),
+                                   FWD_TC128_BLOCK),
+            sched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.flash_mha_error_string(err).decode()
+        raise RuntimeError(f"flash_mha_seeded launch failed: {msg}")
+    flash_mha.launches_seeded += 1
+    return out
+
+
+def flash_mha_seeded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, *,
+                     n_kv_heads: int) -> torch.Tensor:
+    """q [B,Sq,Hq,D] attends to k, v [B,Skv,Hkv,D] (Skv >= 1), every key
+    visible, each row's online softmax continuing from its partial m, l
+    [B,Hkv,G,Sq] and acc [B,Hkv,G,Sq,D] (fp32, m in natural units, acc
+    unnormalized: ``paged_chunk_attention``'s outputs; m = -1e30, l = 0
+    for a row that saw nothing) -> [B,Sq,Hq,D] in q's dtype, 0 for a row
+    whose l stays 0.  CUDA tensors that ``seeded_path`` sends to the
+    kernel (bf16 at D 96 or 128) take the seeded form of the tensor-core
+    kernel; CPU tensors and the rest take ``ref.flash_mha_seeded_ref``
+    (counted in ``flash_mha.plain_segments``).  k and v may be head-range
+    views of wider tensors; P enters P V in bf16, as in kernel 1 and
+    SDPA."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_mha_seeded: no kernel for device "
+                         f"{q.device}")
+    if q.device.type == "cpu" or seeded_path(q.dtype, q.shape[-1]) \
+            == "plain":
+        flash_mha.plain_segments += 1
+        return _ref.flash_mha_seeded_ref(q, k, v, m, l, acc,
+                                         n_kv_heads=n_kv_heads)
+    no_grad_through("flash_mha_seeded", q, k, v, m, l, acc)
+    return _launch_seeded(q, k, v, m, l, acc, n_kv_heads)
+
+
 def flash_mha_bwd(q, k, v, o, lse, dout, *, n_kv_heads, causal=True,
                   q_offset=0, window=0, sink=0, sparsity=0.0, block_q=128,
                   block_kv=128, path=None):
@@ -455,5 +565,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_mha.launches = 0
 flash_mha.launches_tc = 0
 flash_mha.launches_d128_causal = 0
+flash_mha.launches_seeded = 0
+flash_mha.plain_segments = 0
 flash_mha.launches_bwd = 0
 flash_mha.launches_bwd_tc = 0

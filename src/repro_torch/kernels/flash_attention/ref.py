@@ -5,13 +5,17 @@ reference implementation: ``flash_mha_ref`` is ``models.attention``'s
 plain ``mha`` body (fp32 online softmax over the direct path and the
 static block schedules), under the kernel-oracle name and signature;
 with ``return_lse`` it also returns the log-sum-exp the kernel writes
-for its backward.  ``flash_mha_bwd_ref`` is the plain version of the
-backward kernels: FlashAttention-2's recompute formulas over a dense
-visibility mask, fp32 (float64 for float64 inputs), as the CUDA-core
-kernel (``csrc/flash_mha_bwd.cu``) computes them, or with
-``round_bf16`` rounding P and dS to bf16 before the products that take
-them, as the tensor-core kernel (``csrc/flash_mha_bwd_wgmma.cu``) does.  The CPU tests run both, and ``chip_smoke.py`` holds
-the CUDA kernels against them on the card.
+for its backward.  ``flash_mha_seeded_ref`` is the plain version of the
+seeded form: ``paged_mha``'s in-chunk segment as it runs off the card
+(the fp32 segment over the chunk's own keys, merged with the paged
+context's partials, divided and laid out).  ``flash_mha_bwd_ref`` is the
+plain version of the backward kernels: FlashAttention-2's recompute
+formulas over a dense visibility mask, fp32 (float64 for float64
+inputs), as the CUDA-core kernel (``csrc/flash_mha_bwd.cu``) computes
+them, or with ``round_bf16`` rounding P and dS to bf16 before the
+products that take them, as the tensor-core kernel
+(``csrc/flash_mha_bwd_wgmma.cu``) does.  The CPU tests run both, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.attention import mha_plain
+from repro_torch.models.attention import (_finalize, _group, _merge,
+                                          _segment_attn, mha_plain)
 
 
 def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,6 +40,20 @@ def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_offset=q_offset, window=window, sink=sink,
                      sparsity=sparsity, block_q=block_q, block_kv=block_kv,
                      return_lse=return_lse)
+
+
+def flash_mha_seeded_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                         *, n_kv_heads: int) -> torch.Tensor:
+    """q [B,Sq,Hq,D] over k,v [B,Skv,Hkv,D], every key visible, each row's
+    online softmax continued from its partial m, l [B,Hkv,G,Sq] and acc
+    [B,Hkv,G,Sq,D] (``paged_chunk_attention``'s) -> [B,Sq,Hq,D] in q's
+    dtype: the fp32 segment (float64 for float64 inputs), the merge, the
+    divide (0 where l is 0), the layout."""
+    b, sq, hq, d = q.shape
+    own = _segment_attn(_group(q, n_kv_heads), k, v, None, 1.0 / math.sqrt(d))
+    out = _finalize(_merge((m, l, acc), own), q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
 
 
 def visibility(sq: int, skv: int, *, causal: bool, q_offset: int,

@@ -15,7 +15,16 @@ kernel table (phase 3 of ``chip_smoke.py`` runs the same shapes):
   1,500), B 2, 16 heads of 64; 3g is also timed on the host clock over
   back-to-back calls (what a decode loop pays a call);
 * ``train``: minicpm-2b's training forward (B 2, 4,096 causal, 36 heads
-  of 64) writing the lse its backward reads.
+  of 64) writing the lse its backward reads;
+* ``3s`` / ``3s-b4`` / ``3s-d96``: the seeded form (``flash_mha_seeded``,
+  ``paged_mha``'s in-chunk segment) at ardit-self-forcing's 832x480
+  chunk, 4,680 queries over their own 4,680 keys, 12 heads of 128, B 1
+  and 4, and at ardit-causal-forcing's, 2,640 x 2,640, 16 heads of 96,
+  B 1, from random partials; beside it SDPA over the chunk (its flash
+  backend, which also gives each row's log-sum-exp) followed by the plain
+  merge with the partials, divide and layout, and the plain version
+  (``ref.flash_mha_seeded_ref``), against which the kernel's output is
+  checked (2 bf16 ulps at the largest magnitude).
 
 Each row prints the kernel's ms, SDPA's, the bound (operations at 989
 TFLOP/s or bytes at 3.35 TB/s) and, at D 64, the exponential floor: the
@@ -81,6 +90,12 @@ ROWS = {
     "train": (2, 4096, 4096, 36, 36, 64, True, 0, 0),
     # ardit-causal-forcing's heads of 96 (phase 3's case)
     "d96": (1, 660, 2057, 16, 16, 96, False, 0, 0),
+}
+# the seeded form's rows: name -> (B, Sq = Skv, H, D)
+SEEDED_ROWS = {
+    "3s": (1, 4680, 12, 128),
+    "3s-b4": (4, 4680, 12, 128),
+    "3s-d96": (1, 2640, 16, 96),
 }
 # the D 64 modes of --check: (name, B, Sq, Skv, Hq, Hkv, keyword args)
 CHECKS = [
@@ -218,7 +233,7 @@ def print_ptxas(log):
     and ptxas's wgmma serialization notes."""
     for block in log.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
-        if "wgmma" in name:
+        if "wgmma" in name or "seeded" in name:
             regs = [ln.strip() for ln in block.splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"  ptxas {name[-40:]}: {' | '.join(regs)}")
@@ -294,6 +309,60 @@ def lib_call(lib, q, k, v, kw, general=False):
             raise RuntimeError(f"variant launch failed: {err}")
         return out
     return call
+
+
+def seeded_row(row, gen, iters, mhz):
+    """One row of the seeded form: the kernel, SDPA + the plain merge and
+    the plain version timed on the same inputs, the kernel's output
+    checked against the plain version's, the bound and exponential
+    floor."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, D = SEEDED_ROWS[row]
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=DEV)
+               .bfloat16() for _ in range(3))
+    m = torch.randn((B, H, 1, S), generator=gen, device=DEV)
+    l = 1.0 + torch.rand((B, H, 1, S), generator=gen, device=DEV)
+    acc = torch.randn((B, H, 1, S, D), generator=gen, device=DEV)
+    fn = lambda: ops.flash_mha_seeded(q, k, v, m, l, acc, n_kv_heads=H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    m3, l3, acc3 = m[:, :, 0], l[:, :, 0], acc[:, :, 0]
+
+    def sdpa_merge():
+        out, lse = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, False)[:2]
+        mx = torch.maximum(m3, lse)
+        c0, c1 = torch.exp(m3 - mx), torch.exp(lse - mx)
+        o = (acc3 * c0[..., None] + out.float() * c1[..., None]) \
+            / (l3 * c0 + c1)[..., None]
+        return o.to(q.dtype).transpose(1, 2).contiguous()
+
+    plain = lambda: ref.flash_mha_seeded_ref(q, k, v, m, l, acc,
+                                             n_kv_heads=H)
+    got, want, lib = fn(), plain(), sdpa_merge()
+    torch.cuda.synchronize()
+    top = float(want.float().abs().max())
+    limit = 2 * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+    err = float((got.float() - want.float()).abs().max())
+    lib_err = float((lib.float() - want.float()).abs().max())
+    flops = 4.0 * B * H * S * S * D
+    nbytes = 2 * 4 * B * S * H * D + 4 * B * H * S * (D + 2)
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+    res = dict(kernel_ms=cuda_ms(fn, iters),
+               sdpa_merge_ms=cuda_ms(sdpa_merge, iters),
+               plain_ms=cuda_ms(plain, 3),
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ex2_floor_ms=B * H * S * S / (EX2_PER_CLOCK_SM * SMS * mhz
+                                             * 1e6) * 1e3,
+               err=err, limit=limit, sdpa_merge_err=lib_err,
+               ok=err <= limit)
+    res["roofline_pct"] = 100.0 * res["bound_ms"] / res["kernel_ms"]
+    print(f"  row {row} {SEEDED_ROWS[row]}: " + ", ".join(
+        f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
+        for a, b in res.items()), flush=True)
+    if not res["ok"]:
+        raise AssertionError(f"row {row}: |d| {err} > {limit}")
+    return res
 
 
 def check():
@@ -428,6 +497,10 @@ def main(argv=None):
     gen = torch.Generator(device=DEV).manual_seed(7)
     results = {}
     for row in args.rows.split(","):
+        if row in SEEDED_ROWS:
+            results[row] = seeded_row(row, gen, args.iters, mhz)
+            torch.cuda.empty_cache()
+            continue
         q, k, v, kw = make(row, gen)
         if args.digest:
             out, lse = ops._launch(q, k, v, kw["n_kv_heads"], kw["causal"],

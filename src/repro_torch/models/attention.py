@@ -10,8 +10,10 @@ subset of the JAX reference's ``models/attention.py``).
   (``mha_plain``) is that kernel's plain version.
 * ``paged_mha`` — page-table-native chunk attention: online-softmax
   partials over the paged KV pool (the ``kernels/paged_attention``
-  CUDA kernel on the card, its plain PyTorch version on the CPU) merged
-  with the chunk's own fresh KV before the softmax divide.
+  CUDA kernel on the card, its plain PyTorch version on the CPU)
+  continued over the chunk's own fresh KV before the softmax divide (in
+  bf16 on the card the ``kernels/flash_attention`` kernel's seeded form,
+  elsewhere plain PyTorch).
 * ``decode_attention`` — single-token decode over a dense KV cache with
   per-stream valid lengths (and optional sink + window), plain PyTorch:
   the oracle inside ``kernels/paged_attention``'s decode plain version.
@@ -341,33 +343,36 @@ def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     (bidirectional, fully visible).
 
     The paged segment's partials come from ``paged_chunk_attention``
-    (the CUDA kernel for CUDA tensors, the plain version for CPU ones);
-    the in-chunk segment is plain PyTorch, as in the reference, and the
-    two merge before the softmax divide.  No contiguous context is
-    materialized.  ``sink``/``chunk_tokens`` give the valid prefixes of
-    the sink/ring pages so neither form computes dead page tails.
+    (the CUDA kernel for CUDA tensors, the plain version for CPU ones).
+    The in-chunk segment continues each row's online softmax from them
+    and divides: on the card in bf16 at D 96 or 128 (``flash_attention.
+    ops.seeded_path``) one launch of the tensor-core kernel's seeded form
+    (``flash_mha_seeded``), which also lays the output out; elsewhere
+    (CPU tensors, fp32, other head dims) plain PyTorch, as in the
+    reference (``flash_attention.ref.flash_mha_seeded_ref``: the fp32
+    segment, the merge before the softmax divide, the layout).  No
+    contiguous context is materialized.  ``sink``/``chunk_tokens`` give
+    the valid prefixes of the sink/ring pages so neither form computes
+    dead page tails.
 
     Traced as two device spans (``profiler/trace.py``):
     ``device.attn.context`` over the paged segment and
     ``device.attn.chunk`` over the in-chunk segment, the merge and the
-    output's layout.
+    output's layout; counted in ``flash_mha.launches_seeded`` or
+    ``flash_mha.plain_segments``.
     """
     # late imports: keep ``models`` importable without the kernel package,
     # and out of the import cycle through ``profiler``
+    from repro_torch.kernels.flash_attention.ops import flash_mha_seeded
     from repro_torch.kernels.paged_attention.ops import paged_chunk_attention
     from repro_torch.profiler import trace
-    b, sq, hq, d = q.shape
-    scale = 1.0 / math.sqrt(d)
     with trace.device_span("device.attn.context", q.device):
         ctx = paged_chunk_attention(q, k_pages, v_pages, block_table,
                                     page_mask, sink=sink,
                                     chunk_tokens=chunk_tokens)
     with trace.device_span("device.attn.chunk", q.device):
-        own = _segment_attn(_group(q, n_kv_heads), chunk_k, chunk_v, None,
-                            scale)
-        out = _finalize(_merge(ctx, own), q.dtype)
-        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
-    return out
+        return flash_mha_seeded(q, chunk_k, chunk_v, *ctx,
+                                n_kv_heads=n_kv_heads)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

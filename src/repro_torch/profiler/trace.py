@@ -61,6 +61,11 @@ Counters, from ``session.round``: ``rounds``; ``launches`` and the
 a lane's micro-batch in a round (one per further KV-dtype group);
 ``runnable``, streams runnable on a lane, capped at the micro-batch;
 ``residency_refused``, runnable streams that could not be made resident.
+And the rise between ``start()`` and ``stop()`` of the kernel wrappers'
+own counts that ``WRAPPER_COUNTS`` names, where it is above 0:
+``flash_mha.launches_seeded``, ``paged_mha``'s in-chunk segments on
+kernel 3's seeded form, and ``flash_mha.plain_segments``, those on its
+plain version.
 
 Chunk records (``Record.chunks``, one a completed chunk): ``sid``,
 ``tier`` and ``budget`` and ``fidelity`` at the chunk's start,
@@ -83,6 +88,15 @@ _REC: Optional["Record"] = None
 # an anchor whose record-to-completion bracket on the host is wider than
 # this places no device time
 ANCHOR_WIDTH_S = 50e-6
+# counts kept on kernel wrappers (module, function, attribute) that a
+# record also holds, as their rise while it records, under
+# "<function>.<attribute>"
+WRAPPER_COUNTS = (
+    ("repro_torch.kernels.flash_attention.ops", "flash_mha",
+     "launches_seeded"),
+    ("repro_torch.kernels.flash_attention.ops", "flash_mha",
+     "plain_segments"),
+)
 
 
 @dataclasses.dataclass
@@ -119,6 +133,8 @@ class Record:
     # after its completion)]
     _anchors: Dict[int, List[Tuple[Any, float, float]]] = \
         dataclasses.field(default_factory=dict)
+    # WRAPPER_COUNTS' values at start()
+    _wrapper_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def _parent(self) -> int:
         return self._open[-1] if self._open else -1
@@ -305,6 +321,17 @@ def _placer(anchors: List[Tuple[float, float]]) -> Callable[[float], float]:
     return place
 
 
+def _read_wrapper_counts() -> Dict[str, int]:
+    """WRAPPER_COUNTS' values now (0 for a module not yet imported, whose
+    counts start at 0)."""
+    counts = {}
+    for module, fn, attr in WRAPPER_COUNTS:
+        mod = sys.modules.get(module)
+        counts[f"{fn}.{attr}"] = \
+            getattr(getattr(mod, fn), attr) if mod is not None else 0
+    return counts
+
+
 def start() -> Record:
     """Turn tracing on.  Device spans are timed on the current card,
     anchored here after a synchronize; before CUDA is initialized, no
@@ -318,6 +345,7 @@ def start() -> Record:
         i = torch.cuda.current_device()
         torch.cuda.synchronize(i)
         _anchor(rec, i)
+    rec._wrapper_counts = _read_wrapper_counts()
     rec.t_start = time.perf_counter()
     _REC = rec
     return rec
@@ -331,6 +359,9 @@ def stop() -> Optional[Record]:
     if rec is None:
         return None
     rec.t_end = time.perf_counter()
+    for name, n in _read_wrapper_counts().items():
+        if n > rec._wrapper_counts[name]:
+            rec.counters[name] += n - rec._wrapper_counts[name]
     if rec._anchors:
         torch = sys.modules["torch"]
         for i in rec._anchors:

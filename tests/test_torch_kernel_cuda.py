@@ -65,6 +65,20 @@ elastic SP2 shards): the kernel reads the view in place and gives
 exactly the partials it gives on a contiguous copy of the view, and the
 plain version's within the limits above.
 
+Kernel 3's seeded form (``flash_mha_seeded``, ``paged_mha``'s in-chunk
+segment on the card): ``paged_mha`` against kernel 1's same partials
+finished by the plain version (``flash_mha_seeded_ref``) at the cell's
+shape (4,680 queries over their own 4,680 keys, 12 heads of 128, bf16
+pages, 1-4 rows), at ardit-causal-forcing's 16 heads of 96, at lengths
+that are not multiples of 128 with GQA and a page mask, with a row whose
+mask hides every context token (it equals non-causal attention over its
+chunk alone) and on elastic SP2's head-range views of the pools and of
+the chunk's k / v (the full call's heads bit for bit); one seeded launch
+a call (``launches_seeded``), two calls bit for bit; fp32 and D 64 keep
+the plain path (``flash_mha.plain_segments``), and the op refuses what
+it cannot read.  Tolerance: kernel 1's, 2 bf16 ulps at the output's
+largest magnitude (P enters P V in bf16).
+
 Paged decode attention: ``paged_decode_attention`` against
 ``paged_decode_attention_ref`` at the reference tests' shapes, a GQA
 group of 12 (two row groups per block) and minitron-8b's attention at a
@@ -141,6 +155,7 @@ from repro_torch.kernels.fp8_matmul import ref as f8ref
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.paged_attention import ops, ref
 from repro_torch.models.attention import mha, mha_plain, shard_heads
+from repro_torch.models.attention import merge_head_shards, paged_mha
 from repro_torch.models import stepcache
 from repro_torch.models.kvcache import to_fp8_e4m3
 from repro_torch.kernels.ssd_scan import ops as sops
@@ -1441,3 +1456,149 @@ def test_training_gradients_on_the_card_match_the_cpu(card, arch):
         w = want[path]
         assert float((t.cpu() - w).abs().max()) <= 1e-4 * max(
             float(w.abs().max()), 1e-30), path
+
+
+# ---- the seeded form: paged_mha's in-chunk segment on the tensor cores ----
+
+def _segment_inputs(dev, B, Sq, Hq, Hkv, D, page, n, seed):
+    """bf16 q, a pool of B n + 1 pages, tables, a token mask and the
+    chunk's own k / v (what paged_mha takes at the cell's shapes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=dev).bfloat16()
+    kp, vp = (torch.randn((B * n + 1, page, Hkv, D), generator=g,
+                          device=dev).bfloat16() for _ in range(2))
+    table = torch.arange(B * n, dtype=torch.int32, device=dev).view(B, n)
+    mask = torch.rand((B, n * page), generator=g, device=dev) < 0.6
+    ck, cv = (torch.randn((B, Sq, Hkv, D), generator=g, device=dev)
+              .bfloat16() for _ in range(2))
+    return q, kp, vp, table, mask, ck, cv
+
+
+def _segment_against_plain(q, kp, vp, table, mask, ck, cv, Hkv, hint,
+                           views=False):
+    """paged_mha on the seeded form against kernel 1's same partials
+    finished by the plain version (``flash_mha_seeded_ref``), within kernel
+    1's bf16 limit (2 bf16 ulps at the output's largest magnitude); one
+    seeded launch a call, none on the plain path; a second call bit for
+    bit.  Returns the output."""
+    before = (fops.flash_mha.launches_seeded, fops.flash_mha.plain_segments)
+    got = paged_mha(q, kp, vp, table, mask, ck, cv, n_kv_heads=Hkv, **hint)
+    again = paged_mha(q, kp, vp, table, mask, ck, cv, n_kv_heads=Hkv, **hint)
+    ctx = ops.paged_chunk_attention(q, kp, vp, table, mask, **hint)
+    want = fref.flash_mha_seeded_ref(q, ck, cv, *ctx, n_kv_heads=Hkv)
+    torch.cuda.synchronize()
+    assert (fops.flash_mha.launches_seeded,
+            fops.flash_mha.plain_segments) == (before[0] + 2, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=flash_limit(want))
+    return got
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+def test_seeded_segment_at_the_cells_shape(card, B):
+    """ardit-self-forcing at 832x480: 4,680 queries (36 tiles of 128 and
+    one of 72) over their chunk's own 4,680 keys and two 4,680-token pages
+    behind a 77-token sink, 12 heads of 128, bf16 pages, 1-4 rows."""
+    Sq, H, D, page, n = 4680, 12, 128, 4680, 3
+    q, kp, vp, table, _, ck, cv = _segment_inputs(card, B, Sq, H, H, D,
+                                                  page, n, seed=4680 + B)
+    assert fops.seeded_path(q.dtype, D) == "wgmma"
+    _segment_against_plain(q, kp, vp, table, None, ck, cv, H,
+                           dict(sink=77, chunk_tokens=page))
+
+
+def test_seeded_segment_at_causal_forcings_heads(card):
+    """ardit-causal-forcing's 16 heads of 96 (two 64-column boxes, the
+    second half zeros) at its 2,640-token chunk, 2 rows, bf16 pages on
+    kernel 1's D 96 instance."""
+    B, Sq, H, D, page, n = 2, 2640, 16, 96, 2640, 3
+    q, kp, vp, table, _, ck, cv = _segment_inputs(card, B, Sq, H, H, D,
+                                                  page, n, seed=96)
+    _segment_against_plain(q, kp, vp, table, None, ck, cv, H,
+                           dict(sink=77, chunk_tokens=page))
+
+
+@pytest.mark.parametrize("Sq,Hq,Hkv,D", [(70, 4, 4, 128), (1000, 12, 12, 128),
+                                         (300, 8, 2, 96), (129, 6, 3, 128)],
+                         ids=["70", "1000", "300-gqa-4-d96", "129-gqa-2"])
+def test_seeded_segment_at_ragged_lengths(card, Sq, Hq, Hkv, D):
+    """Lengths that are not multiples of 128 (one item with rows past Sq,
+    a last key tile of 104, one of 1), GQA, a page mask."""
+    B, page, n = 2, 200, 3
+    q, kp, vp, table, mask, ck, cv = _segment_inputs(card, B, Sq, Hq, Hkv,
+                                                     D, page, n, seed=Sq)
+    _segment_against_plain(q, kp, vp, table, mask, ck, cv, Hkv, {})
+
+
+def test_seeded_segment_rows_that_see_no_context(card):
+    """A row whose page mask hides every context token (kernel 1's seed m =
+    -1e30, l = 0) and a fully-masked page: the row is attention over its
+    chunk alone."""
+    B, Sq, H, D, page, n = 3, 600, 4, 128, 300, 3
+    q, kp, vp, table, mask, ck, cv = _segment_inputs(card, B, Sq, H, H, D,
+                                                     page, n, seed=600)
+    mask3 = mask.view(B, n, page)
+    mask3[0, 1] = False
+    mask3[2] = False
+    got = _segment_against_plain(q, kp, vp, table, mask, ck, cv, H, {})
+    alone = fref.flash_mha_ref(q[2:], ck[2:], cv[2:], n_kv_heads=H,
+                               causal=False)
+    torch.testing.assert_close(got[2:].float(), alone.float(), rtol=0,
+                               atol=flash_limit(alone))
+
+
+def test_seeded_segment_reads_head_range_views(card):
+    """Elastic SP2: each half of the KV heads as its own paged_mha call,
+    the pools and the chunk's k / v as head-range views of the full
+    tensors (read in place), gives the full call's heads bit for bit."""
+    B, Sq, H, D, page, n = 2, 700, 12, 128, 400, 3
+    q, kp, vp, table, mask, ck, cv = _segment_inputs(card, B, Sq, H, H, D,
+                                                     page, n, seed=2)
+    full = _segment_against_plain(q, kp, vp, table, mask, ck, cv, H, {})
+    outs = []
+    for lo, hi in ((0, 6), (6, 12)):
+        before = fops.flash_mha.launches_seeded
+        outs.append(paged_mha(
+            shard_heads(q, H, lo, hi).contiguous(), kp[..., lo:hi, :],
+            vp[..., lo:hi, :], table, mask, shard_heads(ck, H, lo, hi),
+            shard_heads(cv, H, lo, hi), n_kv_heads=hi - lo))
+        assert fops.flash_mha.launches_seeded == before + 1
+    assert not shard_heads(ck, H, 6, 12).is_contiguous()
+    merged = merge_head_shards(outs, [6, 6])
+    assert torch.equal(merged.view(torch.int16), full.view(torch.int16))
+
+
+def test_seeded_segment_paths_and_refusals(card):
+    """fp32 and D 64 on the card keep the plain path (counted, no launch,
+    the plain version's bits); the seeded op refuses mixed dtypes,
+    partials of the wrong dtype, k whose heads are not dense and inputs
+    that need a gradient."""
+    q, kp, vp, table, mask, ck, cv = _segment_inputs(card, 1, 40, 2, 2, 128,
+                                                     50, 2, seed=1)
+    f = [t.float() for t in (q, kp, vp, ck, cv)]
+    before = (fops.flash_mha.launches_seeded, fops.flash_mha.plain_segments)
+    paged_mha(f[0], f[1], f[2], table, mask, f[3], f[4], n_kv_heads=2)
+    torch.cuda.synchronize()
+    assert (fops.flash_mha.launches_seeded,
+            fops.flash_mha.plain_segments) == (before[0], before[1] + 1)
+    m, l, acc = ops.paged_chunk_attention(q, kp, vp, table, mask)
+    q64, ck64, cv64 = (t[..., :64].contiguous() for t in (q, ck, cv))
+    for args in ((f[0], f[3], f[4], m, l, acc),
+                 (q64, ck64, cv64, m, l, acc[..., :64].contiguous())):
+        got = fops.flash_mha_seeded(*args, n_kv_heads=2)
+        assert torch.equal(got, fref.flash_mha_seeded_ref(*args,
+                                                          n_kv_heads=2))
+    assert (fops.flash_mha.launches_seeded,
+            fops.flash_mha.plain_segments) == (before[0], before[1] + 3)
+    with pytest.raises(TypeError, match="no kernel"):
+        fops.flash_mha_seeded(q, f[3], f[4], m, l, acc, n_kv_heads=2)
+    with pytest.raises(ValueError, match="fp32"):
+        fops.flash_mha_seeded(q, ck, cv, m.bfloat16(), l, acc, n_kv_heads=2)
+    with pytest.raises(ValueError, match="dense"):
+        fops.flash_mha_seeded(q, ck.transpose(2, 3).contiguous()
+                              .transpose(2, 3), cv, m, l, acc, n_kv_heads=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops.flash_mha_seeded(q.requires_grad_(), ck, cv, m, l, acc,
+                              n_kv_heads=2)

@@ -229,7 +229,8 @@ def test_round_counters_add_up(shape):
 
 def test_a_two_dtype_round_counts_one_split_launch():
     """One bf16 row and one fp8 row made runnable together: the round
-    launches twice, once beyond its first."""
+    launches twice, once beyond its first; each launch's layers run their
+    in-chunk segments on the plain path (CPU tensors)."""
     ts = _session(2, 1, 4, 3)
     now = ts._now()
     ts._drain_events(now)
@@ -241,9 +242,10 @@ def test_a_two_dtype_round_counts_one_split_launch():
     ran, _ = ts._dispatch_round(now)
     rec = trace.stop()
     assert ran
-    assert dict(rec.counters) == dict(rounds=1, launches=2, split_launches=1,
-                                      rows=2, runnable=2,
-                                      residency_refused=0)
+    assert dict(rec.counters) == {
+        **dict(rounds=1, launches=2, split_launches=1, rows=2, runnable=2,
+               residency_refused=0),
+        "flash_mha.plain_segments": 2 * CFG.n_layers}
     steps = [sp.attrs for sp in rec.spans if sp.name == "executor.run_step"]
     assert [s["keys"] for s in steps] == [["S2_r0.0_W2_bf16"],
                                           ["S2_r0.0_W2_fp8"]]
