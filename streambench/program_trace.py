@@ -2,7 +2,7 @@
 window, beside the benchmark's profile; not part of a run, and the
 check that decides ``correct`` is not made.
 
-    python3 streambench/program_trace.py --workload sf-overload \
+    python3 streambench/program_trace.py --workload sf-saturate \
         --seed 7 --seconds 45 --mode traced --out trace.json
 
 ``--mode traced``: the window under ``torch.profiler``, as ``run.py
@@ -447,7 +447,7 @@ def span_cost(n: int = 200_000) -> Dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", default="sf-overload")
+    ap.add_argument("--workload", default="sf-saturate")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--seconds", type=float, default=45.0)
     ap.add_argument("--mode", choices=("traced", "on", "off", "spans",

@@ -1,6 +1,6 @@
 """Run one cell of the benchmark and print its result line.
 
-    python3 streambench/run.py --workload sf-overload --seed 7 --seconds 45 \
+    python3 streambench/run.py --workload sf-saturate --seed 7 --seconds 45 \
         --trace 0
 
 From the root of a checkout on a machine with the cell's cards.  Set-up

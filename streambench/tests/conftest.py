@@ -1,5 +1,6 @@
 """The benchmark's tests: the repository's root and ``src`` on the path,
-one CPU thread (the tiny model is dominated by thread overhead)."""
+one CPU thread inside each test (the tiny model is dominated by thread
+overhead), the process's count given back after it."""
 import sys
 from pathlib import Path
 
@@ -11,7 +12,15 @@ for p in (str(ROOT / "src"), str(ROOT)):
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One CPU thread for the test, the previous count restored after it,
+    so that other tests collected in the same process keep theirs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture

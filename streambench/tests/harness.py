@@ -11,7 +11,7 @@ TINY = json.loads((HERE / "ardit-tiny.json").read_text())
 TINY_MIX = json.loads((HERE / "tiny-mix.json").read_text())
 
 
-def tiny_cell(name="sf-overload", trace=False):
+def tiny_cell(name="sf-saturate", trace=False):
     """``name``'s cell of BENCHMARK.json on the reduced configuration and a
     short, busy mix."""
     c = bench.cell(R.ROOT, name)
@@ -19,7 +19,7 @@ def tiny_cell(name="sf-overload", trace=False):
                       c.per_layer)
 
 
-def run_tiny(seed=7, seconds=2.0, session_hook=None, name="sf-overload"):
+def run_tiny(seed=7, seconds=2.0, session_hook=None, name="sf-saturate"):
     args = R.parse(["--workload", name, "--seed", str(seed),
                     "--seconds", str(seconds), "--trace", "0"])
     return R.run(args, device="cpu", cell=tiny_cell(name),

@@ -1,6 +1,8 @@
 """``correct`` comes out false for each fault a cell can have, planted
 under the timed path, and for the control (the program's own fp8 page path
 on every chunk, the reference told bfloat16); true for the sound run."""
+import itertools
+
 import pytest
 
 from harness import run_tiny
@@ -19,31 +21,42 @@ def patch_step(monkeypatch, fault):
     monkeypatch.setattr(A, "denoise_step_paged", broken)
 
 
-def state_unchanged(x, x_new, kv):
-    return x, kv
+def state_unchanged():
+    return lambda x, x_new, kv: (x, kv)
 
 
-def half_the_batch(x, x_new, kv):
-    keep = max(1, x.shape[0] // 2)
-    out = x_new.clone()
-    out[keep:] = x[keep:]
-    kv = {k: v.clone() for k, v in kv.items()}
-    for v in kv.values():
-        v[:, keep:] = 0
-    return out, kv
+def half_the_batch():
+    """Each launch leaves one half of its rows out (they keep their input
+    and write zero K and V), the two halves in turn, so that every stream
+    is hit whatever row the batcher gives it."""
+    launches = itertools.count()
+
+    def fault(x, x_new, kv):
+        b = x.shape[0]
+        mid = (b + 1) // 2
+        rows = slice(0, mid) if next(launches) % 2 == 0 else slice(mid, b)
+        out = x_new.clone()
+        out[rows] = x[rows]
+        kv = {k: v.clone() for k, v in kv.items()}
+        for v in kv.values():
+            v[:, rows] = 0
+        return out, kv
+    return fault
 
 
-def answer_altered(x, x_new, kv):
-    out = x_new.clone()
-    out[0, 0] += 1.0                     # one latent token of one row
-    return out, kv
+def answer_altered():
+    def fault(x, x_new, kv):
+        out = x_new.clone()
+        out[0, 0] += 1.0                 # one latent token of one row
+        return out, kv
+    return fault
 
 
 @pytest.mark.parametrize("fault", [state_unchanged, half_the_batch,
                                    answer_altered],
                          ids=lambda f: f.__name__)
 def test_fault_fails(monkeypatch, fault):
-    patch_step(monkeypatch, fault)
+    patch_step(monkeypatch, fault())
     res, _ = run_tiny(seed=31)
     assert res["correct"] is False
 
@@ -77,7 +90,7 @@ def test_control_on_the_card(cuda, monkeypatch):
     import time
 
     def go(hook=None):
-        args = R.parse(["--workload", "sf-overload", "--seed", "41",
+        args = R.parse(["--workload", "sf-saturate", "--seed", "41",
                         "--seconds", "2", "--trace", "0"])
         return R.run(args, device="cuda", cell=tiny_cell(),
                      session_hook=hook, t_process=time.perf_counter())
